@@ -4,9 +4,14 @@ The port of ``curriculum_learning_for_vln_tpu/agents/common.py``.  The
 JAX package runs an episode as one ``lax.scan``; here ``rollout_scan`` is
 a Python loop over a fixed ``episode_len`` that calls a model-specific
 step function and does the rest itself — observation metadata, action
-selection, stop conversion, reward shaping and the per-step records.
-Ended episodes are frozen by the env semantics and masked in the records;
-the early exit once every episode has ended is not ported yet.
+selection, stop conversion, reward shaping and the per-step records
+(per-sample CE against the teacher included).  Ended episodes are frozen
+by the env semantics and masked in the records; the early exit once
+every episode has ended is not ported yet.
+
+Sample feedback is Gumbel-max, argmax(logits + Gumbel noise), which is
+how ``jax.random.categorical`` is defined (common.py:135); the noise comes
+from the rollout's generator through ``gumbel_noise``.
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import torch
 from ..env import env as E
 from ..env.env import EnvState, EpisodeBatch
 from ..models.attention import NEG_INF
+from ..models.core import cross_entropy_per_sample
 from ..utils.angles import ANGLE_INC
+from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
 
 FEEDBACK_TEACHER = 0
@@ -35,6 +42,8 @@ class StepRecord(NamedTuple):
     view_after: torch.Tensor     # [T, B]
     moved: torch.Tensor          # [T, B] bool — a real move happened
     alive_before: torch.Tensor   # [T, B] bool — episode alive when acting
+    ce: torch.Tensor             # [T, B] per-sample CE vs teacher (0 where ignored)
+    ce_count: torch.Tensor       # [T] number of non-ignored samples
     logits: torch.Tensor         # [T, B, MC+1] masked logits
     log_prob: torch.Tensor       # [T, B] log pi(a_t)
     entropy: torch.Tensor        # [T, B] policy entropy
@@ -56,20 +65,23 @@ class RolloutResult(NamedTuple):
 def cast_compute_params(params, compute_dtype):
     """Compute copies of the float leaves of a parameter tree (bf16 halves
     the weight bytes every step reads); integer leaves and None stay."""
-    if isinstance(params, dict):
-        return {k: cast_compute_params(v, compute_dtype) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(cast_compute_params(v, compute_dtype) for v in params)
-    if isinstance(params, torch.Tensor) and params.is_floating_point():
-        return params.to(compute_dtype)
-    return params
+    return tree_map(lambda t: t.to(compute_dtype) if t.is_floating_point() else t, params)
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u ~ U[tiny, 1), as
+    ``jax.random.gumbel`` draws it."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
 
 
 def select_action(feedback: int, masked_logits: torch.Tensor, teacher: torch.Tensor,
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (action, log_prob, entropy) for the feedback mode
-    (ref: follower.py:131-139, envdrop.py:182-195)."""
+    (ref: follower.py:131-139, envdrop.py:182-195).  The action carries no
+    gradient; log_prob and entropy do."""
     logp = torch.log_softmax(masked_logits, dim=-1)
     probs = torch.exp(logp)
     entropy = -torch.sum(probs * torch.where(probs > 0, logp, 0.0), dim=-1)
@@ -78,7 +90,8 @@ def select_action(feedback: int, masked_logits: torch.Tensor, teacher: torch.Ten
     elif feedback == FEEDBACK_ARGMAX:
         action = torch.argmax(masked_logits, dim=-1)  # first maximum, as jnp.argmax
     else:
-        action = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        noise = gumbel_noise(masked_logits.shape, generator, masked_logits.device)
+        action = torch.argmax(masked_logits.detach() + noise, dim=-1)
     a_safe = action.clamp(0, masked_logits.shape[-1] - 1)
     log_prob = logp.gather(1, a_safe[:, None])[:, 0]
     return action, log_prob, entropy
@@ -111,6 +124,7 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
         logits, mc, hidden = model_step(mc, meta, state, t)
         masked = torch.where(meta.cand_mask, NEG_INF, logits)
         action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
+        ce = cross_entropy_per_sample(masked, meta.teacher, E.IGNORE_ID)
 
         alive_before = torch.logical_not(state.ended)
         is_stop = E.action_is_stop(world, state, action)
@@ -121,6 +135,8 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
             view_after=new_state.view_idx,
             moved=alive_before & torch.logical_not(is_stop),
             alive_before=alive_before,
+            ce=ce,
+            ce_count=(meta.teacher != E.IGNORE_ID).sum(),
             logits=masked,
             log_prob=log_prob,
             entropy=entropy,
@@ -134,6 +150,17 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
     steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
     return RolloutResult(final_state=state, start_node=state0.node, start_view=state0.view_idx,
                          steps=steps, model_carry=mc)
+
+
+def ml_loss_per_sample(steps: StepRecord) -> torch.Tensor:
+    """Per-sample CE summed over time — the SPCL/train_cl loss vector
+    (ref: follower.py:104,128)."""
+    return steps.ce.sum(dim=0)
+
+
+def ml_loss_sum(steps: StepRecord) -> torch.Tensor:
+    """EnvDrop's summed CE (ref: envdrop.py:179)."""
+    return steps.ce.sum()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across from the JAX package, and back.
 
 The port keeps the JAX package's parameter names and layouts (dense
 ``w`` [in, out]; LSTM ``w_ih`` [D, 4H], ``w_hh`` [H, 4H], ``b_ih``,
@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .engine.checkpoint import load_checkpoint
+from .engine.checkpoint import load_checkpoint, to_numpy
+from .utils.tree import tree_map
 
 # key paths every EnvDrop parameter tree holds
 _ENVDROP_KEYS = (
@@ -22,13 +23,7 @@ _ENVDROP_KEYS = (
 )
 
 
-def _to_torch(x):
-    if isinstance(x, dict):
-        return {k: _to_torch(v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_to_torch(v) for v in x]
-    if x is None:
-        return None
+def _leaf_to_torch(x):
     a = np.asarray(x)
     if a.dtype.kind == "f":
         a = a.astype(np.float32)
@@ -45,7 +40,14 @@ def params_from_jax(tree: dict) -> dict:
             if not isinstance(node, dict) or k not in node:
                 raise ValueError(f"not an EnvDrop parameter tree: missing {'/'.join(path)}")
             node = node[k]
-    return _to_torch(tree)
+    return tree_map(_leaf_to_torch, tree)
+
+
+def params_to_jax(params: dict) -> dict:
+    """The inverse of ``params_from_jax``: the tree of numpy f32 arrays in the
+    JAX layout (what the JAX package's checkpoint bundle holds): the port
+    keeps that layout, so only the array type changes."""
+    return to_numpy(params)
 
 
 def load_jax_checkpoint(path: str) -> dict:

@@ -64,15 +64,22 @@ def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
 # Dropout
 # ---------------------------------------------------------------------------
 
+def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout by a boolean keep-mask, in the dtype of x
+    (core.py:91-94: a bf16 x gives the bf16-rounded x / keep)."""
+    return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout with a keep-mask drawn from ``generator`` (on the
-    device of ``x``); identity when not training or rate == 0."""
+    """Inverted dropout with a keep-mask drawn from ``generator`` (torch's
+    Philox on the card; on the device of ``x``); identity when not
+    training or rate == 0 (core.py:97-101).  The JAX package's "rbg" fast
+    masks (core.py:61-88) are a TPU-only stream and have no counterpart."""
     if not train or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return apply_keep_mask(x, mask, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -119,3 +126,17 @@ def bilstm_layer(p_fwd: dict, p_bwd: Optional[dict], xs: torch.Tensor, lengths: 
     out_b, (h_b, c_b) = masked_lstm(p_bwd, xs, lengths, reverse=True)
     return (torch.cat([out_f, out_b], dim=-1),
             (torch.cat([h_f, h_b], dim=-1), torch.cat([c_f, c_b], dim=-1)))
+
+
+# ---------------------------------------------------------------------------
+# Loss helpers (per-sample, SPCL-ready; ref: follower.py:63, envdrop.py:70)
+# ---------------------------------------------------------------------------
+
+def cross_entropy_per_sample(logits: torch.Tensor, targets: torch.Tensor,
+                             ignore_id: int = -1) -> torch.Tensor:
+    """CE with ignore_index semantics, per-sample vector [B] (core.py:206):
+    masked logits (-1e30) carry zero probability, an ignored target 0."""
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = targets.clamp(0, logits.shape[-1] - 1)
+    picked = logp.gather(-1, tgt[:, None])[:, 0]
+    return torch.where(targets == ignore_id, 0.0, -picked)

@@ -2,11 +2,15 @@
 
 The port of the EnvDrop and critic parts of
 ``curriculum_learning_for_vln_tpu/models/decoders.py`` (ref:
-policy.py:173-267), in the fused-observation form the serving path runs:
-``envdrop_visual_query`` gives the query of the observation kernel (K4),
-and ``envdrop_decoder_from_vis`` takes its output through the action
-embedding, the LSTM cell, text attention and the candidate scorer (K6).
-The Follower and Self-Monitor decoders are not ported yet.
+policy.py:173-267), in the fused-observation form the serving and the
+training paths run: ``envdrop_visual_query`` gives the query of the
+observation op (K4, K5), and ``envdrop_decoder_from_vis`` takes its
+output through the action embedding, the LSTM cell, text attention and
+the candidate scorer (K6, K7).  At train=True each dropout site
+(decoders.py:196-244, 299-302) draws its mask from ``generator``, in the
+order the step runs them: the JAX package's fold_in indices 3, 0, 4, 5
+(1 and 2 are the observation ops' env-dropout).  The Follower and
+Self-Monitor decoders are not ported yet.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Instruction encoder: (bi)directional multi-layer LSTM.
 
 The port of ``curriculum_learning_for_vln_tpu/models/encoder.py`` (ref:
-units.py:12-74): embedding -> dropout -> packed (bi)LSTM stack (kernel
-K3 per direction) -> ctx (dropout) plus a decoder init state
-tanh(W h_T).
+units.py:12-74): embedding -> dropout -> packed (bi)LSTM stack (per
+direction kernel K3, or K1 forward and K2 backward under autograd) -> ctx
+(dropout) plus a decoder init state tanh(W h_T).  At train=True the
+dropout masks are drawn from ``generator`` in the order the JAX
+package's fold_in indices name them (0 embeddings, 10+ between layers,
+1 the context).
 """
 from __future__ import annotations
 

@@ -28,9 +28,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ENTRY_POINTS = {"lstm_scan": "lstm_scan", "pano_fused": "pano_attend", "cand_score": "cand_score"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation dtype: f32, or f64 for f64 inputs
+    (the CPU gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def nvcc_path() -> str:
@@ -78,14 +83,14 @@ def build(names: Iterable[str] = SOURCES, ptxas_verbose: bool = False) -> Dict[s
     return logs
 
 
-def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``<name>`` of ``csrc/<name>.cu`` (built on first
+def kernel_function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<source>.cu`` (built on first
     use), declared with ``argtypes`` and an ``int`` (cudaError_t) result."""
-    lib = _libs.get(name)
+    lib = _libs.get(source)
     if lib is None:
-        build([name])
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, ENTRY_POINTS[name])
+        build([source])
+        lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
+    fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

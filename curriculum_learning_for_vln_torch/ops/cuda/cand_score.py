@@ -1,16 +1,19 @@
-"""K6: candidate scoring for the EnvDrop decoder tail, CUDA kernel and
-plain twin.
+"""K6 and K7: candidate scoring for the EnvDrop decoder tail, forward and
+backward; CUDA kernels and plain twins.
 
-Replaces ``curriculum_learning_for_vln_tpu/ops/pallas/cand_score.py::
-cand_score_fwd_pallas`` in its mask mode "none" (no env-dropout: the
-serving path, train=False).  Kernel: ``csrc/cand_score.cu`` — one block
-per sample, one warp per candidate; it is bound by the device-memory
-bytes of the candidate rows (the source says what the design does about
-that).  The ext and in-kernel-RNG mask modes are not ported yet.
+K6 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/cand_score.py::
+cand_score_fwd_pallas``, K7 its ``cand_score_bwd_pallas``, each in the
+mask modes "none", "ext" and "prng" (``drop.py``; the TPU-only
+"prng_shared" mode is not ported yet).  Kernel: ``csrc/cand_score.cu`` —
+one block per sample; the forward takes one warp per candidate, the
+backward one 16-byte column chunk per thread.  Both are bound by the
+device-memory bytes of the candidate rows (the source says what the
+design does about that).
 
-``cand_score`` dispatches by device: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel; there is no fallback between them.
-``launches`` counts kernel launches.
+``cand_score`` and ``cand_score_bwd`` dispatch by device: a CPU tensor
+goes to the plain version, a CUDA tensor to the kernel; there is no
+fallback between them.  ``launches`` counts K6 launches, ``bwd_launches``
+K7 launches.
 """
 from __future__ import annotations
 
@@ -19,62 +22,119 @@ import ctypes
 import torch
 
 from . import build
+from .drop import NO_DROP, DropSpec, c_args, dropped
 
 launches = 0
+bwd_launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_uint32,
+                  ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _DROP_ARGTYPES
+
+
+def _rows(cand_img, cand_angle, drop):
+    """[dropped image rows ; angle rows rounded to the table dtype] in f32."""
+    img = dropped(cand_img, drop)
+    return torch.cat([img, cand_angle.to(cand_img.dtype).to(img.dtype)], dim=-1)
 
 
 def cand_score_plain(cand_img: torch.Tensor, cand_angle: torch.Tensor,
-                     cand_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+                     cand_valid: torch.Tensor, q: torch.Tensor,
+                     drop: DropSpec = NO_DROP) -> torch.Tensor:
     """cand_img [B, MC, D] (table dtype), cand_angle [B, MC, A] (rounded to
     the table dtype, as cand_score.py:124 does), cand_valid [B, MC] bool,
     q [B, D+A] f32.  Returns logits [B, MC+1] f32: valid candidates score
-    [img ; angle] . q, invalid ones and the STOP slot MC score 0."""
-    D = cand_img.shape[-1]
-    ang = cand_angle.to(cand_img.dtype).float()
-    q = q.float()
-    s = (torch.einsum("bkd,bd->bk", cand_img.float(), q[:, :D])
-         + torch.einsum("bka,ba->bk", ang, q[:, D:]))
+    [drop(img) ; angle] . q, invalid ones and the STOP slot MC score 0."""
+    rows = _rows(cand_img, cand_angle, drop)
+    s = torch.einsum("bkf,bf->bk", rows, q.to(rows.dtype))
     s = torch.where(cand_valid, s, 0.0)
     return torch.cat([s, s.new_zeros((s.shape[0], 1))], dim=1)
 
 
+def cand_score_bwd_plain(cand_img: torch.Tensor, cand_angle: torch.Tensor,
+                         cand_valid: torch.Tensor, d_logits: torch.Tensor,
+                         drop: DropSpec = NO_DROP) -> torch.Tensor:
+    """The cotangent d_q [B, D+A] f32 of ``cand_score_plain``'s q:
+    sum_j valid_j d_logits[:, j] [drop(img_j) ; angle_j]."""
+    MC = cand_img.shape[1]
+    rows = _rows(cand_img, cand_angle, drop)
+    w = torch.where(cand_valid, d_logits[:, :MC].to(rows.dtype), 0.0)
+    return torch.einsum("bk,bkf->bf", w, rows)
+
+
+def _check(name, cand_img, ang, cand_valid, vec, vec_name, vec_shape):
+    B, MC, D = cand_img.shape
+    A = ang.shape[-1]
+    if cand_img.dtype not in build.DTYPE_CODES:
+        raise TypeError(f"{name}: candidate rows must be float32 or bfloat16, "
+                        f"got {cand_img.dtype}")
+    if (D * cand_img.element_size()) % 16:
+        raise ValueError(f"{name}: candidate rows must be a multiple of 16 bytes (D={D})")
+    for arg, t, shape, dt in (("cand_angle", ang, (B, MC, A), cand_img.dtype),
+                              ("cand_valid", cand_valid, (B, MC), torch.bool),
+                              (vec_name, vec, vec_shape, torch.float32)):
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {dt} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    ins = (cand_img, ang, cand_valid, vec)
+    if any(t.device != cand_img.device for t in ins) or not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{name}: all inputs must be contiguous and on one CUDA device")
+    return B, MC, D, A
+
+
 def cand_score_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
-                    cand_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``cand_score_plain`` as one launch of the CUDA kernel."""
+                    cand_valid: torch.Tensor, q: torch.Tensor,
+                    drop: DropSpec = NO_DROP) -> torch.Tensor:
+    """``cand_score_plain`` as one launch of K6."""
     global launches
     B, MC, D = cand_img.shape
-    A = cand_angle.shape[-1]
-    dtype = cand_img.dtype
-    if dtype not in build.DTYPE_CODES:
-        raise TypeError(f"cand_score: candidate rows must be float32 or bfloat16, got {dtype}")
-    if (D * cand_img.element_size()) % 16:
-        raise ValueError(f"cand_score: candidate rows must be a multiple of 16 bytes (D={D})")
-    ang = cand_angle.to(dtype)
-    for name, t, shape, dt in (("cand_angle", ang, (B, MC, A), dtype),
-                               ("cand_valid", cand_valid, (B, MC), torch.bool),
-                               ("q", q, (B, D + A), torch.float32)):
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"cand_score: {name} must be {dt} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    ins = (cand_img, ang, cand_valid, q)
-    if any(t.device != cand_img.device for t in ins) or not all(t.is_contiguous() for t in ins):
-        raise ValueError("cand_score: all inputs must be contiguous and on one CUDA device")
+    ang = cand_angle.to(cand_img.dtype)
+    B, MC, D, A = _check("cand_score", cand_img, ang, cand_valid, q, "q",
+                         (B, D + ang.shape[-1]))
+    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score")
     logits = torch.empty((B, MC + 1), dtype=torch.float32, device=cand_img.device)
-    fn = build.kernel_function("cand_score", _ARGTYPES)
+    fn = build.kernel_function("cand_score", "cand_score", _ARGTYPES)
     err = fn(cand_img.data_ptr(), ang.data_ptr(), cand_valid.data_ptr(), q.data_ptr(),
-             logits.data_ptr(), B, MC, D, A, build.DTYPE_CODES[dtype],
+             logits.data_ptr(), B, MC, D, A, build.DTYPE_CODES[cand_img.dtype], *dargs,
              build.stream_handle(cand_img))
     build.check_launch(err, "cand_score")
     launches += 1
     return logits
 
 
-def cand_score(cand_img: torch.Tensor, cand_angle: torch.Tensor,
-               cand_valid: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def cand_score_bwd_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
+                        cand_valid: torch.Tensor, d_logits: torch.Tensor,
+                        drop: DropSpec = NO_DROP) -> torch.Tensor:
+    """``cand_score_bwd_plain`` as one launch of K7."""
+    global bwd_launches
+    B, MC, D = cand_img.shape
+    ang = cand_angle.to(cand_img.dtype)
+    B, MC, D, A = _check("cand_score_bwd", cand_img, ang, cand_valid, d_logits, "d_logits",
+                         (B, MC + 1))
+    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score_bwd")
+    d_q = torch.empty((B, D + A), dtype=torch.float32, device=cand_img.device)
+    fn = build.kernel_function("cand_score", "cand_score_bwd", _ARGTYPES)
+    err = fn(cand_img.data_ptr(), ang.data_ptr(), cand_valid.data_ptr(), d_logits.data_ptr(),
+             d_q.data_ptr(), B, MC, D, A, build.DTYPE_CODES[cand_img.dtype], *dargs,
+             build.stream_handle(cand_img))
+    build.check_launch(err, "cand_score_bwd")
+    bwd_launches += 1
+    return d_q
+
+
+def cand_score(cand_img: torch.Tensor, cand_angle: torch.Tensor, cand_valid: torch.Tensor,
+               q: torch.Tensor, drop: DropSpec = NO_DROP) -> torch.Tensor:
     if cand_img.device.type == "cuda":
-        return cand_score_cuda(cand_img, cand_angle, cand_valid, q)
+        return cand_score_cuda(cand_img, cand_angle, cand_valid, q, drop)
     if cand_img.device.type == "cpu":
-        return cand_score_plain(cand_img, cand_angle, cand_valid, q)
+        return cand_score_plain(cand_img, cand_angle, cand_valid, q, drop)
     raise ValueError(f"cand_score: no implementation for device {cand_img.device}")
+
+
+def cand_score_bwd(cand_img: torch.Tensor, cand_angle: torch.Tensor, cand_valid: torch.Tensor,
+                   d_logits: torch.Tensor, drop: DropSpec = NO_DROP) -> torch.Tensor:
+    if cand_img.device.type == "cuda":
+        return cand_score_bwd_cuda(cand_img, cand_angle, cand_valid, d_logits, drop)
+    if cand_img.device.type == "cpu":
+        return cand_score_bwd_plain(cand_img, cand_angle, cand_valid, d_logits, drop)
+    raise ValueError(f"cand_score_bwd: no implementation for device {cand_img.device}")

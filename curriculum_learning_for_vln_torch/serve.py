@@ -25,15 +25,8 @@ from .agents.common import FEEDBACK_ARGMAX, RolloutResult, assemble_trajectories
 from .convert import load_jax_checkpoint
 from .env.env import EpisodeBatch
 from .utils.tokenizer import Tokenizer
+from .utils.tree import tree_map
 from .world.compiler import CompiledWorld, resolve_device
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_device(v, device) for v in tree]
-    return tree if tree is None else tree.to(device)
 
 
 class Navigator:
@@ -54,7 +47,8 @@ class Navigator:
         if self.tables.features.dtype != agent.compute_dtype:
             raise ValueError(f"precision {precision!r} gives a {self.tables.features.dtype} "
                              f"feature table but the agent computes in {agent.compute_dtype}")
-        self.params = _to_device(cast_compute_params(params, agent.compute_dtype), self.device)
+        self.params = tree_map(lambda t: t.to(self.device),
+                               cast_compute_params(params, agent.compute_dtype))
 
     @classmethod
     def from_checkpoint(cls, world: CompiledWorld, agent, ckpt_path: str,
@@ -98,7 +92,7 @@ class Navigator:
 
     @torch.inference_mode()
     def rollout(self, ep: EpisodeBatch) -> RolloutResult:
-        return self.agent.rollout(self.params, self.tables, ep, FEEDBACK_ARGMAX, train=False)
+        return self.agent.rollout(self.params, self.tables, ep, FEEDBACK_ARGMAX, train=False)[1]
 
     def navigate_batch(self, requests: Sequence[dict]) -> List[dict]:
         """Each request: {"instruction", "scan", "start_viewpoint",

@@ -18,6 +18,7 @@ Index tables are int64, the index type torch's gathers take.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -112,9 +113,32 @@ class CompiledWorld:
     def scan_of(self, global_id: int) -> str:
         return self.scan_ids[int(self.node_scan[global_id])]
 
+    def scan_dist(self, scan: str) -> np.ndarray:
+        """[V, V] distance matrix of one scan (for the evaluator)."""
+        s = self.scan_ids.index(scan)
+        o, e = int(self.scan_offset[s]), int(self.scan_offset[s + 1])
+        return self.dist[o:e, : e - o]
+
     @property
     def num_nodes(self) -> int:
         return self.pos.shape[0]
+
+    # -- on-disk cache (the JAX package's world.npz layout) -----------------
+    _FIELDS = ("scan_offset", "node_scan", "node_local", "pos", "cand_next", "cand_valid",
+               "cand_heading", "cand_elev", "cand_view", "n_cands", "dist", "next_hop")
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(path, scan_ids=np.array(self.scan_ids),
+                            node_ids=np.array(self.node_ids),
+                            **{k: getattr(self, k) for k in self._FIELDS})
+
+    @staticmethod
+    def load(path: str) -> "CompiledWorld":
+        z = np.load(path, allow_pickle=False)
+        return CompiledWorld(scan_ids=[str(s) for s in z["scan_ids"]],
+                             node_ids=[str(s) for s in z["node_ids"]],
+                             **{k: z[k] for k in CompiledWorld._FIELDS})
 
     # -- device export ----------------------------------------------------
     def device_tables(self, precision: str = "f32", device=None) -> WorldTables:
