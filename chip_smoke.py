@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's EnvDrop serving and training paths on one GPU.
+"""Drive the PyTorch port's EnvDrop serving and training paths, and the
+paper's curriculum recipe, on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only
@@ -15,10 +16,13 @@
    call where there is one, and the least time the card could take:
    K3 (LSTM scan), K1 and K2 (training forward and backward of the scan;
    at the token lengths of the synthetic instructions, which the serve and
-   train phases run, and at lengths up to MAX_ENC_LEN = 80), K4 and K5 (observation step forward and backward) and K6 and K7
-   (candidate scoring forward and backward), the last four in the mask
-   modes none, ext and prng (the plain prng mode draws the kernels' Philox
-   bits, so prng is held to the tolerance of the arithmetic).
+   train phases run, and at lengths up to MAX_ENC_LEN = 80), K4 and K5
+   (observation step forward and backward) and K6 and K7 (candidate
+   scoring forward and backward), the last four in the mask modes none,
+   ext, prng and prng_shared (the plain prng modes draw the kernels'
+   Philox bits, so they are held to the tolerance of the arithmetic), and
+   K8 (the fused LSTM cell, which no path runs) at the EnvDrop decoder
+   cell's shape beside ``torch.lstm_cell``.
 4. Serve phase: EnvDrop at the full width of
    ``configs/envdrop/envdrop_config.yaml`` (random weights from a seed) on
    a synthetic world of 12 scans x 64 nodes with 2048-d features, answering
@@ -34,7 +38,19 @@
    T_il + 35) and a profile of one.  (c) Finite losses and changed
    parameters.  (d) A checkpoint written by the port, served by the port's
    ``Navigator``.
-6. Prints one ``{"kernels": [...]}`` line, the card's name and power
+6. Curriculum phase: ``configs/envdrop/envdrop_cl_config.yaml`` as
+   shipped (PACKED_RL 3), the same world and width, its request paths cut
+   into 5 rounds by length.  (a) ``NaiveCurriculum(switch_epoch=1)``, 2
+   epochs x 2 iterations and an evaluation: round_1, then the cumulative
+   round_2.  (b) One SPCL packed weighted iteration in ``OBS_MASKS
+   prng_shared`` through the kernels against the plain versions (loss and
+   every gradient leaf).  (c) + (d) ``SelfPacedCurriculum.train``, one
+   epoch of packed iterations, each with its launches checked exactly (K1
+   = K2 = 4, K4 = K6 = T_il + 36, K5 = K7 = T_il + 35) and timed: ms,
+   episodes done, completed episodes/s, and the device-busy share of one
+   under the profiler.  (e) The SPCL update at the epoch's end (BURN_IN 0,
+   INTERVAL 1) against a numpy recomputation.
+7. Prints one ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -44,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,17 +68,20 @@ import tempfile
 import time
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 SEED = 0
 BATCH = 64
 NUM_SCANS, NODES_PER_SCAN, FEAT_DIM = 12, 64, 2048
 CONFIG = "configs/envdrop/envdrop_config.yaml"
+CL_CONFIG = "configs/envdrop/envdrop_cl_config.yaml"
 VOCAB = "assets/train_vocab.txt"
 SERVE_CALLS = 4          # distinct micro-batches of BATCH requests
 SERVE_ROUNDS = 2         # timed passes over them
 TRAIN_ITERS = 6          # timed training iterations (after one warm-up)
-MODES = ("none", "ext", "prng")
+CURRICULUM_ITERS = 8     # SPCL packed iterations (a warm-up, 6 timed, one profiled)
+MODES = ("none", "ext", "prng", "prng_shared")
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -82,7 +102,11 @@ KERNELS = {
                    "cand_score", "launches"),
     "cand_score_bwd": ("csrc/cand_score.cu", "ops/pallas/cand_score.py:151",
                        "cand_score", "bwd_launches"),
+    "lstm_cell": ("csrc/lstm_cell.cu", "ops/pallas/lstm.py:47", "lstm_cell", "launches"),
 }
+# K8 is on no path of either package (ops/rnn.py keeps the decoder's cell
+# plain): the kernel phase alone launches it.
+OFF_PATH = ("lstm_cell",)
 
 
 def log(*args):
@@ -133,9 +157,11 @@ def compare(got, want, rtol: float):
 
 
 def modules():
-    from curriculum_learning_for_vln_torch.ops.cuda import cand_score, lstm_scan, pano_fused
+    from curriculum_learning_for_vln_torch.ops.cuda import (cand_score, lstm_cell, lstm_scan,
+                                                            pano_fused)
 
-    return {"lstm_scan": lstm_scan, "pano_fused": pano_fused, "cand_score": cand_score}
+    return {"lstm_scan": lstm_scan, "pano_fused": pano_fused, "cand_score": cand_score,
+            "lstm_cell": lstm_cell}
 
 
 def launch_counts():
@@ -156,7 +182,8 @@ def plain_kernels():
     mods = modules()
     names = {"lstm_scan": ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"),
              "pano_fused": ("pano_attend", "pano_attend_bwd"),
-             "cand_score": ("cand_score", "cand_score_bwd")}
+             "cand_score": ("cand_score", "cand_score_bwd"),
+             "lstm_cell": ("lstm_cell",)}
     saved = {(m, f): getattr(mods[m], f) for m, fs in names.items() for f in fs}
     for (m, f) in saved:
         setattr(mods[m], f, getattr(mods[m], f + "_plain"))
@@ -176,12 +203,12 @@ def drop_spec(mode, B, rows, D, gen, device, keep=0.7):
     if mode == "ext":
         return DropSpec("ext", mask=torch.rand((B, rows, D), generator=gen, device=device) < keep,
                         keep=keep)
-    return DropSpec("prng", seeds=philox.draw_seeds(B, gen, device), keep=keep)
+    return DropSpec(mode, seeds=philox.draw_seeds(B, gen, device), keep=keep)
 
 
 def drop_bytes(drop) -> int:
     return nbytes(drop.mask) if drop.mode == "ext" else (
-        nbytes(drop.seeds) if drop.mode == "prng" else 0)
+        nbytes(drop.seeds) if drop.mode in ("prng", "prng_shared") else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +463,40 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
     return res
 
 
+def lstm_cell_phase(dtype, device, gen, B=BATCH, Din=64 + FEAT_DIM + 128, H=512, iters=100):
+    """K8 at the EnvDrop decoder cell's shape: x = [action embedding ;
+    attended panorama] (64 + 2048 + 128), h and c 512 wide, every operand
+    in ``dtype``.  Six weight sets in turn exceed the 50 MB L2, so the timed
+    launches read the weights from device memory."""
+    k = modules()["lstm_cell"]
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen, device=device) * 2 - 1) / H ** 0.5).to(dtype)
+
+    x, h, c = (torch.randn(B, n, generator=gen, device=device).to(dtype) for n in (Din, H, H))
+    weights = [(u(Din, 4 * H), u(H, 4 * H), u(4 * H)) for _ in range(6)]
+    got = k.lstm_cell(x, h, c, *weights[0])
+    want = k.lstm_cell_plain(x, h, c, *weights[0])
+    # f32 sums of 2752 products in another order; bf16 outputs are rounded
+    # to bf16, one ulp of which is 2^-8 relative
+    err = compare(got, want, 1e-4 if dtype == torch.float32 else 8e-3)
+    ms = cuda_time_ms(lambda i: k.lstm_cell(x, h, c, *weights[i % 6]), iters)
+    plain_ms = cuda_time_ms(lambda i: k.lstm_cell_plain(x, h, c, *weights[i % 6]), 10)
+    lib_w = [(w_ih.t().contiguous(), w_hh.t().contiguous(), b) for w_ih, w_hh, b in weights]
+    try:
+        zero = torch.zeros_like(weights[0][2])  # b_hh: K8's b is b_ih + b_hh
+        lib_ms = cuda_time_ms(lambda i: torch.lstm_cell(x, (h, c), *lib_w[i % 6], zero), iters)
+    except RuntimeError as e:  # no fused cell of this dtype: no yardstick
+        log(f"  torch.lstm_cell in {dtype}: {e}".splitlines()[0])
+        lib_ms = None
+    moved = nbytes(x, h, c, *weights[0], *got)
+    return {"name": "lstm_cell", "max_abs_err": err[0], "tol": err[1], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call": "torch.lstm_cell (weights transposed to torch's layout beforehand)",
+            "shape": {"B": B, "Din": Din, "H": H},
+            "bound": bound_ms(moved, 2 * B * (Din + H) * 4 * H, dtype)}
+
+
 def kernel_phases(world, lengths, device):
     """Every kernel in bf16 and f32; returns {(name, prec): result}, the
     observation kernels' results in the prng mode (the training path's)
@@ -472,6 +533,15 @@ def kernel_phases(world, lengths, device):
                     f"{b_ms:.4f} ms ({b_by})")
             results[(r["name"], prec)] = r
         del features
+        modules()["lstm_cell"].launches = 0
+        r = results[("lstm_cell", prec)] = lstm_cell_phase(dtype, device, gen)
+        r["kernel_phase_launches"] = modules()["lstm_cell"].launches
+        check(r["max_abs_err"] <= r["tol"],
+              f"lstm_cell {prec}: |kernel - plain| {r['max_abs_err']:.3g} > {r['tol']:.3g}")
+        log(f"lstm_cell        {prec:4s} B={BATCH} Din={r['shape']['Din']} H={r['shape']['H']}: "
+            f"max|kernel-plain| {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) | kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.lstm_cell "
+            f"{fmt(r['library_ms'])} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
         for name in ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"):
             for r in (results[(name, prec)], results[(name, prec)]["long"]):
                 b_ms, b_by = r["bound"]
@@ -742,7 +812,8 @@ def train_phase(world, data, tok, cfg, m, params0, requests, device):
         losses.append(loss)
         counts = launch_counts()
         t_il = il or T
-        want = dict(lstm_scan_train=4, lstm_scan_bwd=4, lstm_scan=0, pano_attend=t_il + T + 1,
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(lstm_scan_train=4, lstm_scan_bwd=4, pano_attend=t_il + T + 1,
                     cand_score=t_il + T + 1, pano_attend_bwd=t_il + T, cand_score_bwd=t_il + T)
         check(counts == want, f"train launches {counts}, expected {want} (T_il {t_il})")
         for k, v in counts.items():
@@ -774,6 +845,248 @@ def train_phase(world, data, tok, cfg, m, params0, requests, device):
         f"{sum(len(o['trajectory']) - 1 for o in outs)} moves")
     return {"ms": [t * 1e3 for t in times], "median_ms": med * 1e3, "launches": totals,
             "busy": (wall, busy), "loss_err": loss_err, "grad_rel_err": grad_err}
+
+
+# ---------------------------------------------------------------------------
+# Curriculum phase
+# ---------------------------------------------------------------------------
+
+def curriculum_setup(world, data, tok, device):
+    """The CL config as shipped (PACKED_RL 3, SPCL parameters) on the bench
+    world: its train paths cut into 5 rounds by path length (as
+    pipeline.build_synthetic_universe cuts the synthetic universe), the
+    cumulative NAIVE round envs, the SELF-PACE env, and a val_unseen env
+    of the paths the requests leave out."""
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.env.host_env import CLR2RBatchEnv, R2RBatchEnv
+    from curriculum_learning_for_vln_torch.utils.config import get_cfg_defaults
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(CL_CONFIG)
+    check(cfg.TPU.PACKED_RL == 3, "the CL config ships PACKED_RL 3")
+    train = sorted(data[:SERVE_CALLS * BATCH], key=lambda it: it["distance"])
+    per = len(train) // 5
+    rounds = {f"round_{k}": expand_r2r_items(train[(k - 1) * per: k * per if k < 5 else None],
+                                             tok) for k in range(1, 6)}
+    naive, acc = {}, []
+    for k in range(1, 6):
+        acc = acc + rounds[f"round_{k}"]
+        naive[f"round_{k}"] = R2RBatchEnv(world, acc, BATCH, tok, SEED + k, device=device)
+    spcl_env = CLR2RBatchEnv(world, rounds, BATCH, cfg.TRAIN.SELF_PACE.CRATE, tok, SEED,
+                             device=device)
+    valid = {"val_unseen": R2RBatchEnv(world, expand_r2r_items(data[SERVE_CALLS * BATCH:], tok),
+                                       BATCH, tok, SEED + 12, "val_unseen", device=device)}
+    return cfg, naive, spcl_env, valid
+
+
+def spcl_reference(w0, lamb0, loss, a, c, mu, pace):
+    """One SPCL update (lambda, then weights) in numpy f32, for (e)."""
+    f32 = np.float32
+    lamb = f32(lamb0 + mu) if lamb0 < loss.max() else f32(lamb0 + f32(mu / 2))
+    easy = {"linear": lambda: 1 - loss / lamb, "binary": lambda: np.ones_like(loss),
+            "log": lambda: np.log(loss + (1 - lamb)) / np.log(1 - lamb)}[pace]()
+    w = np.maximum(np.where(loss >= lamb, f32(0.01), easy), f32(0.01)).astype(f32)
+    aw = np.dot(a, w)
+    if aw > c:
+        w = w + a * (c - aw) / np.dot(a, a)
+        w = np.where(w <= 0, f32(0.001), w)
+    return w.astype(f32), lamb
+
+
+def curriculum_phase(world, data, tok, params0, device):
+    """The paper's recipe as the CL config ships it, B = 64, T = 35, bf16:
+    (a) NAIVE rounds, (b) one SPCL packed weighted iteration in
+    OBS_MASKS prng_shared through the kernels against the plain versions,
+    (c) + (d) timed SPCL packed iterations through the trainer with exact
+    launch counts, (e) the SPCL update on the card against numpy."""
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.engine import curriculum, loop
+    from curriculum_learning_for_vln_torch.engine import trainer as trainer_mod
+    from curriculum_learning_for_vln_torch.engine.trainer import il_bucket_fn
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    cfg, naive_envs, spcl_env, valid = curriculum_setup(world, data, tok, device)
+    m, T = cfg.MODEL.ENVDROP, cfg.AGENT.MAX_EPISODE_LEN
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def agent_for(masks):
+        return EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                            compute_dtype=PRECISIONS[cfg.TPU.PRECISION], obs_masks=masks)
+
+    def run_cfg(*extra):
+        c = cfg.clone()
+        c.merge_from_list(["OUTPUT.CKPT_DIR", tmp, "OUTPUT.TSBOARD_DIR", "",
+                           "OUTPUT.LOG_DIR", "", *extra])
+        return c
+
+    # (a) NAIVE, switch every epoch: round_1, then the cumulative round_2
+    class Naive(curriculum.NaiveCurriculum):
+        def select_env(self, train_env, ep):
+            env = super().select_env(train_env, ep)
+            self.used.append((ep, env))
+            return env
+
+    naive = Naive(switch_epoch=1)
+    naive.used = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    c = run_cfg("TRAIN.MAX_EPOCH", 2, "TRAIN.ITER_PER_EPOCH", 2, "TRAIN.EVAL_INTERVAL", 2)
+    _, best = naive.train(c, agent_for("prng"), "", naive_envs, valid, seed=SEED, device=device)
+    naive_counts = launch_counts()
+    used = {ep: env for ep, env in naive.used if ep > 0}
+    r1, r2 = naive_envs["round_1"], naive_envs["round_2"]
+    check(used.get(1) is r1 and used.get(2) is r2, "NAIVE epoch 1 on round_1, epoch 2 on round_2")
+    check(r2.data[:r1.size()] == r1.data and r2.size() > r1.size(), "round_2 holds round_1")
+    check(naive_counts["lstm_scan_train"] == 4 * 4, f"NAIVE: 4 packed iterations {naive_counts}")
+    out["naive"] = {"rounds": [r1.size(), r2.size()], "launches": naive_counts,
+                    "val_unseen_sr": best["val_unseen"]["success_rate"],
+                    "s": time.perf_counter() - t0}
+    log(f"curriculum (a): NAIVE switch 1: epoch 1 on round_1 ({r1.size()} episodes), epoch 2 on "
+        f"round_2 ({r2.size()}); 2 x 2 packed iterations + eval in {out['naive']['s']:.1f} s; "
+        f"launches {naive_counts}")
+
+    # (b) SPCL, prng_shared: one packed weighted iteration, kernels vs plain
+    agent = agent_for("prng_shared")
+    spcl = curriculum.SelfPacedCurriculum.from_config(cfg, spcl_env, device=device)
+    tables = world.device_tables(cfg.TPU.PRECISION, device)
+    il_bucket = il_bucket_fn(cfg, agent)
+    params = tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0)
+    leaves = tree.tree_leaves(params)
+    raws, idx = [], []
+    for _ in range(cfg.TPU.PACKED_RL):
+        raws.append(spcl_env.next_batch())
+        idx.append(spcl_env.cur_batch_index)
+        if len(raws) == 1:
+            il_len = il_bucket(spcl_env)
+    pool = loop.concat_batches(raws)
+    loop.check_pool_valid(pool)
+    w_il, w_pool = spcl.batch_weights(idx[0]), spcl.batch_weights(np.concatenate(idx))
+    check(bool((w_pool != w_pool[0]).any()), "the SPCL weights differ across the pool")
+
+    def grads():
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        total, logs = loop.packed_iteration_loss(agent, tables, params, raws[0], pool, gen,
+                                                 w_il, w_pool, il_len)
+        for p in leaves:
+            p.grad = None
+        total.backward()
+        loop.clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
+        return total.item(), int(logs["episodes_done"]), [p.grad.clone() for p in leaves]
+
+    loss_k, done_k, g_k = grads()
+    with plain_kernels():
+        loss_p, done_p, g_p = grads()
+    loss_err = abs(loss_k - loss_p)
+    check(loss_err <= 1e-4 * max(1.0, abs(loss_p)),
+          f"SPCL packed loss kernels {loss_k} vs plain {loss_p}")
+    grad_err = 0.0
+    for gk, gp in zip(g_k, g_p):
+        scale = max(float(gp.abs().max()), 1e-6)
+        e = float((gk - gp).abs().max())
+        grad_err = max(grad_err, e / scale)
+        check(e <= 1e-2 * scale, f"an SPCL packed gradient leaf of shape {tuple(gk.shape)}: "
+                                 f"|kernel - plain| {e:.3g} > {1e-2 * scale:.3g}")
+    for p in leaves:
+        p.grad = None
+    out["packed_check"] = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_err": loss_err,
+                           "grad_rel_err": grad_err, "episodes_done": [done_k, done_p],
+                           "il_len": il_len}
+    log(f"curriculum (b): SPCL packed weighted iteration, prng_shared: loss kernels "
+        f"{loss_k:.6f} plain {loss_p:.6f} (|diff| {loss_err:.3g}); worst gradient leaf "
+        f"|kernel - plain| / max|plain| {grad_err:.3g} (tol 1e-2); episodes done {done_k} / "
+        f"{done_p} of a pool of {pool.valid.shape[0]}, il_len {il_len}")
+
+    # (c), (d), (e): SPCL through its trainer, one epoch, the update at its end
+    times, done, started, per_iter, profiled, snap = [], [], [], [], {}, {}
+    packed_one_iter = loop.packed_one_iter
+    profiled_iter = CURRICULUM_ITERS - 1  # the last one, under the profiler, is not timed
+
+    def timed(*args):
+        before = launch_counts()
+        il = args[-1]
+        t0 = time.perf_counter()
+        if len(times) == profiled_iter:
+            box = []
+            profiled["wall"], profiled["busy"], profiled["rows"] = profile(
+                lambda: box.append(packed_one_iter(*args)))
+            logs = box[0]
+        else:
+            logs = packed_one_iter(*args)
+        n = int(logs["episodes_done"])  # a sync: the iteration has finished
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        done.append(n)
+        started.append(int(logs["episodes_started"]))
+        after = launch_counts()
+        t_il = il or T
+        got = {k: after[k] - before[k] for k in KERNELS}
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(lstm_scan_train=4, lstm_scan_bwd=4, pano_attend=t_il + T + 1,
+                    cand_score=t_il + T + 1, pano_attend_bwd=t_il + T, cand_score_bwd=t_il + T)
+        check(got == want, f"packed iteration launches {got}, expected {want} (T_il {t_il})")
+        per_iter.append((t_il, got))
+        return logs
+
+    class Spcl(curriculum.SelfPacedCurriculum):
+        def end_epoch(self, ep, writer):
+            snap.update(w=self.weight.cpu().numpy(), lamb=float(self.lamb),
+                        loss=self.loss_for_item.cpu().numpy())
+            super().end_epoch(ep, writer)
+
+    c = run_cfg("TRAIN.CLMODE", "SELF-PACE", "TPU.OBS_MASKS", "prng_shared",
+                "TRAIN.MAX_EPOCH", 1, "TRAIN.ITER_PER_EPOCH", CURRICULUM_ITERS,
+                "TRAIN.EVAL_INTERVAL", 100, "TRAIN.SELF_PACE.BURN_IN", 0,
+                "TRAIN.SELF_PACE.INTERVAL", 1)
+    trainer = Spcl.from_config(c, spcl_env, device=device)
+    trainer_mod.packed_one_iter = timed
+    try:
+        reset_launch_counts()
+        trainer.train(c, agent, "", spcl_env, valid, seed=SEED, device=device)
+        totals = launch_counts()
+    finally:
+        trainer_mod.packed_one_iter = packed_one_iter
+    check(len(times) == CURRICULUM_ITERS, f"{len(times)} packed iterations")
+    # the first iteration warms the allocator, the last ran under the profiler
+    steady = times[1:profiled_iter]
+    med = statistics.median(steady)
+    eps_per_s = sum(done[1:profiled_iter]) / sum(steady)
+    busy = profiled["busy"] / profiled["wall"]
+    out["packed"] = {"ms": [t * 1e3 for t in times], "median_ms": med * 1e3,
+                     "episodes_done": done, "episodes_started": started,
+                     "episodes_per_s": eps_per_s, "launches": totals, "per_iteration": per_iter,
+                     "busy": (profiled["wall"], profiled["busy"])}
+    log(f"curriculum (c): launches per packed iteration exact: "
+        f"{[(t_il, g['lstm_scan_train'], g['pano_attend'], g['pano_attend_bwd']) for t_il, g in per_iter]}"
+        f" (T_il, K1, K4, K5); totals {totals}")
+    log(f"curriculum (d): {len(steady)} timed SPCL packed iterations (after one warm-up; one "
+        f"more under the profiler), ms per iteration median {med * 1e3:.2f} (min "
+        f"{min(steady) * 1e3:.2f}, max {max(steady) * 1e3:.2f}; all "
+        f"{[round(t * 1e3, 2) for t in times]}); episodes done {done} of started {started} "
+        f"(pool {BATCH * cfg.TPU.PACKED_RL}); completed episodes/s {eps_per_s:.1f} over the timed "
+        f"iterations; device busy {100 * busy:.1f}% of one iteration")
+    print_profile("one SPCL packed iteration", profiled["wall"], profiled["busy"],
+                  profiled["rows"])
+
+    # (e) the update at the epoch's end against numpy
+    w_ref, lamb_ref = spcl_reference(snap["w"], snap["lamb"], snap["loss"],
+                                     spcl_env.a, np.float32(spcl_env.c),
+                                     c.TRAIN.SELF_PACE.MIU, c.TRAIN.SELF_PACE.FUNC)
+    w_err = float(np.abs(trainer.weight.cpu().numpy() - w_ref).max())
+    lamb_err = abs(float(trainer.lamb) - float(lamb_ref))
+    recorded = int((snap["loss"] > 0).sum())
+    check(recorded >= BATCH and w_err <= 1e-6 and lamb_err <= 1e-6,
+          f"SPCL update on the card: |w - numpy| {w_err:.3g}, |lambda - numpy| {lamb_err:.3g}, "
+          f"{recorded} items recorded")
+    check(not np.array_equal(trainer.weight.cpu().numpy(), snap["w"]), "the weights moved")
+    out["spcl_update"] = {"w_err": w_err, "lamb_err": lamb_err, "lamb": float(trainer.lamb),
+                          "recorded_items": recorded}
+    log(f"curriculum (e): SPCL update on the card: lambda {snap['lamb']} -> "
+        f"{float(trainer.lamb)}, {recorded} of {len(spcl_env)} items recorded, "
+        f"max|w - numpy| {w_err:.3g}, |lambda - numpy| {lamb_err:.3g} (tol 1e-6)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -840,13 +1153,25 @@ def main() -> int:
     log(f"train: {train['median_ms']:.2f} ms per iteration (median of {TRAIN_ITERS}), device "
         f"busy {100 * tb / tw:.1f}% under the profiler | {card}")
 
-    # each kernel's launches on its main path: the serve run for K3, the
-    # training run for the others
+    cur = curriculum_phase(world, data, tok, params, device)
+    pk = cur["packed"]
+    pw, pb = pk["busy"]
+    log(f"curriculum: {pk['median_ms']:.2f} ms per SPCL packed iteration (median of "
+        f"{CURRICULUM_ITERS - 2}), {pk['episodes_per_s']:.1f} completed episodes/s, device busy "
+        f"{100 * pb / pw:.1f}% under the profiler | {card}")
+
+    # each kernel's launches on its main path: the serve run for K3, this
+    # slice's SPCL packed training run for the others; K8 is on no path
     kernels = []
     for name, (src, tpu, _, _) in KERNELS.items():
         r, r32 = results[(name, precision)], results[(name, "f32")]
-        launches = serve_counts[name] if name == "lstm_scan" else train["launches"][name]
-        check(launches > 0, f"{name} launched on its main path")
+        if name in OFF_PATH:
+            launches, path = 0, "none: no path of either package runs it (kernel phase only)"
+        elif name == "lstm_scan":
+            launches, path = serve_counts[name], "serve"
+        else:
+            launches, path = pk["launches"][name], "SPCL packed training (curriculum phase)"
+        check(launches > 0 or name in OFF_PATH, f"{name} launched on its main path")
         entry = {
             "name": name, "route": "cuda", "source": f"curriculum_learning_for_vln_torch/{src}",
             "replaces": f"curriculum_learning_for_vln_tpu/{tpu}",
@@ -854,8 +1179,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": precision,
             "library_call": r["library_call"], "check": "ok",
-            "main_path": "serve" if name == "lstm_scan" else "train",
-            "serve_launches": serve_counts[name],
+            "main_path": path, "serve_launches": serve_counts[name],
+            "classic_train_launches": train["launches"][name],
             "f32": {k: r32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
         }
@@ -868,8 +1193,10 @@ def main() -> int:
                                      for prec, x in ((precision, r), ("f32", r32))}
         else:
             entry["tol"] = r["tol"]
+        if name in OFF_PATH:
+            entry.update(shape=r["shape"], kernel_phase_launches=r["kernel_phase_launches"])
         if "modes" in r:
-            entry["mask_mode"] = "prng"
+            entry["mask_mode"] = "prng (prng_shared on the SPCL path: under modes)"
             entry["modes"] = r["modes"]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))

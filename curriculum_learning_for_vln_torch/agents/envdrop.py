@@ -10,10 +10,12 @@ candidate scorer (K6/K7).  At ``train=True`` every dropout site draws its
 mask from the rollout's generator, in the order the step runs them; the
 observation ops' env-dropout masks follow ``obs_masks`` (TPU.OBS_MASKS,
 loop.py:68-71): "prng" (per-sample seeds drawn per step and per site,
-masks made in the kernels) or "ext" (keep-masks drawn here).
+masks made in the kernels), "prng_shared" (the same seeds, one mask per
+group of 8 rows) or "ext" (keep-masks drawn here).  ``rollout_packed``
+(envdrop.py:124-183) is the sampled A2C rollout over an episode pool
+(agents/packed.py).
 
-``rollout_packed`` and the hand-written BPTT path (``FUSED_BPTT``) are
-not ported yet.
+The hand-written BPTT path (``FUSED_BPTT``) is not ported.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ from ..utils.angles import make_angle_feat
 from ..utils.tokenizer import PAD_IDX
 from ..world.compiler import WorldTables
 from . import common as C
+from .packed import PackedLosses, PackedResult, packed_a2c, packed_rollout_scan
 
-OBS_MASK_MODES = ("prng", "ext")
+OBS_MASK_MODES = ("prng", "prng_shared", "ext")
 
 
 class EnvDropLosses(NamedTuple):
@@ -87,20 +90,23 @@ class EnvDropAgent:
         if not train or rate == 0.0:
             return NO_DROP
         keep = 1.0 - rate
-        if self.obs_masks == "prng":
-            return DropSpec("prng", seeds=philox.draw_seeds(B, generator, device), keep=keep)
+        if self.obs_masks in ("prng", "prng_shared"):
+            return DropSpec(self.obs_masks, seeds=philox.draw_seeds(B, generator, device),
+                            keep=keep)
         return DropSpec("ext", mask=draw_keep_mask((B, rows, D_), keep, generator, device),
                         keep=keep)
 
-    def _decode(self, dec: dict, world: WorldTables, ctx, ctx_mask, train: bool,
+    def _decode(self, dec: dict, world: WorldTables, train: bool,
                 generator: Optional[torch.Generator]):
-        """One decoder step: visual query, observation op (K4), decoder,
-        candidate scorer (K6)."""
+        """One decoder step with the text context passed in — shared by the
+        per-batch rollout and the packed one, which gathers its context
+        rows per step (envdrop.py:78-121): visual query, observation op
+        (K4), decoder, candidate scorer (K6)."""
         drop = self.cfg.DROP_RATE
-        B = ctx.shape[0]
         _, V, Dim = world.features.shape
 
-        def decode(mc, meta: E.ObsMeta, state: E.EnvState):
+        def decode(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
+            B = ctx.shape[0]
             _h, c, h_tilde = mc
             a_t_angle = make_angle_feat(state.heading, state.elevation)
             tv = D.envdrop_visual_query(dec, h_tilde, train, drop, generator)
@@ -121,6 +127,44 @@ class EnvDropAgent:
 
         return decode
 
+    def _check_dtype(self, world: WorldTables) -> None:
+        if world.features.dtype != self.compute_dtype:
+            # the JAX package silently drops its fused path on this mismatch
+            raise ValueError(f"feature table dtype {world.features.dtype} differs from the "
+                             f"compute dtype {self.compute_dtype}")
+
+    def rollout_packed(self, params: dict, world: WorldTables, pool: EpisodeBatch,
+                       batch_size: int, episode_len: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[PackedLosses, PackedResult]:
+        """The sampled A2C rollout over an episode pool of N = factor * B
+        episodes, ``batch_size`` slots at a time (agents/packed.py): the
+        pool encoded once, the shared ``decode`` per step, the critic on a
+        last decode step, and ``packed_a2c``.  With N == B it computes the
+        unpacked ``rollout(train_rl=True)`` A2C loss."""
+        self._check_dtype(world)
+        params = C.cast_compute_params(params, self.compute_dtype)
+        drop = self.cfg.DROP_RATE
+        ctx_mask_pool = pool.instr_tokens == PAD_IDX
+        ctx_pool, h0_pool, c0_pool = encoder_apply(params["encoder"], pool.instr_tokens,
+                                                   pool.instr_len, True, drop, generator)
+        decode = self._decode(params["decoder"], world, True, generator)
+        result = packed_rollout_scan(world, pool, ctx_pool, ctx_mask_pool, h0_pool, c0_pool,
+                                     decode, batch_size, episode_len or self.episode_len,
+                                     compute_dtype=self.compute_dtype, generator=generator)
+        # A2C tail, as rollout's (ref: envdrop.py:222-264)
+        with torch.no_grad():  # one extra decode step bootstraps the return
+            final, ids = result.final_state, result.final_slot_ep
+            meta = E.observe_meta(world, final, self.compute_dtype)
+            _, _, last_h = decode(result.final_carry, ctx_pool[ids], ctx_mask_pool[ids], meta,
+                                  final)
+            last_value = D.critic_apply(params["critic"], last_h, True, drop, generator)
+        values = D.critic_apply(params["critic"], result.steps.hidden.flip(0), True, drop,
+                                generator)
+        losses = packed_a2c(result, values, last_value, self.cfg.GAMMA, self.cfg.RL_NORMALIZE,
+                            ctx_pool.shape[0])
+        return losses, result
+
     def rollout(self, params: dict, world: WorldTables, ep: EpisodeBatch, feedback: int,
                 train: bool = False, train_ml: bool = True, train_rl: bool = False,
                 episode_len: Optional[int] = None,
@@ -132,20 +176,17 @@ class EnvDropAgent:
         and the sampled actions."""
         if feedback != C.FEEDBACK_SAMPLE:
             train_rl = False  # (ref: envdrop.py:100)
-        if world.features.dtype != self.compute_dtype:
-            # the JAX package silently drops its fused path on this mismatch
-            raise ValueError(f"feature table dtype {world.features.dtype} differs from the "
-                             f"compute dtype {self.compute_dtype}")
+        self._check_dtype(world)
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask = ep.instr_tokens == PAD_IDX
         ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
                                     drop, generator)
         B = ep.instr_tokens.shape[0]
-        decode = self._decode(params["decoder"], world, ctx, ctx_mask, train, generator)
+        decode = self._decode(params["decoder"], world, train, generator)
 
         def model_step(mc, meta, state, t):
-            return decode(mc, meta, state)
+            return decode(mc, ctx, ctx_mask, meta, state)
 
         # h_tilde starts as the encoder's h (ref: envdrop.py:150)
         result = C.rollout_scan(world, ep, (h0, c0, h0), model_step,
@@ -159,7 +200,7 @@ class EnvDropAgent:
             with torch.no_grad():  # one extra decode step bootstraps the return
                 final = result.final_state
                 meta = E.observe_meta(world, final, self.compute_dtype)
-                _, _, last_h = decode(result.model_carry, meta, final)
+                _, _, last_h = decode(result.model_carry, ctx, ctx_mask, meta, final)
                 last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
             # critic values of all steps, latest first, as one batched call
             values = D.critic_apply(params["critic"], steps.hidden.flip(0), train, drop,

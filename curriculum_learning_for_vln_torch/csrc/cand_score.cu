@@ -134,8 +134,9 @@ DropSpec drop_spec(int mode, const void* mask, const void* seeds, float keep, un
 }  // namespace
 
 // K6.  img [B, MC, D] and ang [B, MC, A] in the table dtype; valid [B, MC]
-// bool; q [B, D + A] f32; mode 0 (none), 1 (mask: bool [B, MC, D]) or 2
-// (seeds: int64 [B]) with keep = 1 - rate and the prng threshold thr.
+// bool; q [B, D + A] f32; mode 0 (none), 1 (mask: bool [B, MC, D]), 2
+// (seeds: int64 [B]) or 3 (seeds, one mask per group of 8 rows) with keep =
+// 1 - rate and the prng threshold thr.
 // Writes logits [B, MC + 1] f32.  D * sizeof(T) must be a multiple of 16.
 extern "C" int cand_score(const void* img, const void* ang, const void* valid, const void* q,
                           void* logits, int B, int MC, int D, int A, int dtype, int mode,

@@ -80,13 +80,20 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
-enum { DROP_NONE = 0, DROP_EXT = 1, DROP_PRNG = 2 };
+enum { DROP_NONE = 0, DROP_EXT = 1, DROP_PRNG = 2, DROP_PRNG_SHARED = 3 };
+
+// Rows per group of the prng_shared mode: rows b with the same b / 8 share
+// one keep-mask, drawn from the seed of the group's first row (the JAX
+// kernels' G = 8 sample groups, pano_fused.py:128-134, cand_score.py:39-49;
+// a short last group is allowed).
+constexpr int SHARED_GROUP = 8;
 
 // How a kernel drops the image rows it reads: not at all, by an external
-// keep-mask [B, rows, D] (bool), or by the Philox draw of a per-sample
-// seed [B] (int64).  A kept element becomes round_to<T>(x / keep), a
-// dropped one 0: the bf16 rounding of the dropped value before the f32
-// accumulation that pano_fused.py:54-59 and cand_score.py:52-57 do.
+// keep-mask [B, rows, D] (bool), by the Philox draw of a per-sample seed
+// [B] (int64), or by that of the group's first seed (prng_shared).  A kept
+// element becomes round_to<T>(x / keep), a dropped one 0: the bf16
+// rounding of the dropped value before the f32 accumulation that
+// pano_fused.py:54-59 and cand_score.py:52-57 do.
 struct DropSpec {
   int mode;
   const bool* mask;
@@ -109,7 +116,10 @@ __device__ __forceinline__ void load_dropped(const T* p, int b, size_t block_ele
 #pragma unroll
     for (int i = 0; i < N; ++i) kept[i] = m[i];
   } else {
-    const uint64_t s = (uint64_t)d.seeds[b];
+    // prng_shared: every row of a group computes the same bits (one draw per
+    // group held in shared memory would save the repeats; later work)
+    const int row = d.mode == DROP_PRNG_SHARED ? b - b % SHARED_GROUP : b;
+    const uint64_t s = (uint64_t)d.seeds[row];
     const uint32_t k0 = (uint32_t)s, k1 = (uint32_t)(s >> 32);
 #pragma unroll
     for (int q = 0; q < N / 4; ++q) {

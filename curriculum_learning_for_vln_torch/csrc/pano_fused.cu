@@ -18,11 +18,13 @@
 // reduction), a transform of the 36 dots in shared memory (the softmax, or
 // its VJP with the saved a), then a weighted sum in which every thread
 // owns a 16-byte column chunk and walks the views.  One block per sample.
-// The mask is never stored: the prng mode regenerates each element's bits
+// The mask is never stored: the prng modes regenerate each element's bits
 // in both passes, and the backward regenerates the forward's bits from the
-// same seed.  The TPU kernels' one-hot MXU matmul for the candidate rows,
-// their G = 8 sample groups and the 36 -> 40 view padding exist for
-// Mosaic's alignment rules and DMA pipeline, and are not carried over; the
+// same seed (in prng_shared, the seed of the row's group of 8).  The TPU
+// kernels' one-hot MXU matmul for the candidate rows, their G = 8 sample
+// tiles and the 36 -> 40 view padding exist for Mosaic's alignment rules
+// and DMA pipeline, and are not carried over (prng_shared keeps only the
+// groups' meaning: one mask per 8 rows); the
 // backward does not emit the candidate rows its Pallas twin re-emits (the
 // caller discards them, fused_obs.py:154).
 //
@@ -172,8 +174,9 @@ DropSpec drop_spec(int mode, const void* mask, const void* seeds, float keep, un
 
 // K4.  nodes, views [B] and cand_view [B, MC] int64; features [N, V, D] in
 // the table dtype; loc_embed [36, V, A] f32; tv [B, D + A] f32; mode 0
-// (none), 1 (mask: bool [B, V, D]) or 2 (seeds: int64 [B]), keep = 1 -
-// rate and thr the keep threshold of the prng mode.  Writes vis [B, D + A]
+// (none), 1 (mask: bool [B, V, D]), 2 (seeds: int64 [B]) or 3 (seeds, one
+// mask per group of 8 rows), keep = 1 - rate and thr the keep threshold of
+// the prng modes.  Writes vis [B, D + A]
 // f32, alpha [B, V] f32 and cand [B, MC, D] in the table dtype.
 // D * sizeof(T) must be a multiple of 16.
 extern "C" int pano_attend(const void* nodes, const void* views, const void* cand_view,

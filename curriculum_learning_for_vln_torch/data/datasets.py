@@ -1,4 +1,4 @@
-"""R2R dataset loading and instruction expansion.
+"""R2R / CLR2R dataset loading and instruction expansion.
 
 A copy of the parts of ``curriculum_learning_for_vln_tpu/data/datasets.py``
 that the port runs (numpy only), kept in the port so that it imports
@@ -9,16 +9,26 @@ nothing of the JAX package:
 * ``expand_r2r_items`` splits each path item into one entry per
   instruction with ``instr_id = "<path_id>_<j>"`` and pre-encoded tokens
   (ref: src/environ/common_env.py:130-141).
+* CLR2R round splits are named ``train_round[<k>]_v3`` (k = 1..5), a
+  partition of the R2R train set by curriculum difficulty
+  (ref: src/environ/curriculum_env.py:44-62); ``load_clr2r_rounds`` reads
+  all five, expanded, keyed "round_<k>".
 
-The RxR, R4R and CLR2R loaders are not ported yet.
+The RxR and R4R loaders are not ported yet.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..utils.tokenizer import Tokenizer
+
+CLR2R_ROUNDS = 5
+
+
+def clr2r_split_name(k: int) -> str:
+    return f"train_round[{k}]_v3"
 
 
 def load_datasets(splits: Sequence[str], dataset: str = "R2R", data_dir: str = "assets") -> List[dict]:
@@ -50,3 +60,16 @@ def expand_r2r_items(
             new_item["instr_encoding"], new_item["instr_length"] = enc
             out.append(new_item)
     return out
+
+
+def load_clr2r_rounds(
+    tokenizer: Tokenizer,
+    data_dir: str,
+    allowed_scans: Optional[set] = None,
+) -> Dict[str, List[dict]]:
+    """All 5 CLR2R rounds, expanded, keyed "round_<k>"."""
+    rounds: Dict[str, List[dict]] = {}
+    for k in range(1, CLR2R_ROUNDS + 1):
+        items = load_datasets([clr2r_split_name(k)], dataset="CLR2R", data_dir=data_dir)
+        rounds[f"round_{k}"] = expand_r2r_items(items, tokenizer, allowed_scans)
+    return rounds

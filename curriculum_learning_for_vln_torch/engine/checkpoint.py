@@ -13,8 +13,13 @@ without importing either.  (The orbax directory format is not read.)
 numpy arrays in the JAX layout (``convert.params_to_jax``), so either
 package's loader reads them; ``opt_state`` the port's own optimizer state
 (``torch.optim`` state dict, tensors as numpy); ``rng`` the state of the
-port's generator; only numpy arrays and builtin containers, so
-``load_checkpoint`` reads it back whole.
+port's generator; ``curriculum`` a curriculum trainer's state in the
+JAX package's form (SPCL: {"weight", "lamb", "loss_for_item"}, numpy);
+only numpy arrays and builtin containers, so ``load_checkpoint`` reads it
+back whole.  ``restore_training_state`` takes the optimizer and generator
+state of a port bundle only: a JAX bundle's optax state and PRNG key have
+no counterpart in the port, so resuming one restarts both (its
+parameters and curriculum state carry over).
 """
 from __future__ import annotations
 
@@ -75,7 +80,7 @@ def to_numpy(tree: Any) -> Any:
 
 def save_checkpoint(path: str, params: dict, optimizer: Optional[torch.optim.Optimizer] = None,
                     generator: Optional[torch.Generator] = None, epoch: int = 0,
-                    cfg_yaml: Optional[str] = None) -> None:
+                    cfg_yaml: Optional[str] = None, curriculum: Optional[dict] = None) -> None:
     """Write one bundle atomically (a temporary file, then a rename)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     bundle = {
@@ -84,7 +89,7 @@ def save_checkpoint(path: str, params: dict, optimizer: Optional[torch.optim.Opt
         "model_state": {},
         "rng": generator.get_state().numpy().copy() if generator is not None else None,
         "epoch": int(epoch),
-        "curriculum": None,
+        "curriculum": to_numpy(curriculum) if curriculum is not None else None,
         "cfg_yaml": cfg_yaml,
         "extra": {},
     }
@@ -96,11 +101,12 @@ def save_checkpoint(path: str, params: dict, optimizer: Optional[torch.optim.Opt
 
 def restore_training_state(bundle: dict, optimizer: Optional[torch.optim.Optimizer] = None,
                            generator: Optional[torch.Generator] = None) -> int:
-    """Load a port bundle's optimizer and generator state; returns its epoch."""
-    if optimizer is not None and bundle.get("opt_state") is not None:
+    """Load a port bundle's optimizer and generator state; returns its epoch.
+    A JAX bundle's (an optax state, a uint32 PRNG key) is left out."""
+    opt_state, rng = bundle.get("opt_state"), bundle.get("rng")
+    if optimizer is not None and isinstance(opt_state, dict) and "param_groups" in opt_state:
         optimizer.load_state_dict(tree_map(
-            lambda x: torch.from_numpy(x.copy()) if isinstance(x, np.ndarray) else x,
-            bundle["opt_state"]))
-    if generator is not None and bundle.get("rng") is not None:
-        generator.set_state(torch.from_numpy(np.asarray(bundle["rng"], np.uint8).copy()))
+            lambda x: torch.from_numpy(x.copy()) if isinstance(x, np.ndarray) else x, opt_state))
+    if generator is not None and isinstance(rng, np.ndarray) and rng.dtype == np.uint8:
+        generator.set_state(torch.from_numpy(rng.copy()))
     return int(bundle.get("epoch", 0))

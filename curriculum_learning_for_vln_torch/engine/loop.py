@@ -7,10 +7,15 @@ summed loss (ref: tasks/R2R-judy/src/engine/trainer.py:411-427; JAX
 loop.py:97-173) — run eagerly: two rollouts through autograd, one
 backward, a clip of the encoder's and the decoder's gradients at 40, one
 optimizer step.  SPCL weighting enters as a per-sample weight vector
-(``weights``) so the curriculum trainers of the next slice plug in.
+(``weights``), so one iteration serves the classic and the curriculum
+trainers.  The packed iteration (``TPU.PACKED_RL``, loop.py:277-342)
+runs the IL arm on one batch and the A2C arm over a pool of ``factor``
+batches (agents/packed.py); weighted, its objective is dot(w_il, ml_vec)
++ dot(w_pool, rl_loss_per_episode).
 
 Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
-packed-RL and scanned (``SCAN_ITERS``) iterations are not ported.
+scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
+ported.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from ..agents.common import (FEEDBACK_ARGMAX, FEEDBACK_IDS, FEEDBACK_SAMPLE, FEEDBACK_TEACHER,
                              assemble_trajectories)
+from ..env.env import EpisodeBatch
 from ..utils.tree import tree_leaves
 from ..world.compiler import WorldTables
 
@@ -112,18 +118,91 @@ def iteration_loss(agent, feedback: str, tables: WorldTables, params: dict, ep,
     return total, logs
 
 
-def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
-             params: dict, ep, generator: Optional[torch.Generator],
-             weights: Optional[torch.Tensor] = None, il_len: Optional[int] = None) -> dict:
-    """One training iteration: ``iteration_loss``, its gradients, the clip
-    at 40 of the encoder's and the decoder's, one optimizer step on
-    ``params`` (in place).  Returns the detached logs."""
-    total, logs = iteration_loss(agent, feedback, tables, params, ep, generator, weights, il_len)
+def packed_iteration_loss(agent, tables: WorldTables, params: dict, ep: EpisodeBatch,
+                          pool: EpisodeBatch, generator: Optional[torch.Generator],
+                          w_il: Optional[torch.Tensor] = None,
+                          w_pool: Optional[torch.Tensor] = None, il_len: Optional[int] = None):
+    """The objective of one packed iteration (loop.py:300-331): the
+    teacher-forced IL rollout on ``ep`` as in ``iteration_loss``, and the
+    packed A2C rollout over ``pool`` (every episode valid, ``ep`` its
+    first B) with B slots.  With SPCL weights for the IL batch ``w_il``
+    [B] and for the pool ``w_pool`` [N] the total is dot(w_il, ml_vec) +
+    dot(w_pool, rl_loss_per_episode); all-ones weights give the unweighted
+    total.  Returns (total loss, logs)."""
+    if agent.name != "ENVDROP":
+        raise NotImplementedError("packed RL is implemented for ENVDROP")
+    B = ep.instr_tokens.shape[0]
+    il, _ = agent.rollout(params, tables, ep, FEEDBACK_TEACHER, train=True, train_ml=True,
+                          train_rl=False, episode_len=il_len, generator=generator)
+    rl, _ = agent.rollout_packed(params, tables, pool, batch_size=B, generator=generator)
+    ml_vec = il.ml_loss_per_sample
+    if w_il is None:
+        total = il.ml_loss + rl.rl_loss
+    else:
+        total = torch.dot(w_il, ml_vec) + torch.dot(w_pool, rl.rl_loss_per_episode)
+    logs = {
+        "loss": total,
+        "ml_loss": il.ml_loss,
+        "rl_loss": rl.rl_loss,
+        # SPCL per-item record for the IL batch (ref: curriculum.py:313)
+        "loss_per_sample": ml_vec * ml_vec.shape[0],
+        "entropy": rl.entropy_sum,
+        "critic_loss": rl.critic_loss_sum,
+        "total_actions": rl.total_actions,
+        "episodes_done": rl.episodes_done,
+        "episodes_started": rl.episodes_started,
+    }
+    return total, logs
+
+
+def _update(optimizer: torch.optim.Optimizer, params: dict, total: torch.Tensor,
+            logs: dict) -> dict:
+    """Gradients of ``total``, the clip at 40 of the encoder's and the
+    decoder's, one optimizer step on ``params`` (in place); the detached
+    logs."""
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
     optimizer.step()
     return {k: v.detach() for k, v in logs.items()}
+
+
+def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
+             params: dict, ep, generator: Optional[torch.Generator],
+             weights: Optional[torch.Tensor] = None, il_len: Optional[int] = None) -> dict:
+    """One training iteration: ``iteration_loss`` and one update of
+    ``params``.  Returns the detached logs."""
+    total, logs = iteration_loss(agent, feedback, tables, params, ep, generator, weights, il_len)
+    return _update(optimizer, params, total, logs)
+
+
+def packed_one_iter(agent, optimizer: torch.optim.Optimizer, tables: WorldTables, params: dict,
+                    ep: EpisodeBatch, pool: EpisodeBatch, generator: Optional[torch.Generator],
+                    w_il: Optional[torch.Tensor] = None, w_pool: Optional[torch.Tensor] = None,
+                    il_len: Optional[int] = None) -> dict:
+    """One packed iteration: ``packed_iteration_loss`` and one update of
+    ``params``.  Returns the detached logs, ``episodes_done`` and
+    ``episodes_started`` among them."""
+    total, logs = packed_iteration_loss(agent, tables, params, ep, pool, generator, w_il,
+                                        w_pool, il_len)
+    return _update(optimizer, params, total, logs)
+
+
+def concat_batches(batches) -> EpisodeBatch:
+    """Concatenate EpisodeBatches along the batch axis: the episode pool of
+    a packed rollout."""
+    return EpisodeBatch(*(torch.cat(fields, dim=0) for fields in zip(*batches)))
+
+
+def check_pool_valid(pool: EpisodeBatch) -> None:
+    """Raise unless every episode of a packed pool is valid: the packed
+    rollout refills ended slots assuming each pool entry is a real episode,
+    and a padding entry would be refilled born-ended, wasting a slot-step
+    and inflating episodes_started (loop.py:260-274).  One device fetch:
+    call it once per run, never per iteration."""
+    if not bool(pool.valid.all()):
+        raise ValueError("packed RL pool contains invalid (padding) episodes; "
+                         "TPU.PACKED_RL requires a full-valid wraparound train iterator")
 
 
 def build_eval_rollout(agent) -> Callable:

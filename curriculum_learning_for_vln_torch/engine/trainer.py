@@ -6,8 +6,17 @@ per-epoch iteration loop over ``engine.loop.one_iter``, the eval cadence
 on val_seen/val_unseen with argmax feedback, best-SR checkpoints per split
 with superseded-file cleanup, a rotating "latest" checkpoint, scalar
 logging, and ``OUTPUT.RESUME``.  Checkpoints hold the optimizer and
-generator state too.  One device, eager: no mesh, no ``SCAN_ITERS``, no
-packed-RL branch and no compile warm-up.
+generator state too, and the curriculum state of a curriculum trainer.
+With ``TPU.PACKED_RL`` >= 2 (the shipped EnvDrop configs set 3) each
+iteration draws that many batches: IL on the first, the packed A2C
+rollout over all of them (trainer.py:204-216, 279-298).
+
+The curriculum trainers (engine/curriculum.py) are this trainer with its
+hooks overridden: ``select_env`` / ``iter_env`` choose the episode source,
+``batch_weights`` / ``record_losses`` / ``end_epoch`` carry SPCL's
+per-item weights, loss record and update, ``curriculum_state`` /
+``load_curriculum_state`` its checkpoint entry.  One device, eager: no
+mesh, no ``SCAN_ITERS`` and no compile warm-up.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import os.path as osp
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..convert import params_from_jax
@@ -25,7 +35,8 @@ from ..utils.tree import tree_map
 from ..world.compiler import resolve_device
 from .checkpoint import load_checkpoint, restore_training_state, save_checkpoint
 from .evaluator import Evaluation
-from .loop import build_eval_rollout, make_optimizer, one_iter, run_eval
+from .loop import (build_eval_rollout, check_pool_valid, concat_batches, make_optimizer,
+                   one_iter, packed_one_iter, run_eval)
 
 logger = logging.getLogger("main.train")
 
@@ -64,15 +75,58 @@ def il_bucket_fn(cfg, agent):
     return bucket
 
 
+def packed_factor(cfg, agent, trainer) -> int:
+    """TPU.PACKED_RL where it applies (ENVDROP, sample feedback, a trainer
+    that supports it), else 0 (trainer.py:204-214)."""
+    packed = cfg.TPU.PACKED_RL
+    if packed >= 2 and (agent.name != "ENVDROP" or cfg.AGENT.FEEDBACK != "sample"
+                        or not trainer.supports_packed_rl()):
+        logger.info("TPU.PACKED_RL=%d ignored (needs ENVDROP + sample feedback)", packed)
+        return 0
+    return packed if packed >= 2 else 0
+
+
 class ClassicTrainer:
     """The classic trainer (ref: engine/__init__.py:6-17)."""
+
+    # -- curriculum hooks (trainer.py:125-153) -----------------------------
+    def select_env(self, train_env, ep: int):
+        """Which episode source to use this epoch."""
+        return train_env
+
+    def iter_env(self, epoch_env, train_env):
+        """Which episode source to use this iteration; the epoch's."""
+        return epoch_env
+
+    def supports_packed_rl(self) -> bool:
+        """Whether TPU.PACKED_RL may replace this trainer's iteration."""
+        return True
+
+    def curriculum_state(self):
+        """Curriculum state to embed in checkpoints (None = stateless)."""
+        return None
+
+    def load_curriculum_state(self, state) -> None:
+        pass
+
+    def batch_weights(self, idx: np.ndarray) -> Optional[torch.Tensor]:
+        """Per-sample loss weights of the dataset items ``idx`` (None:
+        the unweighted objective)."""
+        return None
+
+    def record_losses(self, idx: np.ndarray, loss_per_sample: torch.Tensor) -> None:
+        """The latest per-item losses of an iteration's IL batch."""
+
+    def end_epoch(self, ep: int, writer: ScalarWriter) -> None:
+        """After the epoch's evaluation, before its latest checkpoint."""
 
     def train(self, cfg, agent, tsboard_dir, train_env, valid_env, seed: int = 2020,
               device=None):
         """Train for TRAIN.MAX_EPOCH epochs on ``device`` (default CUDA).
         Returns (params, best_val)."""
         device = resolve_device(device)
-        tables = train_env.world.device_tables(cfg.TPU.PRECISION, device)
+        first_env = self.select_env(train_env, cfg.TRAIN.START_EPOCH)
+        tables = first_env.world.device_tables(cfg.TPU.PRECISION, device)
         train_cfg = cfg.TRAIN
 
         time_str = time.strftime("%Y-%m%d-%H:%M", time.localtime())
@@ -89,6 +143,8 @@ class ClassicTrainer:
             logger.info("Resuming %s from %s", cfg.MODEL.NAME, ckpt_path)
             bundle = load_checkpoint(ckpt_path)
             params = params_from_jax(bundle["params"])
+            if bundle.get("curriculum") is not None:
+                self.load_curriculum_state(bundle["curriculum"])
         params = tree_map(lambda t: t.to(device).requires_grad_(t.is_floating_point()), params)
         optimizer = make_optimizer(train_cfg.OPTIM, train_cfg.LR, params)
         if bundle is not None:
@@ -96,6 +152,8 @@ class ClassicTrainer:
 
         eval_rollout = build_eval_rollout(agent)
         il_bucket = il_bucket_fn(cfg, agent)
+        packed = packed_factor(cfg, agent, self)
+        pool_checked = False  # the packed pool's contract, checked once per run
         valid_evaluator = {key: Evaluation(env.world, dedup_by_path(env.data))
                            for key, env in valid_env.items()}
         best_val = {key: {"success_rate": 0.0} for key in valid_env}
@@ -104,19 +162,42 @@ class ClassicTrainer:
         logger.info("Checkpoints at %s", output_ckpt_dir)
 
         def save(path, ep):
-            save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump())
+            save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump(),
+                            curriculum=self.curriculum_state())
 
         start_time = last_time = time.time()
         iters = train_cfg.ITER_PER_EPOCH
+        log_keys = ("loss", "entropy", "critic_loss", "total_actions")
+        if packed:
+            log_keys += ("episodes_done", "episodes_started")
         for ep in range(start_epoch, train_cfg.MAX_EPOCH + 1):
+            epoch_env = self.select_env(train_env, ep)
             # logs stay on the device until the epoch ends: one sync per epoch
             log_entries = []
             for _ in range(iters):
-                batch = train_env.next_batch()
-                log_entries.append(one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables, params,
-                                            batch, generator, il_len=il_bucket(train_env)))
-            host = {k: torch.stack([e[k] for e in log_entries]).cpu()
-                    for k in ("loss", "entropy", "critic_loss", "total_actions")}
+                env_i = self.iter_env(epoch_env, train_env)
+                batch = env_i.next_batch()
+                idx = env_i.cur_batch_index
+                il_len = il_bucket(env_i)
+                if packed:
+                    # IL on the first batch, the packed A2C rollout over all
+                    raws, pool_idx = [batch], [idx]
+                    for _ in range(packed - 1):
+                        raws.append(env_i.next_batch())
+                        pool_idx.append(env_i.cur_batch_index)
+                    pool = concat_batches(raws)
+                    if not pool_checked:
+                        check_pool_valid(pool)
+                        pool_checked = True
+                    logs = packed_one_iter(agent, optimizer, tables, params, batch, pool,
+                                           generator, self.batch_weights(idx),
+                                           self.batch_weights(np.concatenate(pool_idx)), il_len)
+                else:
+                    logs = one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, batch,
+                                    generator, weights=self.batch_weights(idx), il_len=il_len)
+                self.record_losses(idx, logs["loss_per_sample"])
+                log_entries.append(logs)
+            host = {k: torch.stack([e[k] for e in log_entries]).cpu() for k in log_keys}
             epoch_losses = [float(x) for x in host["loss"]]
             epoch_loss = sum(epoch_losses)
             avg_iter = epoch_loss / len(epoch_losses)
@@ -134,6 +215,11 @@ class ClassicTrainer:
                       * (train_cfg.MAX_EPOCH - ep))
             msg = (f"Epoch [{ep}/{train_cfg.MAX_EPOCH}], {cost:.2f}min/ep, remaining "
                    f"{remain:.2f}min, loss {epoch_loss:.4f} (avg {avg_iter:.4f})")
+            if packed:
+                done, started = (int(host[k].sum()) for k in ("episodes_done", "episodes_started"))
+                writer.add_scalar("train/episodes_done", done, ep)
+                writer.add_scalar("train/episodes_started", started, ep)
+                msg += f", packed RL: {done} episodes done of {started} started"
             print(msg)
             logger.info(msg)
 
@@ -155,6 +241,7 @@ class ClassicTrainer:
                                     path)
                 prettyprint(summary)
 
+            self.end_epoch(ep, writer)
             clean_dir(output_ckpt_dir, clean_key="latest_ep")
             save(osp.join(output_ckpt_dir, f"latest_ep{ep}.ckpt"), ep)
             save(osp.join(ckpt_root, "latest.ckpt"), ep)  # stable "latest" for OUTPUT.RESUME

@@ -1,7 +1,8 @@
-"""Host-side episode batching: the R2RBatch facade.
+"""Host-side episode batching: the R2RBatch / CLR2RBatch facades.
 
 The port of ``curriculum_learning_for_vln_tpu/env/host_env.py``'s
-``R2RBatchEnv`` (ref: tasks/R2R-judy/src/environ/common_env.py:117-365).
+``R2RBatchEnv`` and ``CLR2RBatchEnv`` (ref:
+tasks/R2R-judy/src/environ/common_env.py:117-365, curriculum_env.py:26-102).
 The host only *selects episodes*: every per-item field is packed into
 numpy arrays once and copied to the device, and a minibatch is one index
 upload plus device gathers producing an ``EpisodeBatch``.
@@ -13,15 +14,17 @@ Kept from the JAX package, number for number:
 * the stable sort by instruction length within a minibatch;
 * exact-coverage evaluation batches, the tail padded with ``valid=False``
   slots (evaluator.py:124-126 asserts coverage);
-* ``cur_batch_max_hops``, the IL episode-length bucketing key.
+* ``cur_batch_max_hops``, the IL episode-length bucketing key;
+* the CLR2R curriculum bookkeeping: the rounds concatenated in order,
+  difficulty ``a`` (the round of each item), capacity ``c = sum(a) *
+  c_rate`` and the item -> global index map of the SPCL solver.
 
 Not ported yet: the gt-route ("path") teacher tables, the mesh sharding
-hooks, ``restart``/``inject_batch`` (back-translation) and the CLR2R
-curriculum env (``CLR2RBatchEnv``).
+hooks and ``restart``/``inject_batch`` (back-translation).
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -134,3 +137,30 @@ class R2RBatchEnv:
                 idx = np.concatenate([idx, np.zeros(pad, dtype=np.int64)])
                 valid = np.concatenate([valid, np.zeros(pad, dtype=bool)])
             yield self._make_batch(idx, valid)
+
+
+class CLR2RBatchEnv(R2RBatchEnv):
+    """Curriculum dataset: all 5 CLR2R rounds with SPCL bookkeeping."""
+
+    def __init__(self, world: CompiledWorld, rounds: Dict[str, List[dict]], batch_size: int,
+                 c_rate: float = 0.8, tokenizer: Optional[Tokenizer] = None, seed: int = 0,
+                 teacher_mode: str = "goal", device=None):
+        data: List[dict] = []
+        difficulties: List[int] = []
+        for k in range(1, len(rounds) + 1):
+            round_items = rounds[f"round_{k}"]
+            data.extend(round_items)
+            difficulties.extend([k] * len(round_items))
+        super().__init__(world, data, batch_size, tokenizer=tokenizer, seed=seed, name="train",
+                         teacher_mode=teacher_mode, device=device)
+        # a[i] = difficulty (round number); capacity c = sum(a) * c_rate
+        # (ref: curriculum_env.py:81-92).  Item order *is* the global index.
+        self.a = np.array(difficulties, dtype=np.float32)
+        self.c = float(self.a.sum() * c_rate)
+        self.item2idx = {item["instr_id"]: i for i, item in enumerate(self.data)}
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def index(self, item: dict) -> int:
+        return self.item2idx[item["instr_id"]]

@@ -2,16 +2,19 @@
 ``main.py`` (ref: tasks/R2R-judy/main.py:136-151), plus ``--device``:
 
     python -m curriculum_learning_for_vln_torch.main \\
-        --config-file configs/envdrop/envdrop_config.yaml --seed 2020 \\
-        TPU.PACKED_RL 0 [KEY VALUE ...]
+        --config-file configs/envdrop/envdrop_cl_config.yaml --seed 2020 \\
+        [TRAIN.CLMODE SELF-PACE] [KEY VALUE ...]
 
 Config = defaults <- YAML file <- dotted-path overrides.  Runs on CUDA
 unless ``--device`` names another device, and raises without a GPU.  It
-trains EnvDrop with the classic trainer on R2R (real or
-``TPU.SYNTHETIC_WORLD``).  Not ported yet, and refused: the
-``--check-the-code``, ``--beam`` and ``--self-train`` modes, the CLR2R
-curriculum trainers (``TRAIN.CLMODE``), packed RL (``TPU.PACKED_RL`` >= 2)
-and the other agents.
+trains EnvDrop on R2R or CLR2R (real or ``TPU.SYNTHETIC_WORLD``) with the
+trainer ``TRAIN.CLMODE`` names for CLR2R (main.py:102-124): the classic
+one, ``NaiveCurriculum`` (NAIVE) or ``SelfPacedCurriculum`` (SELF-PACE),
+with packed RL where ``TPU.PACKED_RL`` >= 2.  Not ported yet, and
+refused: the ``--check-the-code``, ``--beam`` and ``--self-train`` modes,
+the AUTO (Exp3.S) curriculum, the per-round train-split evaluation
+(``TRAIN.EVAL_TRAIN``), the rollout early exit (``TPU.SCAN_EARLY_EXIT``),
+the hand-written BPTT (``TPU.FUSED_BPTT``) and the other agents.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 
 from . import pipeline
 from .agents.envdrop import EnvDropAgent
+from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
 from .engine.trainer import ClassicTrainer
 from .utils import logging_utils
 from .utils.config import get_cfg_defaults
@@ -39,17 +43,35 @@ def check_ported(args, cfg) -> None:
             raise NotImplementedError(f"{name} is not ported yet")
     if cfg.MODEL.NAME != "ENVDROP":
         raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet (ENVDROP only)")
-    if cfg.TRAIN.CLMODE:
-        raise NotImplementedError(f"the {cfg.TRAIN.CLMODE} curriculum trainer is not ported yet")
-    if cfg.TPU.PACKED_RL >= 2:
-        raise NotImplementedError(f"TPU.PACKED_RL {cfg.TPU.PACKED_RL} (packed RL) is not ported "
-                                  "yet; pass TPU.PACKED_RL 0 for the reference iteration")
+    pipeline.curriculum_mode(cfg)  # raises on AUTO
+    for on, name in ((cfg.TRAIN.EVAL_TRAIN, "TRAIN.EVAL_TRAIN (the per-round train-split "
+                                            "evaluation)"),
+                     (cfg.TPU.SCAN_EARLY_EXIT, "TPU.SCAN_EARLY_EXIT (the rollout early exit)"),
+                     (cfg.TPU.FUSED_BPTT, "TPU.FUSED_BPTT (the hand-written rollout BPTT)")):
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet")
+
+
+def build_trainer(cfg, train_env, logger):
+    """The trainer TRAIN.CLMODE names for CLR2R (main.py:102-124)."""
+    mode = pipeline.curriculum_mode(cfg)
+    if mode == "NAIVE":
+        logger.info("Using NaiveCurriculum trainer")
+        return NaiveCurriculum()
+    if mode == "SELF-PACE":
+        logger.info("Using SelfPacedCurriculum trainer")
+        return SelfPacedCurriculum.from_config(cfg, train_env)
+    logger.info("Using Classic trainer")
+    return ClassicTrainer()
 
 
 def main(args, cfg) -> None:
     device = resolve_device(args.device)
     check_ported(args, cfg)
     logger = logging_utils.get_main_logger(cfg.OUTPUT.LOG_DIR, cfg.MODEL.NAME)
+    if cfg.TPU.SCAN_ITERS > 1:
+        logger.info("TPU.SCAN_ITERS %d is a TPU dispatch knob; it has no effect here",
+                    cfg.TPU.SCAN_ITERS)
     random.seed(args.seed)
     np.random.seed(args.seed)
     pipeline.setup_vocab(cfg)
@@ -65,8 +87,9 @@ def main(args, cfg) -> None:
                          cfg.AGENT.MAX_EPISODE_LEN, compute_dtype=PRECISIONS[cfg.TPU.PRECISION],
                          obs_masks=cfg.TPU.OBS_MASKS)
     try:
-        ClassicTrainer().train(cfg, agent, cfg.OUTPUT.TSBOARD_DIR, train_env, valid_env,
-                               seed=args.seed, device=device)
+        trainer = build_trainer(cfg, train_env, logger)
+        trainer.train(cfg, agent, cfg.OUTPUT.TSBOARD_DIR, train_env, valid_env, seed=args.seed,
+                      device=device)
     except Exception:
         s = traceback.format_exc()
         print(s)

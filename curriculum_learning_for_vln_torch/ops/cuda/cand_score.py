@@ -3,10 +3,9 @@ backward; CUDA kernels and plain twins.
 
 K6 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/cand_score.py::
 cand_score_fwd_pallas``, K7 its ``cand_score_bwd_pallas``, each in the
-mask modes "none", "ext" and "prng" (``drop.py``; the TPU-only
-"prng_shared" mode is not ported yet).  Kernel: ``csrc/cand_score.cu`` —
-one block per sample; the forward takes one warp per candidate, the
-backward one 16-byte column chunk per thread.  Both are bound by the
+mask modes "none", "ext", "prng" and "prng_shared" (``drop.py``).
+Kernel: ``csrc/cand_score.cu`` — one block per sample; the forward takes
+one warp per candidate, the backward one 16-byte column chunk per thread.  Both are bound by the
 device-memory bytes of the candidate rows (the source says what the
 design does about that).
 

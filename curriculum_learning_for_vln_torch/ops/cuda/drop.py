@@ -6,7 +6,10 @@ A ``DropSpec`` says how a kernel drops the image rows it reads:
 * ``"ext"``  — by a keep-mask the caller passes, bool [B, rows, D];
 * ``"prng"`` — by the Philox4x32-10 draw of a per-sample int64 seed [B]
   (ops/philox.py), which the kernel makes itself and the backward makes
-  again: no mask ever lies in device memory.
+  again: no mask ever lies in device memory;
+* ``"prng_shared"`` — as prng, but the rows of each group of 8
+  consecutive rows share one mask, the draw of the group's first seed
+  (``philox.group_seeds``; the JAX package's ``pallas_prng_shared``).
 
 A kept element becomes ``round_to_table_dtype(x / keep)``, a dropped one
 0, before the f32 accumulation (pano_fused.py:54-59, cand_score.py:52-57).
@@ -22,13 +25,13 @@ import torch
 from .. import philox
 from .build import acc_dtype
 
-MODE_CODES = {"none": 0, "ext": 1, "prng": 2}
+MODE_CODES = {"none": 0, "ext": 1, "prng": 2, "prng_shared": 3}
 
 
 class DropSpec(NamedTuple):
     mode: str = "none"
     mask: Optional[torch.Tensor] = None    # bool [B, rows, D] (ext)
-    seeds: Optional[torch.Tensor] = None   # int64 [B] (prng)
+    seeds: Optional[torch.Tensor] = None   # int64 [B] (prng, prng_shared)
     keep: float = 1.0
 
 
@@ -50,6 +53,8 @@ def keep_mask(drop: DropSpec, shape) -> Optional[torch.Tensor]:
         return drop.mask
     if drop.mode == "prng":
         return philox.keep_mask(drop.seeds, shape, drop.keep)
+    if drop.mode == "prng_shared":
+        return philox.keep_mask(philox.group_seeds(drop.seeds), shape, drop.keep)
     raise ValueError(f"unknown mask mode {drop.mode!r}")
 
 
@@ -78,7 +83,7 @@ def c_args(drop: DropSpec, B: int, rows: int, D: int, device, name: str):
             raise ValueError(f"{name}: the ext mask must be a contiguous bool [{B}, {rows}, {D}] "
                              f"tensor on {device}")
         mask_ptr = m.data_ptr()
-    elif drop.mode == "prng":
+    elif drop.mode in ("prng", "prng_shared"):
         s = drop.seeds
         if (s is None or s.dtype != torch.int64 or tuple(s.shape) != (B,) or s.device != device
                 or not s.is_contiguous()):

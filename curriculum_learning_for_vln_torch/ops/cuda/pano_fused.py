@@ -3,11 +3,11 @@ rows, forward and backward; CUDA kernels and plain twins.
 
 K4 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/pano_fused.py::
 pano_attend_fwd_pallas``, K5 its ``pano_attend_bwd_pallas``, each in the
-mask modes "none", "ext" and "prng" (``drop.py``; the TPU-only
-"prng_shared" mode is not ported yet).  Kernel: ``csrc/pano_fused.cu`` —
-one block per sample scores the 36 views, takes the softmax (forward) or
-its VJP (backward) on chip and forms the weighted sum; the forward also
-copies the candidate rows out of the feature table.  Both are bound by
+mask modes "none", "ext", "prng" and "prng_shared" (``drop.py``).
+Kernel: ``csrc/pano_fused.cu`` — one block per sample scores the 36
+views, takes the softmax (forward) or its VJP (backward) on chip and
+forms the weighted sum; the forward also copies the candidate rows out of
+the feature table.  Both are bound by
 the device-memory bytes of the feature rows (the source says what the
 design does about that).
 

@@ -16,8 +16,9 @@ and the external mask or the prng seeds (``DropSpec``): nothing
 image-sized.  The backward regenerates the forward's mask.  Each op runs
 its CUDA kernels for tensors on the card and their plain twins on the
 CPU; there is no backend switch and no gate that could skip a kernel.
-The Self-Monitor's ``cands_only`` short-circuit and the "prng_shared"
-mode are not ported yet.
+The masks follow the ``DropSpec``'s mode: "none", "ext", "prng" or
+"prng_shared" (ops/cuda/drop.py).  The Self-Monitor's ``cands_only``
+short-circuit is not ported yet.
 """
 from __future__ import annotations
 

@@ -5,9 +5,11 @@ from Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as
 1, 2, 3", SC'11; the Random123 constants) keyed by a per-sample 64-bit
 seed: element e of a sample's [rows, D] block takes word e % 4 of the
 block at counter (e / 4, 0, 0, 0), and is kept iff that word is below
-``keep_threshold(keep)``.  This module computes the same bits on int64
-tensors (each holding a uint32), on the CPU or the card, so a kernel's
-plain version draws the kernel's mask and the CPU can run the prng mode.
+``keep_threshold(keep)``; in the prng_shared mode a group of 8 rows
+takes the draw of its first row's seed (``group_seeds``).  This module
+computes the same bits on int64 tensors (each holding a uint32), on the
+CPU or the card, so a kernel's plain version draws the kernel's mask and
+the CPU can run the prng modes.
 
 The JAX package draws these masks from the TPU's hardware RNG
 (pano_fused.py:62-70), which is reproducible nowhere else: the port's
@@ -23,6 +25,7 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
+SHARED_GROUP = 8  # rows per shared mask in the prng_shared mode (common.cuh)
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,6 +82,15 @@ def keep_mask(seeds: torch.Tensor, shape, keep: float) -> torch.Tensor:
         n *= s
     bits = random_bits(seeds, n)
     return (bits < keep_threshold(keep)).reshape(seeds.shape[0], *shape)
+
+
+def group_seeds(seeds: torch.Tensor) -> torch.Tensor:
+    """The seed of each row's group in the prng_shared mode: rows b with the
+    same b // SHARED_GROUP take the seed of the group's first row, so the
+    group shares one mask (the JAX kernels' G = 8 sample groups,
+    pano_fused.py:128-134; a short last group is allowed)."""
+    rows = torch.arange(seeds.shape[0], device=seeds.device)
+    return seeds[rows - rows % SHARED_GROUP]
 
 
 def draw_seeds(batch: int, generator: torch.Generator, device) -> torch.Tensor:

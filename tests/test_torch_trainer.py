@@ -11,7 +11,8 @@ trainer and entry point end to end on the CPU.
   ``device="cpu"``: 2 epochs x 2 iterations, a checkpoint that the port's
   ``Navigator`` serves, and ``OUTPUT.RESUME`` from it;
 * ``main``: without ``--device`` it refuses to run on this CUDA-less host,
-  and it refuses the modes it does not port.
+  it refuses the modes and options it does not port, and it takes the
+  shipped configs' curriculum modes and packed RL.
 """
 import os
 import subprocess
@@ -145,8 +146,18 @@ def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
         assert run.returncode != 0 and "CUDA is not available" in run.stderr
     for extra, what in ((["--beam", "3"], "--beam"), (["--check-the-code"], "--check-the-code"),
                         (["--self-train"], "--self-train"),
-                        (["TRAIN.CLMODE", "SELF-PACE"], "curriculum"),
-                        (["TPU.PACKED_RL", "3"], "PACKED_RL")):
+                        (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], "curriculum"),
+                        (["TRAIN.EVAL_TRAIN", "True"], "EVAL_TRAIN"),
+                        (["TPU.SCAN_EARLY_EXIT", "True"], "SCAN_EARLY_EXIT"),
+                        (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")):
         args, cfg = t_main.parse_args(["--device", "cpu", *extra])
         with pytest.raises(NotImplementedError, match=what):
             t_main.check_ported(args, cfg)
+    # the curriculum trainers and packed RL, as the configs ship them, run
+    for config, extra in (("envdrop_config.yaml", []), ("envdrop_cl_config.yaml", []),
+                          ("envdrop_cl_config.yaml", ["TRAIN.CLMODE", "SELF-PACE",
+                                                      "TPU.OBS_MASKS", "prng_shared"])):
+        args, cfg = t_main.parse_args(["--device", "cpu", "--config-file",
+                                       os.path.join(REPO, "configs/envdrop", config), *extra])
+        assert cfg.TPU.PACKED_RL == 3
+        t_main.check_ported(args, cfg)
