@@ -3,17 +3,28 @@
 paper's curriculum recipe, on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --kernels-only   # build + kernel phases only
+    python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
+                                           # short first call for a new kernel
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions.
 2. Builds the port's CUDA kernels from ``curriculum_learning_for_vln_
    torch/csrc`` (one ``nvcc`` per source, all at once) and prints the
    compiler's register and spill report.
-3. Kernel phases, in bf16 and f32, each kernel on the card at its path's
-   shapes, held against its plain PyTorch version on the same inputs and
-   timed with CUDA events beside its plain version, one PyTorch library
-   call where there is one, and the least time the card could take:
+3. Kernel phases (in a full run, after phase 6, so that their profiler
+   sessions do not come before the timed serve calls), in bf16 and f32:
+   each kernel on the card at its path's shapes, held against its plain
+   PyTorch version on the same inputs and timed beside its plain version,
+   one PyTorch library call where there is one, and the least time the
+   card could take.  Each kernel and library
+   call gets two times per call: ``ms``, CUDA events around 100
+   back-to-back calls (the host's time where the wrapper issues calls
+   more slowly than the device runs them), and ``device_ms``, the summed
+   durations of the device events of the same loop under torch.profiler
+   (``device_events`` of them per call), which no host time enters;
+   comparisons with the library call and the bound use ``device_ms``.
+   K6 is also checked at B = 61 in prng_shared (a short last group) and
+   K8 at (B, Din, H) = (37, 200, 48), before any timing:
    K3 (LSTM scan), K1 and K2 (training forward and backward of the scan;
    at the token lengths of the synthetic instructions, which the serve and
    train phases run, and at lengths up to MAX_ENC_LEN = 80), K4 and K5
@@ -82,6 +93,7 @@ SERVE_ROUNDS = 2         # timed passes over them
 TRAIN_ITERS = 6          # timed training iterations (after one warm-up)
 CURRICULUM_ITERS = 8     # SPCL packed iterations (a warm-up, 6 timed, one profiled)
 MODES = ("none", "ext", "prng", "prng_shared")
+RAGGED_CELL = (37, 200, 48)  # (B, Din, H) of K8's check at ragged edges
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -125,7 +137,9 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn(i)`` over ``iters`` back-to-back calls between two
+    CUDA events: the device's time, or the host's where the calls are
+    issued more slowly than the device runs them."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -136,6 +150,56 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int, warmup: int = 3, tries: int = 3):
+    """(device ms, device events) per call of ``fn(i)``: the summed
+    durations of the device events (kernels, copies, sets) that ``iters``
+    calls launch, under torch.profiler, per call.  No host time enters
+    it, however slowly the calls are issued.  The profiler now and then
+    loses events of a loop (a whole number of events per call is
+    expected): such a loop is profiled again, and if it still is not
+    whole, the time is the mean recorded event times the events per call
+    (at least one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for i in range(warmup):
+        fn(i)
+    best = (0.0, 0)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        best = max(best, (sum(spans), len(spans)), key=lambda x: x[1])
+        if spans and len(spans) % iters == 0:
+            break
+    us, n = best
+    check(n > 0, "the profiler shows device events")
+    return us / n * max(1, round(n / iters)) / 1e3, n / iters
+
+
+def kernel_times(fn, iters: int, warmup: int = 3):
+    """{ms, device_ms, device_events} of ``fn(i)``: CUDA-event ms
+    (``cuda_time_ms``) and device-only ms (``device_time_ms``)."""
+    ms = cuda_time_ms(fn, iters, warmup)
+    dev, n = device_time_ms(fn, iters, warmup)
+    return {"ms": ms, "device_ms": dev, "device_events": n}
+
+
+def library_times(fn, iters: int, what: str):
+    """``kernel_times`` of one PyTorch library call, prefixed "library_";
+    all None where the call has no implementation for these inputs."""
+    try:
+        t = kernel_times(fn, iters)
+    except RuntimeError as e:  # e.g. no cuDNN RNN or fused cell of this dtype: no yardstick
+        log(f"  {what}: {e}".splitlines()[0])
+        t = dict.fromkeys(("ms", "device_ms", "device_events"))
+    return {f"library_{k}": v for k, v in t.items()}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
@@ -223,10 +287,8 @@ def lstm_inputs(dtype, device, gen, B, L=80, D=256, H=256):
     return xs, u(D, 4 * H), u(H, 4 * H), u(4 * H)
 
 
-def lstm_library(xs, lengths, w_ih, w_hh, b, iters):
-    """torch.nn.LSTM (cuDNN) on one packed direction: (forward ms with
-    autograd recording, backward ms of that forward's graph), or Nones
-    where cuDNN has no RNN of this dtype."""
+def torch_lstm(xs, w_ih, w_hh, b):
+    """torch.nn.LSTM (cuDNN) holding the kernels' weights in its layout."""
     D, H = w_ih.shape[0], w_hh.shape[0]
     lstm = torch.nn.LSTM(D, H, batch_first=True).to(device=xs.device, dtype=xs.dtype)
     with torch.no_grad():
@@ -235,20 +297,30 @@ def lstm_library(xs, lengths, w_ih, w_hh, b, iters):
         lstm.bias_ih_l0.copy_(b)
         lstm.bias_hh_l0.zero_()
         lstm.flatten_parameters()
+    return lstm
+
+
+def lstm_library(xs, lengths, w_ih, w_hh, b, iters):
+    """torch.nn.LSTM on one packed direction: (``library_times`` of the
+    forward with autograd recording, of the backward of that forward's
+    graph), all None where cuDNN has no RNN of this dtype."""
+    lstm = torch_lstm(xs, w_ih, w_hh, b)
     x = xs.detach().clone().requires_grad_(True)
-    try:
-        fwd_ms = cuda_time_ms(lambda i: lstm(torch.nn.utils.rnn.pack_padded_sequence(
-            x, lengths.cpu(), batch_first=True, enforce_sorted=False)), iters)
-        out, _ = lstm(torch.nn.utils.rnn.pack_padded_sequence(
-            x, lengths.cpu(), batch_first=True, enforce_sorted=False))
-        g = torch.randn_like(out.data)
-        inputs = [x, *lstm.parameters()]
-        bwd_ms = cuda_time_ms(lambda i: torch.autograd.grad(out.data, inputs, g,
-                                                            retain_graph=True), iters)
-        return fwd_ms, bwd_ms
-    except RuntimeError as e:  # a cuDNN RNN without this dtype: no yardstick
-        log(f"  torch.nn.LSTM in {xs.dtype}: {e}".splitlines()[0])
-        return None, None
+    what = f"torch.nn.LSTM in {xs.dtype}"
+
+    def fwd(i):
+        return lstm(torch.nn.utils.rnn.pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                                            enforce_sorted=False))
+
+    lib_fwd = library_times(fwd, iters, what)
+    if lib_fwd["library_ms"] is None:
+        return lib_fwd, dict(lib_fwd)
+    out, _ = fwd(0)
+    g = torch.randn_like(out.data)
+    inputs = [x, *lstm.parameters()]
+    lib_bwd = library_times(lambda i: torch.autograd.grad(out.data, inputs, g, retain_graph=True),
+                            iters, what)
+    return lib_fwd, lib_bwd
 
 
 def long_lengths(B, gen, device, lo=16, hi=80):
@@ -299,15 +371,15 @@ def lstm_phases(dtype, device, gen, lengths, iters=20):
 
     tk = k.lstm_scan_train(xs, lengths, w_ih, w_hh, b)
     times = {
-        "lstm_scan": (cuda_time_ms(lambda i: k.lstm_scan(xs, lengths, w_ih, w_hh, b,
+        "lstm_scan": (kernel_times(lambda i: k.lstm_scan(xs, lengths, w_ih, w_hh, b,
                                                          reverse=bool(i & 1)), iters),
                       cuda_time_ms(lambda i: k.lstm_scan_plain(xs, lengths, w_ih, w_hh, b), 3, 1)),
         "lstm_scan_train": (
-            cuda_time_ms(lambda i: k.lstm_scan_train(xs, lengths, w_ih, w_hh, b,
+            kernel_times(lambda i: k.lstm_scan_train(xs, lengths, w_ih, w_hh, b,
                                                      reverse=bool(i & 1)), iters),
             cuda_time_ms(lambda i: k.lstm_scan_train_plain(xs, lengths, w_ih, w_hh, b), 3, 1)),
         "lstm_scan_bwd": (
-            cuda_time_ms(lambda i: k.lstm_scan_bwd(xs, lengths, w_ih, w_hh, tk[4], tk[2], tk[3],
+            kernel_times(lambda i: k.lstm_scan_bwd(xs, lengths, w_ih, w_hh, tk[4], tk[2], tk[3],
                                                    d_out, dhT, dcT), iters),
             cuda_time_ms(lambda i: k.lstm_scan_bwd_plain(xs, lengths, w_ih, w_hh, tk[4], tk[2],
                                                          tk[3], d_out, dhT, dcT), 3, 1)),
@@ -343,12 +415,12 @@ def lstm_phases(dtype, device, gen, lengths, iters=20):
     }
     out = []
     for name, (moved, flops, lib, call) in spec.items():
-        ms, plain_ms = times[name]
+        t, plain_ms = times[name]
         out.append({"name": name, "max_abs_err": max(e for e, _ in err[name].values()),
                     "checks": {part: {"max_abs_err": e, "tol": tol}
                                for part, (e, tol) in err[name].items()},
                     "lengths": lengths_label(lengths), "valid_steps": steps,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "library_call": call,
+                    **t, "plain_ms": plain_ms, **lib, "library_call": call,
                     "bound": bound_ms(moved, flops, dtype)})
     return out
 
@@ -359,21 +431,11 @@ def lengths_label(lengths) -> str:
 
 
 def lstm_library_infer(xs, lengths, w_ih, w_hh, b, iters):
-    D, H = w_ih.shape[0], w_hh.shape[0]
-    lstm = torch.nn.LSTM(D, H, batch_first=True).to(device=xs.device, dtype=xs.dtype)
+    lstm = torch_lstm(xs, w_ih, w_hh, b)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(w_ih.t())
-        lstm.weight_hh_l0.copy_(w_hh.t())
-        lstm.bias_ih_l0.copy_(b)
-        lstm.bias_hh_l0.zero_()
-        lstm.flatten_parameters()
         packed = torch.nn.utils.rnn.pack_padded_sequence(xs, lengths.cpu(), batch_first=True,
                                                          enforce_sorted=False)
-        try:
-            return cuda_time_ms(lambda i: lstm(packed), iters)
-        except RuntimeError as e:
-            log(f"  torch.nn.LSTM in {xs.dtype}: {e}".splitlines()[0])
-            return None
+        return library_times(lambda i: lstm(packed), iters, f"torch.nn.LSTM in {xs.dtype}")
 
 
 def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
@@ -394,13 +456,23 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
     tv = torch.randn(B, D + A, generator=gen, device=device) / 32  # scores of O(1)
     d_vis = torch.randn(B, D + A, generator=gen, device=device)
     cand_sets = [features[n[:, None], cand_view].contiguous() for n in node_sets]
-    cand_angle = torch.randn(B, MC, A, generator=gen, device=device)
+    # the angle rows in the table dtype, as env/env.py:103 makes them: no
+    # conversion launch sits in K6/K7's timed calls
+    cand_angle = torch.randn(B, MC, A, generator=gen, device=device).to(features.dtype)
     valid = torch.rand(B, MC, generator=gen, device=device) < 0.5
     q = torch.randn(B, D + A, generator=gen, device=device) / 32
     d_logits = torch.randn(B, MC + 1, generator=gen, device=device)
     rows = int(torch.unique(node_sets[0]).numel()) * V * D * features.element_size()
     loc_rows = int(torch.unique(views).numel()) * V * A * 4
-    res = {}
+    # K6 at a batch that is not a multiple of 8: a short last prng_shared group
+    Br = B - 3
+    cd = drop_spec("prng_shared", Br, MC, D, gen, device)
+    rargs = (cand_sets[0][:Br].contiguous(), cand_angle[:Br].contiguous(), valid[:Br].contiguous(),
+             q[:Br].contiguous())
+    e_r = compare((kc.cand_score(*rargs, cd),), (kc.cand_score_plain(*rargs, cd),), 1e-4)
+    check(e_r[0] <= e_r[1], f"cand_score {dtype} prng_shared at B = {Br}: |kernel - plain| "
+                            f"{e_r[0]:.3g} > {e_r[1]:.3g}")
+    res = {"ragged": {"B": Br, "mode": "prng_shared", "max_abs_err": e_r[0], "tol": e_r[1]}}
     for mode in MODES:
         pd = drop_spec(mode, B, V, D, gen, device)
         cd = drop_spec(mode, B, MC, D, gen, device)
@@ -420,42 +492,45 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
                      (kc.cand_score_bwd_plain(*cargs, d_logits, cd),), 1e-4)
         # one drop spec per call of a timed loop: the seeds and the ext mask
         # are per sample, whatever the node set
-        t4 = cuda_time_ms(lambda i: kp.pano_attend(node_sets[i % 8], views, cand_view, features,
+        t4 = kernel_times(lambda i: kp.pano_attend(node_sets[i % 8], views, cand_view, features,
                                                    loc, tv, pd), iters)
         p4 = cuda_time_ms(lambda i: kp.pano_attend_plain(node_sets[i % 8], views, cand_view,
                                                          features, loc, tv, pd), 10)
-        t5 = cuda_time_ms(lambda i: kp.pano_attend_bwd(node_sets[i % 8], views, features, loc,
+        t5 = kernel_times(lambda i: kp.pano_attend_bwd(node_sets[i % 8], views, features, loc,
                                                        alpha, d_vis, pd), iters)
         p5 = cuda_time_ms(lambda i: kp.pano_attend_bwd_plain(node_sets[i % 8], views, features,
                                                              loc, alpha, d_vis, pd), 10)
-        t6 = cuda_time_ms(lambda i: kc.cand_score(cand_sets[i % 8], cand_angle, valid, q, cd),
+        t6 = kernel_times(lambda i: kc.cand_score(cand_sets[i % 8], cand_angle, valid, q, cd),
                           iters)
         p6 = cuda_time_ms(lambda i: kc.cand_score_plain(cand_sets[i % 8], cand_angle, valid, q,
                                                         cd), 10)
-        t7 = cuda_time_ms(lambda i: kc.cand_score_bwd(cand_sets[i % 8], cand_angle, valid,
+        t7 = kernel_times(lambda i: kc.cand_score_bwd(cand_sets[i % 8], cand_angle, valid,
                                                       d_logits, cd), iters)
         p7 = cuda_time_ms(lambda i: kc.cand_score_bwd_plain(cand_sets[i % 8], cand_angle, valid,
                                                             d_logits, cd), 10)
         q_img = q[:, :D].to(dtype).contiguous()
         w = torch.where(valid, d_logits[:, :MC], 0.0).to(dtype)
-        l6 = cuda_time_ms(lambda i: torch.einsum("bkd,bd->bk", cand_sets[i % 8], q_img), iters)
-        l7 = cuda_time_ms(lambda i: torch.einsum("bk,bkd->bd", w, cand_sets[i % 8]), iters)
+        l6 = library_times(lambda i: torch.einsum("bkd,bd->bk", cand_sets[i % 8], q_img), iters,
+                           "einsum bkd,bd->bk")
+        l7 = library_times(lambda i: torch.einsum("bk,bkd->bd", w, cand_sets[i % 8]), iters,
+                           "einsum bk,bkd->bd")
+        no_lib = dict.fromkeys(("library_ms", "library_device_ms", "library_device_events"))
         ang_b = B * MC * A * features.element_size()
         res[mode] = [
-            {"name": "pano_attend", "err": e4, "ms": t4, "plain_ms": p4, "library_ms": None,
+            {"name": "pano_attend", "err": e4, **t4, "plain_ms": p4, **no_lib,
              "library_call": "none: no one PyTorch call gathers, drops, attends and copies rows",
              "bound": bound_ms(rows + loc_rows + nbytes(node_sets[0], views, cand_view, tv)
                                + drop_bytes(pd) + nbytes(*got), 4 * B * V * (D + A), dtype)},
-            {"name": "pano_attend_bwd", "err": e5, "ms": t5, "plain_ms": p5, "library_ms": None,
+            {"name": "pano_attend_bwd", "err": e5, **t5, "plain_ms": p5, **no_lib,
              "library_call": "none: no one PyTorch call re-gathers, drops and back-propagates "
                              "the attention",
              "bound": bound_ms(rows + loc_rows + nbytes(node_sets[0], views, alpha, d_vis)
                                + drop_bytes(pd) + B * (D + A) * 4, 4 * B * V * (D + A), dtype)},
-            {"name": "cand_score", "err": e6, "ms": t6, "plain_ms": p6, "library_ms": l6,
+            {"name": "cand_score", "err": e6, **t6, "plain_ms": p6, **l6,
              "library_call": "torch.einsum('bkd,bd->bk') over the image rows",
              "bound": bound_ms(nbytes(cand_sets[0], valid, q, got6) + ang_b + drop_bytes(cd),
                                2 * B * MC * (D + A), dtype)},
-            {"name": "cand_score_bwd", "err": e7, "ms": t7, "plain_ms": p7, "library_ms": l7,
+            {"name": "cand_score_bwd", "err": e7, **t7, "plain_ms": p7, **l7,
              "library_call": "torch.einsum('bk,bkd->bd') over the image rows",
              "bound": bound_ms(nbytes(cand_sets[0], valid, d_logits) + ang_b + drop_bytes(cd)
                                + B * (D + A) * 4, 2 * B * MC * (D + A), dtype)},
@@ -470,30 +545,39 @@ def lstm_cell_phase(dtype, device, gen, B=BATCH, Din=64 + FEAT_DIM + 128, H=512,
     launches read the weights from device memory."""
     k = modules()["lstm_cell"]
 
-    def u(*shape):
-        return ((torch.rand(*shape, generator=gen, device=device) * 2 - 1) / H ** 0.5).to(dtype)
+    def inputs(B, Din, H, sets):
+        def u(*shape):
+            return ((torch.rand(*shape, generator=gen, device=device) * 2 - 1)
+                    / H ** 0.5).to(dtype)
 
-    x, h, c = (torch.randn(B, n, generator=gen, device=device).to(dtype) for n in (Din, H, H))
-    weights = [(u(Din, 4 * H), u(H, 4 * H), u(4 * H)) for _ in range(6)]
+        x, h, c = (torch.randn(B, n, generator=gen, device=device).to(dtype) for n in (Din, H, H))
+        return x, h, c, [(u(Din, 4 * H), u(H, 4 * H), u(4 * H)) for _ in range(sets)]
+
+    # f32 sums of Din + H products in another order; bf16 outputs are
+    # rounded to bf16, one ulp of which is 2^-8 relative
+    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    # a ragged shape first: B < 64, K = 248 not a multiple of 16, the x/h
+    # boundary inside a K slice, H = 48 not a multiple of 64
+    xr, hr, cr, wr = inputs(*RAGGED_CELL, 1)
+    e_r = compare(k.lstm_cell(xr, hr, cr, *wr[0]), k.lstm_cell_plain(xr, hr, cr, *wr[0]), rtol)
+    check(e_r[0] <= e_r[1], f"lstm_cell {dtype} at (B, Din, H) = {RAGGED_CELL}: |kernel - plain| "
+                            f"{e_r[0]:.3g} > {e_r[1]:.3g}")
+    x, h, c, weights = inputs(B, Din, H, 6)
     got = k.lstm_cell(x, h, c, *weights[0])
     want = k.lstm_cell_plain(x, h, c, *weights[0])
-    # f32 sums of 2752 products in another order; bf16 outputs are rounded
-    # to bf16, one ulp of which is 2^-8 relative
-    err = compare(got, want, 1e-4 if dtype == torch.float32 else 8e-3)
-    ms = cuda_time_ms(lambda i: k.lstm_cell(x, h, c, *weights[i % 6]), iters)
+    err = compare(got, want, rtol)
+    t = kernel_times(lambda i: k.lstm_cell(x, h, c, *weights[i % 6]), iters)
     plain_ms = cuda_time_ms(lambda i: k.lstm_cell_plain(x, h, c, *weights[i % 6]), 10)
     lib_w = [(w_ih.t().contiguous(), w_hh.t().contiguous(), b) for w_ih, w_hh, b in weights]
-    try:
-        zero = torch.zeros_like(weights[0][2])  # b_hh: K8's b is b_ih + b_hh
-        lib_ms = cuda_time_ms(lambda i: torch.lstm_cell(x, (h, c), *lib_w[i % 6], zero), iters)
-    except RuntimeError as e:  # no fused cell of this dtype: no yardstick
-        log(f"  torch.lstm_cell in {dtype}: {e}".splitlines()[0])
-        lib_ms = None
+    zero = torch.zeros_like(weights[0][2])  # b_hh: K8's b is b_ih + b_hh
+    lib = library_times(lambda i: torch.lstm_cell(x, (h, c), *lib_w[i % 6], zero), iters,
+                        f"torch.lstm_cell in {dtype}")
     moved = nbytes(x, h, c, *weights[0], *got)
-    return {"name": "lstm_cell", "max_abs_err": err[0], "tol": err[1], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
+    return {"name": "lstm_cell", "max_abs_err": err[0], "tol": err[1], **t,
+            "plain_ms": plain_ms, **lib,
             "library_call": "torch.lstm_cell (weights transposed to torch's layout beforehand)",
             "shape": {"B": B, "Din": Din, "H": H},
+            "ragged": dict(zip(("B", "Din", "H"), RAGGED_CELL), max_abs_err=e_r[0], tol=e_r[1]),
             "bound": bound_ms(moved, 2 * B * (Din + H) * 4 * H, dtype)}
 
 
@@ -522,15 +606,17 @@ def kernel_phases(world, lengths, device):
                 m = by_mode[mode][i]
                 b_ms, b_by = m["bound"]
                 r["modes"][mode] = {"max_abs_err": m["err"][0], "tol": m["err"][1],
-                                    "ms": m["ms"], "plain_ms": m["plain_ms"],
-                                    "library_ms": m["library_ms"], "bound_ms": b_ms}
+                                    **{k: m[k] for k in TIME_KEYS}, "bound_ms": b_ms}
                 check(m["err"][0] <= m["err"][1],
                       f"{r['name']} {prec} {mode}: |kernel - plain| {m['err'][0]:.3g} "
                       f"> {m['err'][1]:.3g}")
                 log(f"{r['name']:16s} {prec:4s} {mode:4s} max|kernel-plain| {m['err'][0]:.3g} "
-                    f"(tol {m['err'][1]:.3g}) | kernel {m['ms']:.4f} ms, plain "
-                    f"{m['plain_ms']:.4f} ms, library {fmt(m['library_ms'])} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by})")
+                    f"(tol {m['err'][1]:.3g}) | {times_label(m)}, bound {b_ms:.4f} ms ({b_by})")
+            if r["name"] == "cand_score":
+                r["ragged"] = by_mode["ragged"]
+                log(f"cand_score       {prec:4s} prng_shared at B={r['ragged']['B']}: "
+                    f"max|kernel-plain| {r['ragged']['max_abs_err']:.3g} "
+                    f"(tol {r['ragged']['tol']:.3g})")
             results[(r["name"], prec)] = r
         del features
         modules()["lstm_cell"].launches = 0
@@ -538,18 +624,18 @@ def kernel_phases(world, lengths, device):
         r["kernel_phase_launches"] = modules()["lstm_cell"].launches
         check(r["max_abs_err"] <= r["tol"],
               f"lstm_cell {prec}: |kernel - plain| {r['max_abs_err']:.3g} > {r['tol']:.3g}")
+        rg = r["ragged"]
         log(f"lstm_cell        {prec:4s} B={BATCH} Din={r['shape']['Din']} H={r['shape']['H']}: "
-            f"max|kernel-plain| {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) | kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.lstm_cell "
-            f"{fmt(r['library_ms'])} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"max|kernel-plain| {r['max_abs_err']:.3g} (tol {r['tol']:.3g}); at B={rg['B']} "
+            f"Din={rg['Din']} H={rg['H']} {rg['max_abs_err']:.3g} (tol {rg['tol']:.3g}) | "
+            f"{times_label(r)}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
         for name in ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"):
             for r in (results[(name, prec)], results[(name, prec)]["long"]):
                 b_ms, b_by = r["bound"]
                 errs = ", ".join(f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
                                  for part, c in r["checks"].items())
                 log(f"{name:16s} {prec:4s} lengths {r['lengths']}: max|kernel-plain| {errs} | "
-                    f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                    f"{fmt(r['library_ms'])} ms, bound {b_ms:.4f} ms ({b_by}, "
+                    f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by}, "
                     f"{r['valid_steps']} valid steps)")
                 for part, c in r["checks"].items():
                     check(c["max_abs_err"] <= c["tol"],
@@ -564,6 +650,18 @@ def kernel_phases(world, lengths, device):
 
 def fmt(x):
     return "None" if x is None else f"{x:.4f}"
+
+
+# the times each kernel entry carries: CUDA-event ms and device-only ms of
+# the kernel and of its library call, and the plain version's event ms
+TIME_KEYS = ("ms", "device_ms", "device_events", "plain_ms", "library_ms", "library_device_ms",
+             "library_device_events")
+
+
+def times_label(r) -> str:
+    return (f"kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms; library {fmt(r['library_ms'])} ms, device "
+            f"{fmt(r['library_device_ms'])} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1125,8 +1223,8 @@ def main() -> int:
                            device=device)
     log(f"instruction lengths of the first micro-batch: {int(lengths.min())} to "
         f"{int(lengths.max())} tokens of {tok.encoding_length}")
-    results = kernel_phases(world, lengths, device)
     if kernels_only:
+        results = kernel_phases(world, lengths, device)
         log(json.dumps({"kernels_only": {f"{n}/{p}": {k: v for k, v in r.items()}
                                          for (n, p), r in results.items()}}))
         return 0
@@ -1160,6 +1258,11 @@ def main() -> int:
         f"{CURRICULUM_ITERS - 2}), {pk['episodes_per_s']:.1f} completed episodes/s, device busy "
         f"{100 * pb / pw:.1f}% under the profiler | {card}")
 
+    # after the timed path, so that the kernel phases' profiler sessions
+    # do not come before the timed serve calls (whether a session leaves
+    # host-side launch overhead behind is not settled)
+    results = kernel_phases(world, lengths, device)
+
     # each kernel's launches on its main path: the serve run for K3, this
     # slice's SPCL packed training run for the others; K8 is on no path
     kernels = []
@@ -1175,24 +1278,23 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": f"curriculum_learning_for_vln_torch/{src}",
             "replaces": f"curriculum_learning_for_vln_tpu/{tpu}",
-            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "dtype": precision,
-            "library_call": r["library_call"], "check": "ok",
+            "launches": launches, "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in TIME_KEYS}, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "dtype": precision, "library_call": r["library_call"], "check": "ok",
             "main_path": path, "serve_launches": serve_counts[name],
             "classic_train_launches": train["launches"][name],
-            "f32": {k: r32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+            "f32": {k: r32[k] for k in ("max_abs_err", *TIME_KEYS, "bound_ms", "bound_by")},
         }
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
-            keys = ("lengths", "valid_steps", "checks", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")
+            keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "bound_ms", "bound_by")
             entry.update(lengths=r["lengths"], valid_steps=r["valid_steps"], checks=r["checks"])
             entry["f32"].update(checks=r32["checks"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
         else:
             entry["tol"] = r["tol"]
+        if "ragged" in r:  # K6 at a short prng_shared group, K8 at ragged edges
+            entry["ragged"] = {precision: r["ragged"], "f32": r32["ragged"]}
         if name in OFF_PATH:
             entry.update(shape=r["shape"], kernel_phase_launches=r["kernel_phase_launches"])
         if "modes" in r:

@@ -23,10 +23,9 @@ struct Chunk {
   static constexpr int N = 16 / sizeof(T);
 };
 
-// Load one 16-byte chunk of T (16-byte aligned) and widen it to f32.
+// Widen one 16-byte chunk of T to f32.
 template <typename T>
-__device__ __forceinline__ void load_chunk(const T* p, float* out) {
-  uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ void widen(const uint4& u, float* out) {
   if constexpr (std::is_same<T, float>::value) {
     const float* f = reinterpret_cast<const float*>(&u);
 #pragma unroll
@@ -40,6 +39,12 @@ __device__ __forceinline__ void load_chunk(const T* p, float* out) {
       out[2 * i + 1] = v.y;
     }
   }
+}
+
+// Load one 16-byte chunk of T (16-byte aligned) and widen it to f32.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* p, float* out) {
+  widen<T>(__ldg(reinterpret_cast<const uint4*>(p)), out);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -116,8 +121,8 @@ __device__ __forceinline__ void load_dropped(const T* p, int b, size_t block_ele
 #pragma unroll
     for (int i = 0; i < N; ++i) kept[i] = m[i];
   } else {
-    // prng_shared: every row of a group computes the same bits (one draw per
-    // group held in shared memory would save the repeats; later work)
+    // prng_shared: every row of a group computes the same bits here (K6
+    // draws them once per group into shared memory; K4, K5 and K7 not yet)
     const int row = d.mode == DROP_PRNG_SHARED ? b - b % SHARED_GROUP : b;
     const uint64_t s = (uint64_t)d.seeds[row];
     const uint32_t k0 = (uint32_t)s, k1 = (uint32_t)(s >> 32);

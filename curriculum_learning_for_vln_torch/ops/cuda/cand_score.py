@@ -4,10 +4,13 @@ backward; CUDA kernels and plain twins.
 K6 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/cand_score.py::
 cand_score_fwd_pallas``, K7 its ``cand_score_bwd_pallas``, each in the
 mask modes "none", "ext", "prng" and "prng_shared" (``drop.py``).
-Kernel: ``csrc/cand_score.cu`` — one block per sample; the forward takes
-one warp per candidate, the backward one 16-byte column chunk per thread.  Both are bound by the
-device-memory bytes of the candidate rows (the source says what the
-design does about that).
+Kernel: ``csrc/cand_score.cu`` — the forward takes one block per
+(candidate, group of 8 samples) and one warp per sample, every load of a
+row in flight before its first FMA (``cand_score_plan`` gives the grid,
+which the CPU tests check); the backward one block per sample and one
+16-byte column chunk per thread.  Both are bound by the device-memory
+bytes of the candidate rows (the source says what the design does about
+that).
 
 ``cand_score`` and ``cand_score_bwd`` dispatch by device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel; there is no
@@ -17,6 +20,7 @@ K7 launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,6 +33,24 @@ bwd_launches = 0
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_uint32,
                   ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + _DROP_ARGTYPES
+_FWD_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+
+GROUP = 8            # samples a K6 block scores: one warp each (the prng_shared group)
+FWD_THREADS = 32 * GROUP
+PASS = 2048          # row elements a K6 warp has in flight at once
+
+
+class ScorePlan(NamedTuple):
+    """K6's launch: grid (MC, groups); block (j, g) warp w scores sample
+    GROUP * g + w's candidate j where that sample exists; ``smem`` bytes of
+    static shared memory (the prng_shared keep flags of one pass)."""
+    grid: Tuple[int, int]
+    threads: int
+    smem: int
+
+
+def cand_score_plan(B: int, MC: int) -> ScorePlan:
+    return ScorePlan((MC, -(-B // GROUP)), FWD_THREADS, PASS)
 
 
 def _rows(cand_img, cand_angle, drop):
@@ -90,12 +112,18 @@ def cand_score_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
     ang = cand_angle.to(cand_img.dtype)
     B, MC, D, A = _check("cand_score", cand_img, ang, cand_valid, q, "q",
                          (B, D + ang.shape[-1]))
+    if (D + A) % 4:
+        raise ValueError(f"cand_score: q rows must be a multiple of 16 bytes (D + A = {D + A})")
     dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score")
+    if any(t.data_ptr() % 16 for t in (cand_img, q, drop.mask) if t is not None):
+        raise ValueError("cand_score: the candidate rows, q and the ext mask must be 16-byte "
+                         "aligned")
+    plan = cand_score_plan(B, MC)
     logits = torch.empty((B, MC + 1), dtype=torch.float32, device=cand_img.device)
-    fn = build.kernel_function("cand_score", "cand_score", _ARGTYPES)
+    fn = build.kernel_function("cand_score", "cand_score", _FWD_ARGTYPES)
     err = fn(cand_img.data_ptr(), ang.data_ptr(), cand_valid.data_ptr(), q.data_ptr(),
              logits.data_ptr(), B, MC, D, A, build.DTYPE_CODES[cand_img.dtype], *dargs,
-             build.stream_handle(cand_img))
+             plan.grid[1], build.stream_handle(cand_img))
     build.check_launch(err, "cand_score")
     launches += 1
     return logits

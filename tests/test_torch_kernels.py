@@ -148,3 +148,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         t_cand.cand_score_cuda(torch.zeros(B, MC, D, dtype=torch.float16), torch.zeros(B, MC, A),
                                torch.ones(B, MC, dtype=torch.bool), torch.zeros(B, D + A))
+    # K6 reads q rows as 16-byte vectors: D + A a multiple of 4
+    with pytest.raises(ValueError, match="q rows"):
+        t_cand.cand_score_cuda(torch.zeros(B, MC, D), torch.zeros(B, MC, A - 2),
+                               torch.ones(B, MC, dtype=torch.bool), torch.zeros(B, D + A - 2))

@@ -270,17 +270,26 @@ def test_lstm_cell_plain_matches_pallas_and_jax(shape):
 
 
 def test_lstm_cell_wrapper_checks_inputs():
-    """The CUDA wrapper checks dtypes, shapes and the hidden width before
-    any launch; a CPU tensor takes the plain twin (no count)."""
+    """The CUDA wrapper checks dtypes, shapes, the hidden width (a multiple
+    of 16: one N tile), the input width (a multiple of 8: whole 16-byte
+    copies on either side of the x/h boundary) and 16-byte alignment
+    before any launch; a CPU tensor takes the plain twin (no count)."""
     x, h, c = torch.zeros(4, 24), torch.zeros(4, 16), torch.zeros(4, 16)
     w_ih, w_hh, b = torch.zeros(24, 64), torch.zeros(16, 64), torch.zeros(64)
     with pytest.raises(ValueError, match="w_hh"):
         t_cell.lstm_cell_cuda(x, h, c, w_ih, torch.zeros(16, 60), b)
     with pytest.raises(ValueError, match="c must be"):
         t_cell.lstm_cell_cuda(x, h, c.double(), w_ih, w_hh, b)
+    for H in (12, 24):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            t_cell.lstm_cell_cuda(x, torch.zeros(4, H), torch.zeros(4, H),
+                                  torch.zeros(24, 4 * H), torch.zeros(H, 4 * H),
+                                  torch.zeros(4 * H))
     with pytest.raises(ValueError, match="multiple of 8"):
-        t_cell.lstm_cell_cuda(x, h[:, :12], c[:, :12], w_ih[:, :48], torch.zeros(12, 48),
-                              b[:48])
+        t_cell.lstm_cell_cuda(torch.zeros(4, 20), h, c, torch.zeros(20, 64), w_hh, b)
+    with pytest.raises(ValueError, match="aligned"):
+        t_cell.lstm_cell_cuda(torch.zeros(5 * 24 + 2)[2:].view(5, 24), torch.zeros(5, 16),
+                              torch.zeros(5, 16), w_ih, w_hh, b)
     before = t_cell.launches
     t_cell.lstm_cell(x, h, c, w_ih, w_hh, b)
     assert t_cell.launches == before
