@@ -21,10 +21,11 @@ paper's curriculum recipe, on one GPU.
    back-to-back calls (the host's time where the wrapper issues calls
    more slowly than the device runs them), and ``device_ms``, the summed
    durations of the device events of the same loop under torch.profiler
-   (``device_events`` of them per call), which no host time enters;
+   (``device_events`` of them per call, taken kernel name by kernel
+   name: K1-K3 print each launch's share), which no host time enters;
    comparisons with the library call and the bound use ``device_ms``.
-   K6 is also checked at B = 61 in prng_shared (a short last group) and
-   K8 at (B, Din, H) = (37, 200, 48), before any timing:
+   K6 and K7 are also checked at B = 61 in prng_shared (a short last
+   group) and K8 at (B, Din, H) = (37, 200, 48), before any timing:
    K3 (LSTM scan), K1 and K2 (training forward and backward of the scan;
    at the token lengths of the synthetic instructions, which the serve and
    train phases run, and at lengths up to MAX_ENC_LEN = 80), K4 and K5
@@ -152,43 +153,65 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_label(name: str) -> str:
+    """A device event's kernel name without its namespace, template
+    arguments and parameter list: "dw_gemm_kernel<float>(...)" ->
+    "dw_gemm_kernel"."""
+    base = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    base = base.split("(")[0].split("<")[0].rsplit("::", 1)[-1].strip()
+    return base or name
+
+
 def device_time_ms(fn, iters: int, warmup: int = 3, tries: int = 3):
-    """(device ms, device events) per call of ``fn(i)``: the summed
-    durations of the device events (kernels, copies, sets) that ``iters``
-    calls launch, under torch.profiler, per call.  No host time enters
-    it, however slowly the calls are issued.  The profiler now and then
-    loses events of a loop (a whole number of events per call is
-    expected): such a loop is profiled again, and if it still is not
-    whole, the time is the mean recorded event times the events per call
-    (at least one)."""
+    """(device ms, device events, per-name split) per call of ``fn(i)``:
+    the summed durations of the device events (kernels, copies, sets) that
+    ``iters`` calls launch, under torch.profiler, per call; the split maps
+    each kernel name to (device ms, events) per call.  No host time enters
+    it, however slowly the calls are issued; annotation spans are left
+    out.  The times are taken name by name: each name's mean event times
+    its whole number of events per call (at least one), summed over the
+    names.  The profiler now and then loses events of a loop; such a loop
+    is profiled again, and if a name still is not whole, its mean event
+    still stands for it, so a lost event of a short kernel does not
+    count as one of a long one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for i in range(warmup):
         fn(i)
-    best = (0.0, 0)
+    best = {}
     for _ in range(tries):
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        best = max(best, (sum(spans), len(spans)), key=lambda x: x[1])
-        if spans and len(spans) % iters == 0:
+        by_name = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            by_name.setdefault(kernel_label(e.name), []).append(
+                e.time_range.end - e.time_range.start)
+        if sum(map(len, by_name.values())) > sum(map(len, best.values())):
+            best = by_name
+        if by_name and all(len(v) % iters == 0 for v in by_name.values()):
             break
-    us, n = best
-    check(n > 0, "the profiler shows device events")
-    return us / n * max(1, round(n / iters)) / 1e3, n / iters
+    check(bool(best), "the profiler shows device events")
+    split = {}
+    for name, us in best.items():
+        per_call = max(1, round(len(us) / iters))
+        split[name] = (sum(us) / len(us) * per_call / 1e3, len(us) / iters)
+    total = sum(ms for ms, _ in split.values())
+    return total, sum(n for _, n in split.values()), split
 
 
 def kernel_times(fn, iters: int, warmup: int = 3):
-    """{ms, device_ms, device_events} of ``fn(i)``: CUDA-event ms
-    (``cuda_time_ms``) and device-only ms (``device_time_ms``)."""
+    """{ms, device_ms, device_events, device_split} of ``fn(i)``:
+    CUDA-event ms (``cuda_time_ms``) and device-only ms, in all and by
+    kernel name (``device_time_ms``)."""
     ms = cuda_time_ms(fn, iters, warmup)
-    dev, n = device_time_ms(fn, iters, warmup)
-    return {"ms": ms, "device_ms": dev, "device_events": n}
+    dev, n, split = device_time_ms(fn, iters, warmup)
+    return {"ms": ms, "device_ms": dev, "device_events": n, "device_split": split}
 
 
 def library_times(fn, iters: int, what: str):
@@ -199,7 +222,7 @@ def library_times(fn, iters: int, what: str):
     except RuntimeError as e:  # e.g. no cuDNN RNN or fused cell of this dtype: no yardstick
         log(f"  {what}: {e}".splitlines()[0])
         t = dict.fromkeys(("ms", "device_ms", "device_events"))
-    return {f"library_{k}": v for k, v in t.items()}
+    return {f"library_{k}": v for k, v in t.items() if k != "device_split"}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
@@ -472,7 +495,14 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
     e_r = compare((kc.cand_score(*rargs, cd),), (kc.cand_score_plain(*rargs, cd),), 1e-4)
     check(e_r[0] <= e_r[1], f"cand_score {dtype} prng_shared at B = {Br}: |kernel - plain| "
                             f"{e_r[0]:.3g} > {e_r[1]:.3g}")
-    res = {"ragged": {"B": Br, "mode": "prng_shared", "max_abs_err": e_r[0], "tol": e_r[1]}}
+    dr = d_logits[:Br].contiguous()
+    e_rb = compare((kc.cand_score_bwd(*rargs[:3], dr, cd),),
+                   (kc.cand_score_bwd_plain(*rargs[:3], dr, cd),), 1e-4)
+    check(e_rb[0] <= e_rb[1], f"cand_score_bwd {dtype} prng_shared at B = {Br}: |kernel - plain| "
+                              f"{e_rb[0]:.3g} > {e_rb[1]:.3g}")
+    res = {"ragged": {"B": Br, "mode": "prng_shared", "max_abs_err": e_r[0], "tol": e_r[1]},
+           "ragged_bwd": {"B": Br, "mode": "prng_shared", "max_abs_err": e_rb[0],
+                          "tol": e_rb[1]}}
     for mode in MODES:
         pd = drop_spec(mode, B, V, D, gen, device)
         cd = drop_spec(mode, B, MC, D, gen, device)
@@ -612,9 +642,9 @@ def kernel_phases(world, lengths, device):
                       f"> {m['err'][1]:.3g}")
                 log(f"{r['name']:16s} {prec:4s} {mode:4s} max|kernel-plain| {m['err'][0]:.3g} "
                     f"(tol {m['err'][1]:.3g}) | {times_label(m)}, bound {b_ms:.4f} ms ({b_by})")
-            if r["name"] == "cand_score":
-                r["ragged"] = by_mode["ragged"]
-                log(f"cand_score       {prec:4s} prng_shared at B={r['ragged']['B']}: "
+            if r["name"] in ("cand_score", "cand_score_bwd"):
+                r["ragged"] = by_mode["ragged" if r["name"] == "cand_score" else "ragged_bwd"]
+                log(f"{r['name']:16s} {prec:4s} prng_shared at B={r['ragged']['B']}: "
                     f"max|kernel-plain| {r['ragged']['max_abs_err']:.3g} "
                     f"(tol {r['ragged']['tol']:.3g})")
             results[(r["name"], prec)] = r
@@ -637,6 +667,8 @@ def kernel_phases(world, lengths, device):
                 log(f"{name:16s} {prec:4s} lengths {r['lengths']}: max|kernel-plain| {errs} | "
                     f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by}, "
                     f"{r['valid_steps']} valid steps)")
+                log(f"{'':16s} {prec:4s} device ms a call by kernel: " + ", ".join(
+                    f"{k} {ms:.4f} ({n:g}x)" for k, (ms, n) in r["device_split"].items()))
                 for part, c in r["checks"].items():
                     check(c["max_abs_err"] <= c["tol"],
                           f"{name} {prec} {part} agrees with its plain version")
@@ -1286,14 +1318,16 @@ def main() -> int:
             "f32": {k: r32[k] for k in ("max_abs_err", *TIME_KEYS, "bound_ms", "bound_by")},
         }
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
-            keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "bound_ms", "bound_by")
-            entry.update(lengths=r["lengths"], valid_steps=r["valid_steps"], checks=r["checks"])
-            entry["f32"].update(checks=r32["checks"])
+            keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "device_split", "bound_ms",
+                    "bound_by")
+            entry.update(lengths=r["lengths"], valid_steps=r["valid_steps"], checks=r["checks"],
+                         device_split=r["device_split"])
+            entry["f32"].update(checks=r32["checks"], device_split=r32["device_split"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
         else:
             entry["tol"] = r["tol"]
-        if "ragged" in r:  # K6 at a short prng_shared group, K8 at ragged edges
+        if "ragged" in r:  # K6, K7 at a short prng_shared group, K8 at ragged edges
             entry["ragged"] = {precision: r["ragged"], "f32": r32["ragged"]}
         if name in OFF_PATH:
             entry.update(shape=r["shape"], kernel_phase_launches=r["kernel_phase_launches"])

@@ -10,6 +10,7 @@
 //   forward   logits[b, j]  = valid[b, j] ? r_j . q[b, :D] + ang[b, j] . q[b, D:] : 0   (j < MC)
 //             logits[b, MC] = 0                                         (the STOP slot)
 //   backward  d_q[b] = sum_j w_j [ r_j ; ang[b, j] ],   w_j = valid[b, j] ? d_logits[b, j] : 0
+//                                                       (j = 0..MC-1 in order)
 //
 // q and d_q are f32; the sums accumulate in f32.  Masks are never stored:
 // the prng modes draw each element's bits from a seed, and the backward
@@ -41,15 +42,44 @@
 // past B (a short last group) load nothing and write nothing.  The launch
 // geometry comes from ops/cuda/cand_score.py:: cand_score_plan.
 //
-// Backward (K7): one block per sample, every thread owns a 16-byte column
-// chunk and walks the 16 candidates in order (no atomics, the same sums
-// every run), through common.cuh's load_dropped.
+// Backward (K7).  The first design (one block per sample, 64 blocks; each
+// thread walking the 16 candidate rows of a 16-byte column chunk one
+// dependent load at a time through common.cuh's load_dropped, with its IEEE
+// division per element and every row of a prng_shared group drawing the
+// group's bits again) took 0.0083 ms of device time in mode none and
+// 0.0225-0.0232 in the masked modes at the path's shapes in bf16 on the
+// H100, against 0.0045 for torch.einsum('bk,bkd->bd').  Now K6's layout:
+// one block per (slice of 128 image columns, group g of 8 samples) — 16 x
+// 8 = 128 blocks at D = 2048, B = 64, one wave — and warp w sums sample 8g
+// + w's rows; lane l owns image columns 4l..4l+3 of the slice, and lanes l
+// < ang_quads also four angle columns (the 128 angle columns spread over
+// the 16 slices, 2 lanes a slice: a 17th slice of blocks made a second
+// wave).  Every lane puts all 16 of its candidate rows (8 bytes a row in
+// bf16, 16 in f32), angle rows and ext flag words in flight at once with
+// cp.async into its own shared-memory slots: held in registers instead,
+// the compiler interleaved the loads with their FMAs in some modes, a few
+// in flight at a time (mode none 0.0062 ms, slower than prng_shared).
+// The weights w_j load in one round trip (valid and d_logits together).
+// prng_shared: the block draws its slice's keep flags of the 16 rows once
+// (512 Philox calls, 2 a thread) into shared memory, and after one barrier
+// all 8 warps apply them; prng: each lane draws its own (one call a row),
+// while its rows are in flight.  A kept element is x / keep by K6's
+// reciprocal and FMA correction (div_by), so the bits are the division's.
+// Each element's sum runs over j = 0..MC-1 in order in one thread, with no
+// atomics: the same bits every run.  The mask mode is a template
+// parameter; warps past B and lanes past the row's end copy zeros and
+// write nothing.  The launch geometry is ops/cuda/cand_score.py::
+// cand_score_bwd_plan's.
 #include "common.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 32 * SHARED_GROUP;  // one warp per sample of a group
 constexpr int PASS = 2048;  // row elements a warp has in flight at once
+constexpr int BWD_THREADS = 32 * SHARED_GROUP;  // K7: one warp per sample of a group
+constexpr int BWD_COLS = 128;  // K7: columns of a block's slice, 4 a lane
+constexpr int ROWS = 16;       // K7: candidate rows a lane has in flight at once
+constexpr int GROUP_ROWS = 4;  // K7: rows of one cp.async group
 
 __device__ __forceinline__ float component(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
@@ -71,21 +101,21 @@ __device__ __forceinline__ float div_by(float x, float d, float inv) {
   return fmaf(fmaf(-q, d, x), inv, q);
 }
 
-// Chunk v (16 bytes of T) dropped by its keep flags kw (a byte per element,
-// N / 4 words) and widened to f32: round_to<T>(x / keep) where kept, 0
-// where not.  The flags mask the raw bits first (0 / keep is 0), and bf16
-// pairs are rounded together.
-template <typename T>
-__device__ __forceinline__ void dropped_chunk(const uint4& v, const uint32_t* kw, float keep,
+// NW words of T (N = NW * 4 / sizeof(T) elements) dropped by their keep
+// flags kw (a byte per element, N / 4 words) and widened to f32:
+// round_to<T>(x / keep) where kept, 0 where not.  The flags mask the raw
+// bits first (0 / keep is 0), and bf16 pairs are rounded together.
+template <typename T, int NW>
+__device__ __forceinline__ void dropped_words(const uint32_t* w, const uint32_t* kw, float keep,
                                               float inv, float* x) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      x[e] = div_by((kw[0] >> (8 * e)) & 0xffu ? __uint_as_float(w[e]) : 0.f, keep, inv);
+    for (int e = 0; e < NW; ++e)
+      x[e] = div_by((kw[e >> 2] >> (8 * (e & 3))) & 0xffu ? __uint_as_float(w[e]) : 0.f, keep,
+                    inv);
   } else {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < NW; ++p) {
       // the pair's two flags, spread to 0x0000FFFF / 0xFFFF0000
       const uint32_t bits =
           w[p] & (__byte_perm(kw[p >> 1], 0u, p & 1 ? 0x4342u : 0x4140u) * 0xFFFFu);
@@ -95,6 +125,21 @@ __device__ __forceinline__ void dropped_chunk(const uint4& v, const uint32_t* kw
       const float2 o = __bfloat1622float2(r);
       x[2 * p] = o.x;
       x[2 * p + 1] = o.y;
+    }
+  }
+}
+
+// NW words of T widened to f32.
+template <typename T, int NW>
+__device__ __forceinline__ void widen_words(const uint32_t* w, float* x) {
+#pragma unroll
+  for (int p = 0; p < NW; ++p) {
+    if constexpr (std::is_same<T, float>::value) {
+      x[p] = __uint_as_float(w[p]);
+    } else {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[p]));
+      x[2 * p] = f.x;
+      x[2 * p + 1] = f.y;
     }
   }
 }
@@ -189,7 +234,8 @@ cand_score_kernel(const T* __restrict__ img, const T* __restrict__ ang,
       if (MODE == DROP_NONE)
         widen<T>(v[i], x);
       else
-        dropped_chunk<T>(v[i], kw[i], drop.keep, inv_keep, x);
+        dropped_words<T, 4>(reinterpret_cast<const uint32_t*>(&v[i]), kw[i], drop.keep,
+                            inv_keep, x);
 #pragma unroll
       for (int e = 0; e < N; ++e) acc += x[e] * component(qv[i][e / 4], e % 4);
     }
@@ -201,45 +247,166 @@ cand_score_kernel(const T* __restrict__ img, const T* __restrict__ ang,
   }
 }
 
+// Four elements of T: 8 bytes in bf16, 16 in f32 (K7's load per lane and row).
 template <typename T>
-__global__ void cand_score_bwd_kernel(const T* __restrict__ img, const T* __restrict__ ang,
-                                      const bool* __restrict__ valid,
-                                      const float* __restrict__ d_logits, float* __restrict__ d_q,
-                                      int MC, int D, int A, DropSpec drop) {
-  constexpr int N = Chunk<T>::N;
-  extern __shared__ float w_s[];  // [MC]
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int F = D + A;
-  const size_t block_elems = (size_t)MC * D;
-  for (int j = tid; j < MC; j += blockDim.x)
-    w_s[j] = valid[(size_t)b * MC + j] ? d_logits[(size_t)b * (MC + 1) + j] : 0.f;
-  __syncthreads();
+struct Quad {
+  using type = uint2;
+};
+template <>
+struct Quad<float> {
+  using type = uint4;
+};
 
-  float* o = d_q + (size_t)b * F;
-  for (int c = tid * N; c < D; c += blockDim.x * N) {
-    float acc[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = 0.f;
-    for (int j = 0; j < MC; ++j) {
-      float x[N];
-      load_dropped(img + (size_t)b * block_elems + (size_t)j * D + c, b, block_elems, j * D + c,
-                   drop, x);
-      const float w = w_s[j];
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] += w * x[i];
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[c + i] = acc[i];
-  }
-  for (int a = tid; a < A; a += blockDim.x) {
-    float acc = 0.f;
-    for (int j = 0; j < MC; ++j) acc += w_s[j] * to_f32(ang[((size_t)b * MC + j) * A + a]);
-    o[D + a] = acc;
-  }
+// 4, 8 or 16 bytes from device to shared memory without registers
+// (cp.async); zeros where !full (the source is then not read).
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool full) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(N),
+                 "r"(full ? N : 0)
+                 : "memory");
 }
 
-constexpr int THREADS = 256;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n (0..3) of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_groups(int n) {
+  if (n >= 3)
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// K7's shared memory: every lane's 16 rows of image columns [ROWS][8][32],
+// of angle columns [ROWS][8][ang_quads], and ext flags [ROWS][8][32].
+template <typename T>
+size_t bwd_smem(int ang_quads) {
+  return (size_t)ROWS * SHARED_GROUP * (32 + ang_quads) * sizeof(typename Quad<T>::type) +
+         (size_t)ROWS * BWD_THREADS * 4;
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS)
+cand_score_bwd_kernel(const T* __restrict__ img, const T* __restrict__ ang,
+                      const bool* __restrict__ valid, const float* __restrict__ d_logits,
+                      float* __restrict__ d_q, int B, int MC, int D, int A, int ang_quads,
+                      DropSpec drop) {
+  using Q = typename Quad<T>::type;
+  constexpr int NW = sizeof(Q) / 4;  // data words per load
+  __shared__ uint32_t keep_s[ROWS * 32];  // prng_shared: the group's flags of 16 rows x 128 columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Q* rows_s = reinterpret_cast<Q*>(smem_raw);
+  Q* ang_s = rows_s + ROWS * BWD_THREADS;
+  uint32_t* flag_s = reinterpret_cast<uint32_t*>(ang_s + ROWS * SHARED_GROUP * ang_quads);
+  const int g = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = g * SHARED_GROUP + w;
+  const bool live = b < B;
+  const int bb = live ? b : g * SHARED_GROUP;  // a sample that exists, for the addresses
+  // this lane's four image columns, and its four angle columns (lanes < ang_quads)
+  const int c = blockIdx.x * BWD_COLS + 4 * lane;
+  const int a = (blockIdx.x * ang_quads + lane) * 4;
+  const bool col = live && c < D, acol = live && lane < ang_quads && a < A;
+  const T* irow = img + (size_t)bb * MC * D + min(c, D - 4);
+  const T* arow = ang + (size_t)bb * MC * A + min(a, A - 4);
+  uint32_t k0 = 0, k1 = 0;
+  if (MODE == DROP_PRNG || MODE == DROP_PRNG_SHARED) {
+    const uint64_t s = (uint64_t)drop.seeds[MODE == DROP_PRNG ? bb : g * SHARED_GROUP];
+    k0 = (uint32_t)s;
+    k1 = (uint32_t)(s >> 32);
+  }
+  const float inv_keep = 1.f / drop.keep;
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < MC; j0 += ROWS) {
+    // every row of the lane (and its ext flags) in flight at once through
+    // cp.async, each into the lane's own slots: no register holds them and
+    // no compiler schedule serialises them.  Four groups of 4 rows, so that
+    // a group's masks and FMAs run while the later groups' copies land.
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const bool in = j0 + r < MC;
+      const int j = min(j0 + r, MC - 1);
+      cp_async_n<sizeof(Q)>(rows_s + r * BWD_THREADS + threadIdx.x, irow + (size_t)j * D,
+                            col && in);
+      if (lane < ang_quads)
+        cp_async_n<sizeof(Q)>(ang_s + (r * SHARED_GROUP + w) * ang_quads + lane,
+                              arow + (size_t)j * A, acol && in);
+      if (MODE == DROP_EXT)
+        cp_async_n<4>(flag_s + r * BWD_THREADS + threadIdx.x,
+                      drop.mask + ((size_t)bb * MC + j) * D + min(c, D - 4), col && in);
+      if (r % GROUP_ROWS == GROUP_ROWS - 1) cp_async_commit();
+    }
+    // the weights of rows j0.. in lanes 0..15: both loads at once (one
+    // round trip), and first used at the first FMA, so that the Philox
+    // draws below do not wait for them
+    bool ok = false;
+    float dl = 0.f;
+    if (lane < ROWS && j0 + lane < MC) {
+      ok = valid[(size_t)bb * MC + j0 + lane];
+      dl = __ldg(d_logits + (size_t)bb * (MC + 1) + j0 + lane);
+    }
+    if (MODE == DROP_PRNG_SHARED) {
+      if (j0 > 0) __syncthreads();  // the last rows' flags are read
+      for (int i = threadIdx.x; i < ROWS * 32; i += BWD_THREADS) {
+        const int r = i / 32, cc = blockIdx.x * BWD_COLS + 4 * (i % 32);
+        if (j0 + r < MC && cc < D)
+          keep_s[i] = philox_keep4((uint32_t)(((j0 + r) * D + cc) / 4), k0, k1, drop.thr);
+      }
+      __syncthreads();  // the group's flags are drawn
+    }
+    // d_q[c..c+3] += w_j x_j, j in order
+#pragma unroll
+    for (int r0 = 0; r0 < ROWS; r0 += GROUP_ROWS) {
+      uint32_t kw[GROUP_ROWS];
+#pragma unroll
+      for (int i = 0; i < GROUP_ROWS; ++i) {
+        const int r = r0 + i;
+        if (MODE == DROP_PRNG)
+          kw[i] = col && j0 + r < MC
+                      ? philox_keep4((uint32_t)(((j0 + r) * D + c) / 4), k0, k1, drop.thr)
+                      : 0u;
+      }
+      cp_async_wait_groups((ROWS - r0) / GROUP_ROWS - 1);  // this group's copies (its own)
+#pragma unroll
+      for (int i = 0; i < GROUP_ROWS; ++i) {
+        const int r = r0 + i;
+        if (MODE == DROP_PRNG_SHARED) kw[i] = keep_s[r * 32 + lane];
+        if (MODE == DROP_EXT) kw[i] = flag_s[r * BWD_THREADS + threadIdx.x];
+        const float wj = __shfl_sync(0xffffffffu, ok ? dl : 0.f, r);
+        const Q v = rows_s[r * BWD_THREADS + threadIdx.x];
+        float x[4], y[4] = {0.f, 0.f, 0.f, 0.f};
+        if (MODE == DROP_NONE)
+          widen_words<T, NW>(reinterpret_cast<const uint32_t*>(&v), x);
+        else
+          dropped_words<T, NW>(reinterpret_cast<const uint32_t*>(&v), &kw[i], drop.keep,
+                               inv_keep, x);
+        if (lane < ang_quads) {
+          const Q u = ang_s[(r * SHARED_GROUP + w) * ang_quads + lane];
+          widen_words<T, NW>(reinterpret_cast<const uint32_t*>(&u), y);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[e] += wj * x[e];
+          acc_a[e] += wj * y[e];
+        }
+      }
+    }
+  }
+  float* o = d_q + (size_t)b * (D + A);
+  if (col) *reinterpret_cast<float4*>(o + c) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  if (acol)
+    *reinterpret_cast<float4*>(o + D + a) = make_float4(acc_a[0], acc_a[1], acc_a[2], acc_a[3]);
+}
 
 template <typename T>
 cudaError_t launch_fwd(const void* img, const void* ang, const void* valid, const void* q,
@@ -260,10 +427,24 @@ template <typename T>
 cudaError_t launch_bwd(const void* img, const void* ang, const void* valid, const void* d_logits,
                        void* d_q, int B, int MC, int D, int A, DropSpec drop,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)MC * sizeof(float);
-  cand_score_bwd_kernel<T><<<B, THREADS, smem, stream>>>(
+  // ops/cuda/cand_score.py::cand_score_bwd_plan: the angle columns spread
+  // over the image slices, ang_quads quads of 4 a slice
+  const int slices = (D + BWD_COLS - 1) / BWD_COLS;
+  const int ang_quads = (A / 4 + slices - 1) / slices;
+  if (D % 4 || A % 4 || ang_quads > 32) return cudaErrorInvalidValue;
+  const dim3 grid(slices, (B + SHARED_GROUP - 1) / SHARED_GROUP);
+  auto kernel = drop.mode == DROP_EXT           ? cand_score_bwd_kernel<T, DROP_EXT>
+                : drop.mode == DROP_PRNG        ? cand_score_bwd_kernel<T, DROP_PRNG>
+                : drop.mode == DROP_PRNG_SHARED ? cand_score_bwd_kernel<T, DROP_PRNG_SHARED>
+                                                : cand_score_bwd_kernel<T, DROP_NONE>;
+  const size_t smem = bwd_smem<T>(ang_quads);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(img), static_cast<const T*>(ang), static_cast<const bool*>(valid),
-      static_cast<const float*>(d_logits), static_cast<float*>(d_q), MC, D, A, drop);
+      static_cast<const float*>(d_logits), static_cast<float*>(d_q), B, MC, D, A, ang_quads,
+      drop);
   return cudaGetLastError();
 }
 

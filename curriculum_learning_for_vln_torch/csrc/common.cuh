@@ -122,7 +122,7 @@ __device__ __forceinline__ void load_dropped(const T* p, int b, size_t block_ele
     for (int i = 0; i < N; ++i) kept[i] = m[i];
   } else {
     // prng_shared: every row of a group computes the same bits here (K6
-    // draws them once per group into shared memory; K4, K5 and K7 not yet)
+    // and K7 draw them once per group into shared memory; K4 and K5 not yet)
     const int row = d.mode == DROP_PRNG_SHARED ? b - b % SHARED_GROUP : b;
     const uint64_t s = (uint64_t)d.seeds[row];
     const uint32_t k0 = (uint32_t)s, k1 = (uint32_t)(s >> 32);

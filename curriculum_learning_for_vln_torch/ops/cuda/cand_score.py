@@ -6,11 +6,13 @@ cand_score_fwd_pallas``, K7 its ``cand_score_bwd_pallas``, each in the
 mask modes "none", "ext", "prng" and "prng_shared" (``drop.py``).
 Kernel: ``csrc/cand_score.cu`` — the forward takes one block per
 (candidate, group of 8 samples) and one warp per sample, every load of a
-row in flight before its first FMA (``cand_score_plan`` gives the grid,
-which the CPU tests check); the backward one block per sample and one
-16-byte column chunk per thread.  Both are bound by the device-memory
-bytes of the candidate rows (the source says what the design does about
-that).
+row in flight before its first FMA (``cand_score_plan`` gives the grid);
+the backward one block per (slice of 128 image columns, group of 8
+samples), one warp per sample and four image columns a lane (a few lanes
+also take four angle columns), all 16 candidate rows of a lane in flight
+before its first FMA (``cand_score_bwd_plan``).  The CPU
+tests check both plans.  Both are bound by the device-memory bytes of the
+candidate rows (the source says what the design does about that).
 
 ``cand_score`` and ``cand_score_bwd`` dispatch by device: a CPU tensor
 goes to the plain version, a CUDA tensor to the kernel; there is no
@@ -51,6 +53,34 @@ class ScorePlan(NamedTuple):
 
 def cand_score_plan(B: int, MC: int) -> ScorePlan:
     return ScorePlan((MC, -(-B // GROUP)), FWD_THREADS, PASS)
+
+
+BWD_COLS = 128       # image columns a K7 block covers: 4 a lane
+BWD_ROWS = 16        # candidate rows a K7 lane has in flight at once
+
+
+class ScoreBwdPlan(NamedTuple):
+    """K7's launch: grid (slices, groups); block (s, g) warp w sums sample
+    GROUP * g + w's rows; lane l owns image columns s * cols + 4l .. + 3
+    and, for l < ``ang_quads``, angle columns 4 (s * ang_quads + l) .. + 3,
+    where that sample and those columns exist (``load_bytes`` a row and
+    column set); ``smem`` bytes of shared memory: every lane's 16 rows of
+    image and angle columns and of ext flags, staged by cp.async, and the
+    prng_shared keep flags of 16 rows of the slice."""
+    grid: Tuple[int, int]
+    cols: int
+    ang_quads: int
+    threads: int
+    load_bytes: int
+    smem: int
+
+
+def cand_score_bwd_plan(B: int, MC: int, D: int, A: int, dtype: torch.dtype) -> ScoreBwdPlan:
+    slices = -(-D // BWD_COLS)
+    ang_quads = -(-(A // 4) // slices)
+    load = 4 * torch.empty((), dtype=dtype).element_size()
+    smem = BWD_ROWS * (GROUP * (32 + ang_quads) * load + FWD_THREADS * 4 + 32 * 4)
+    return ScoreBwdPlan((slices, -(-B // GROUP)), BWD_COLS, ang_quads, FWD_THREADS, load, smem)
 
 
 def _rows(cand_img, cand_angle, drop):
@@ -138,7 +168,12 @@ def cand_score_bwd_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
     ang = cand_angle.to(cand_img.dtype)
     B, MC, D, A = _check("cand_score_bwd", cand_img, ang, cand_valid, d_logits, "d_logits",
                          (B, MC + 1))
+    if A % 4 or cand_score_bwd_plan(B, MC, D, A, cand_img.dtype).ang_quads > 32:
+        raise ValueError(f"cand_score_bwd: the angle rows must be a multiple of 4 wide and at "
+                         f"most 32 quads a slice of {BWD_COLS} image columns (A = {A})")
     dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score_bwd")
+    if drop.mask is not None and drop.mask.data_ptr() % 16:
+        raise ValueError("cand_score_bwd: the ext mask must be 16-byte aligned")
     d_q = torch.empty((B, D + A), dtype=torch.float32, device=cand_img.device)
     fn = build.kernel_function("cand_score", "cand_score_bwd", _ARGTYPES)
     err = fn(cand_img.data_ptr(), ang.data_ptr(), cand_valid.data_ptr(), d_logits.data_ptr(),

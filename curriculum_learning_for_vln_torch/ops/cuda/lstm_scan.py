@@ -8,11 +8,15 @@ one C call of two launches (a tiled GEMM for x . W_ih + b over the valid
 steps, then the recurrence on clusters of 8 blocks that keep W_hh in
 shared memory and trade h through distributed shared memory); K1 also
 writes the pre-step carries and keeps the gate pre-activations as
-residuals.  K2 is one C call of four launches: the reverse-time
-recurrence on the same cluster layout, then GEMMs for d_xs, dW_ih and
-dW_hh and the bias sum, in a fixed order (no atomics).  All three are
-bound by their serial chain of steps, not by bytes or FLOPs (the source
-says more).
+residuals.  K2 is one C call of three launches: the reverse-time
+recurrence on the same cluster layout (its per-step product on the
+tensor cores), then tensor-core GEMMs for d_xs and for dW_ih, dW_hh and
+db over the valid steps only, in a fixed order (no atomics), in TF32 with
+split operands that keep f32 accuracy.  ``lstm_scan_bwd_plan`` gives the
+backward's launch geometry and ``valid_steps`` / ``split_bounds`` the
+order in which its GEMMs take the valid steps; the CPU tests check both.
+All three are bound by their serial chain of steps, not by bytes or
+FLOPs (the source says more).
 
 ``lstm_scan``, ``lstm_scan_train`` and ``lstm_scan_bwd`` dispatch by
 device: a CPU tensor goes to the plain version, a CUDA tensor to the
@@ -23,7 +27,7 @@ counts once, whatever its number of launches).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +42,66 @@ _TRAIN_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p
 _BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
+
+# csrc/lstm_scan.cu's backward geometry: the recurrence's clusters of CL
+# blocks own R batch rows each; dx_gemm's tiles of DX_TM steps x DX_TN
+# columns; dw_gemm's tiles of DW_TI x DW_TJ outputs, each reduced by a
+# cluster of DW_SPLITS blocks over the valid steps, DW_KC steps a stage
+CL, R, THREADS = 8, 8, 256
+DX_TM, DX_TN, DX_KC, DX_STAGES, DX_THREADS = 32, 64, 32, 3, 128
+DW_TI, DW_TJ, DW_KC, DW_STAGES, DW_THREADS, DW_SPLITS = 64, 128, 32, 3, 256, 8
+MAX_SMEM = 232448  # shared memory a block can use on the H100
+
+
+class BwdPlan(NamedTuple):
+    """K2's launches.  ``rec_grid`` blocks of the recurrence (clusters of
+    CL along x) with ``rec_smem`` bytes; dx_gemm's grid (D tiles, step
+    tiles + 1: blocks past the valid steps' tiles write the padded steps'
+    zeros) with ``dx_smem``; dw_gemm's grid (4H tiles, max(D, H) tiles, 2
+    matrices x ``splits``, clusters of ``splits`` along z) with
+    ``dw_smem``, ``dw_blocks_per_sm`` of which fit an SM."""
+    rec_grid: int
+    rec_smem: int
+    dx_grid: Tuple[int, int]
+    dx_smem: int
+    dw_grid: Tuple[int, int, int]
+    dw_smem: int
+    dw_blocks_per_sm: int
+    splits: int
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPlan:
+    U = H // CL
+    starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
+    # W_hh's columns as f32 fragments; da's TF32 halves and the partials,
+    # double-buffered; three steps' inputs; two mbarriers
+    rec_smem = 4 * U * H * 4 + (4 * 4 * U * R + 2 * CL * R * U + 3 * 6 * THREADS) * 4 + 16
+    w_stride = DX_KC + (4 if elem_size == 4 else 8)
+    dx_smem = starts + DX_TM * 4 + DX_STAGES * (DX_TM * (DX_KC + 4) * 4
+                                                + DX_TN * w_stride * elem_size)
+    dw_smem = starts + max(DW_STAGES * DW_KC * (DW_TI + 8 + DW_TJ + 8) * 4,
+                           DW_TI * (DW_TJ + 4) * 4)
+    return BwdPlan(_ceil_div(B, R) * CL, rec_smem,
+                   (_ceil_div(D, DX_TN), _ceil_div(B * L, DX_TM) + 1), dx_smem,
+                   (4 * H // DW_TJ, _ceil_div(max(D, H), DW_TI), 2 * DW_SPLITS), dw_smem,
+                   min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS)
+
+
+def valid_steps(lengths, L: int) -> List[Tuple[int, int]]:
+    """The valid steps (b, t), t < len[b] (clamped to [0, L]), in the order
+    in which K2's GEMMs number them: row by row, t ascending, whatever the
+    direction (both walk the same steps)."""
+    return [(b, t) for b, n in enumerate(lengths) for t in range(max(0, min(int(n), L)))]
+
+
+def split_bounds(Mv: int, splits: int) -> List[Tuple[int, int]]:
+    """dw_gemm's split s reduces valid steps [s Mv / S, (s + 1) Mv / S), in
+    order; the cluster then sums the splits' partials in rank order."""
+    return [(Mv * s // splits, Mv * (s + 1) // splits) for s in range(splits)]
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor, H: int):
@@ -122,6 +186,84 @@ def lstm_scan_bwd_plain(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Ten
     return d_xs, dw_ih, dw_hh, da.sum(dim=(0, 1))
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) with its low 13 mantissa bits cleared: the TF32 value a
+    tensor core reads from it."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, split_a: bool, split_b: bool) -> torch.Tensor:
+    """a @ b (f32) as K2's MMAs take it: each operand as TF32 halves hi and
+    lo = TF32(x - hi) where it is split, the products lo.hi + hi.lo +
+    hi.hi (only those of split operands) summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if split_a:
+        out = _tf32(a - ah) @ bh + out
+    if split_b:
+        out = ah @ _tf32(b - bh) + out
+    return out
+
+
+def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT,
+                           reverse: bool = False, split: bool = True):
+    """K2's arithmetic in plain torch on the CPU, as ``csrc/lstm_scan.cu``
+    and its plan cut it: the recurrence's step product da . W_hh^T on the
+    tensor cores per block of the cluster (its G4 columns) and summed over
+    the blocks in rank order; d_xs = da . W_ih^T; dW_ih, dW_hh as
+    ``split_bounds``' partial sums over ``valid_steps``, summed in rank
+    order; db over the recurrence's clusters in order.  Every product is
+    in TF32 with the operands the kernel splits split (``split=False``:
+    none, plain TF32, for comparison); bf16 operands are exact in TF32 and
+    never split, nor is da in bf16 d_xs.  Returns what ``lstm_scan_bwd``
+    returns."""
+    B, L, D = xs.shape
+    H = w_hh.shape[0]
+    U = H // CL
+    f32 = xs.dtype == torch.float32
+    whh = w_hh.float()
+    dh, dc = dhT.float(), dcT.float()
+    da = torch.zeros((B, L, 4 * H))
+    cols = [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U) for g in range(4)])
+            for r in range(CL)]
+    for l in range(L):
+        t = l if reverse else L - 1 - l
+        valid = (t < lengths)[:, None]
+        pi, pf, pg, po = gates[:, t].split(H, dim=-1)
+        i, f, g, o = torch.sigmoid(pi), torch.sigmoid(pf), torch.tanh(pg), torch.sigmoid(po)
+        cp = cprev[t]
+        tc = torch.tanh(f * cp + i * g)
+        dh_eff = dh + d_out[:, t]
+        dct = dc + dh_eff * o * (1.0 - tc * tc)
+        da_t = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
+                          dct * i * (1.0 - g * g), dh_eff * tc * o * (1.0 - o)], dim=-1)
+        da_t = torch.where(valid, da_t, 0.0)
+        dh_prev = torch.zeros_like(dh)
+        for c in cols:
+            dh_prev = dh_prev + _tf32_mm(da_t[:, c], whh[:, c].t(), split, split and f32)
+        dh = torch.where(valid, dh_prev, dh)
+        dc = torch.where(valid, dct * f, dc)
+        da[:, t] = da_t
+    steps = valid_steps(lengths.tolist(), L)
+    bs = torch.tensor([b for b, _ in steps], dtype=torch.long)
+    ts = torch.tensor([t for _, t in steps], dtype=torch.long)
+    dav = da[bs, ts]
+    d_xs = torch.zeros((B, L, D))
+    d_xs[bs, ts] = _tf32_mm(dav, w_ih.float().t(), split and f32, split and f32)
+    dws = []
+    for a, split_a in ((xs[bs, ts].float(), split and f32), (hprev[ts, bs].float(), split)):
+        dw = None
+        for v0, v1 in split_bounds(len(steps), DW_SPLITS):
+            part = _tf32_mm(a[v0:v1].t(), dav[v0:v1], split_a, split)
+            dw = part if dw is None else dw + part
+        dws.append(dw)
+    db = None
+    for q in range(_ceil_div(B, R)):
+        part = da[q * R:(q + 1) * R].sum(dim=(0, 1))
+        db = part if db is None else db + part
+    return d_xs.to(xs.dtype), dws[0], dws[1], db
+
+
 def _check(name, xs, lengths, w_ih, w_hh, extra=()):
     B, L, D = xs.shape
     H = w_hh.shape[0]
@@ -185,7 +327,7 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
                        w_hh: torch.Tensor, gates: torch.Tensor, hprev: torch.Tensor,
                        cprev: torch.Tensor, d_out: torch.Tensor, dhT: torch.Tensor,
                        dcT: torch.Tensor, reverse: bool = False):
-    """``lstm_scan_bwd_plain`` as one call of K2 (four launches)."""
+    """``lstm_scan_bwd_plain`` as one call of K2 (three launches)."""
     global bwd_launches
     B, L, D = xs.shape
     H = w_hh.shape[0]
@@ -194,9 +336,14 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
         ("gates", gates, (B, L, 4 * H), f32), ("hprev", hprev, (L, B, H), f32),
         ("cprev", cprev, (L, B, H), f32), ("d_out", d_out, (B, L, H), f32),
         ("dhT", dhT, (B, H), f32), ("dcT", dcT, (B, H), f32)))
+    if (D * xs.element_size()) % 16:
+        raise ValueError(f"lstm_scan_bwd: xs rows must be a multiple of 16 bytes (D={D})")
+    plan = lstm_scan_bwd_plan(B, L, D, H, xs.element_size())
+    if max(plan.rec_smem, plan.dx_smem, plan.dw_smem) > MAX_SMEM:
+        raise ValueError(f"lstm_scan_bwd: batch {B} needs more shared memory than a block has")
     dev = dict(dtype=f32, device=xs.device)
     da = torch.empty((B, L, 4 * H), **dev)
-    db_part = torch.empty(((B + 7) // 8, 4 * H), **dev)
+    db_part = torch.empty((_ceil_div(B, R), 4 * H), **dev)
     d_xs = torch.empty((B, L, D), dtype=xs.dtype, device=xs.device)
     dw_ih, dw_hh = torch.empty((D, 4 * H), **dev), torch.empty((H, 4 * H), **dev)
     db = torch.empty((4 * H,), **dev)
