@@ -9,20 +9,32 @@
 // no order, and a grid-wide barrier per step is costly; but every batch
 // row's recurrence is independent.
 //
-// Forward (K3, and K1 with residuals): one C call, two launches.
-// 1. gates_x: a tiled GEMM  gx[b, t] = x[b, t] . W_ih + b  for every valid
-//    (b, t) with t < len[b] (tiles of invalid pairs exit at once).  This
-//    half of the work has no recurrence, so it runs across the whole card.
+// Forward (K3, and K1 with residuals): one C call, two launches
+// (ops/cuda/lstm_scan.py::lstm_scan_fwd_plan gives their geometry).
+// 1. gates_x: gx = x . W_ih + b at the valid steps only (numbered on the
+//    device, as K2's GEMMs do), on the tensor cores through a 3-stage
+//    cp.async ring: bf16 operands on mma.sync m16n8k16 (exact products,
+//    f32 sums, as JAX's f32-accumulated bf16 dot); f32 on m16n8k8 in TF32
+//    with both operands split.  This half of the work has no recurrence,
+//    so it runs across the whole card.
 // 2. recurrence: clusters of CL = 8 blocks, each cluster owning R = 8
-//    batch rows.  Block `rank` of a cluster owns hidden units
-//    [rank*U, (rank+1)*U), U = H / 8: it keeps their four gate columns of
-//    W_hh (H x 4U, 64 KB in bf16 at H = 256) in shared memory for the
-//    whole scan, computes its gates for the R rows from h (f32, in shared
-//    memory), updates (h, c) in f32, and writes its slice of the new h
-//    into every block of the cluster through distributed shared memory;
-//    one cluster barrier a step orders those writes against the next
-//    step's reads.  A cluster loops only to the longest length of its rows
-//    (steps past it change nothing and output 0).
+//    batch rows.  Block `rank` owns hidden units [rank*U, (rank+1)*U), U =
+//    H / 8, and their G4 = 4U gate columns of W_hh.  The step's product is
+//    taken transposed, gates^T[c][r] = sum_k W_hh[k][c] h[r][k] (M = G4, N =
+//    R, K = H), on mma.sync m16n8k8 in TF32: warp w holds the A fragments
+//    of one m-tile, 16 columns = the four gates of units 4w..4w+3, in
+//    registers for the whole walk; h (f32) is split into TF32 halves, a
+//    bf16 W_hh is exact in TF32 (two MMAs a product; f32 splits W_hh too:
+//    three, its low halves read from shared memory).  The warp then owns
+//    the 32 cells of those units and R rows, one a lane: it gathers each
+//    cell's four gates through a warp-private tile, adds gx (brought in by
+//    cp.async two steps ahead: it does not depend on the carries), and
+//    updates (h, c) in f32 registers.  No block barrier and no cluster
+//    barrier a step: each warp sends its units' new h to every block of the
+//    cluster by st.async, counted on the receiver's mbarrier, and a warp
+//    waits only for the H * R * 4 bytes of the next h.  A cluster loops
+//    only to the longest length of its rows (steps past it change nothing
+//    and output 0).
 //    K1 also writes the carries (h, c) before each step, time-major and
 //    indexed by absolute t as _train_kernel does (the carried state at a
 //    padded step), and overwrites gx in place with each valid step's full
@@ -67,20 +79,23 @@
 // The GEMMs visit only the valid steps: they number them row by row (row
 // b's valid steps are the contiguous run t < len[b]), every block taking
 // the rows' starts from lengths on the device, so no host synchronisation
-// reads them.  Both stream their operands through a 3-stage cp.async ring
+// reads them.  K2's stream their operands through a 3-stage cp.async ring
 // into mma.sync m16n8k8 in TF32.  A plain TF32 product (~1e-3 relative)
 // fails the backward's tolerances, so an f32 operand is split into two
 // TF32 halves and a product takes three MMAs; a bf16 operand is exact in
-// TF32 and takes two.  The one plain TF32 product is da in bf16 d_xs,
-// whose rounding to bf16 is coarser (scripts/torch_tf32_error.py measures
-// both).  No atomics anywhere: the gradients are the same from run to run.
+// TF32 and takes two.  da is f32 in both dtypes, and is split everywhere:
+// d_xs = da . W_ih^T in bf16 takes two MMAs, and rounds to bf16 once
+// (scripts/torch_tf32_error.py measures the error of plain and split
+// TF32).  No atomics anywhere: the gradients are the same from run to run.
 //
 // Bound on the H100: at the path's shapes (B = 64, L = 80, D = H = 256)
-// the forward is ~2.7 GFLOP at most and ~10 MB of traffic, a few µs at the
-// card's peaks; the backward ~8 GFLOP and ~50 MB.  What bounds these
-// designs is the serial chain of steps (per step one product over the
-// block's W_hh slice, one cell update and one exchange within the
-// cluster); the forward's recurrence and its input GEMM are still SIMT.
+// the forward is ~5.4 GFLOP at most (2 x 5,120 steps x (D + H) x 4H) and
+// ~10 MB of traffic without K1's residuals, a few µs at the card's peaks;
+// the backward ~11 GFLOP and ~50 MB.  What bounds these designs is the
+// serial chain of steps: per step one product over the block's W_hh
+// slice, one cell update and one exchange within the cluster, on 64 of
+// the card's 132 SMs at B = 64.  Both walks keep W_hh in registers and
+// exchange by st.async; their input GEMMs visit the valid steps only.
 //
 // Semantics (lstm_scan.py:63-67, 264-286): step l reads t = L-1-l when
 // reversed; a row with t >= len keeps its carry and outputs 0; gate order
@@ -88,7 +103,6 @@
 // steps in the opposite order, with dh_eff = dh + dout, and carries (dh,
 // dc) through invalid steps unchanged.
 #include <cooperative_groups.h>
-#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -99,261 +113,20 @@ namespace {
 constexpr int CL = 8;        // blocks per cluster: the hidden units are split 8 ways
 constexpr int R = 8;         // batch rows per cluster
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Whether sequence row m = b * L + t is a valid step (t < len[b]).
-__device__ __forceinline__ bool step_valid(const int64_t* lengths, int m, int L) {
-  return (int64_t)(m % L) < lengths[m / L];
-}
-
-// ---------------------------------------------------------------------------
-// 1. gx[m, n] = sum_k x[m, k] w[k, n] + bias[n] for the M = B*L rows of x
-//    whose step t = m % L is below len[m / L]; N = 4H, K = D.
-// ---------------------------------------------------------------------------
-constexpr int TM = 64, TN = 64, TK = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
-               const T* __restrict__ w, const T* __restrict__ bias, float* __restrict__ gx,
-               int M, int N, int K, int L) {
-  __shared__ float As[TK][TM + 4];
-  __shared__ float Bs[TK][TN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-
-  int live = 0;
-  if (tid < TM) {
-    const int m = m0 + tid;
-    live = m < M && step_valid(lengths, m, L);
-  }
-  if (!__syncthreads_or(live)) return;
-
-  const int tr = tid / 16, tc = tid % 16;  // this thread's 4 x 4 outputs
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int i = tid; i < TM * TK; i += THREADS) {
-      const int r = i / TK, k = i % TK;
-      const int m = m0 + r, kk = k0 + k;
-      As[k][r] = (m < M && kk < K) ? to_f32(x[(size_t)m * K + kk]) : 0.f;
-    }
-    for (int i = tid; i < TK * TN; i += THREADS) {
-      const int k = i / TN, c = i % TN;
-      const int kk = k0 + k, n = n0 + c;
-      Bs[k][c] = (kk < K && n < N) ? to_f32(w[(size_t)kk * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[k][tr * 4 + i];
-        b[i] = Bs[k][tc + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tr * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tc + 16 * j;
-      if (n < N) gx[(size_t)m * N + n] = acc[i][j] + to_f32(bias[n]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2. The forward recurrence.  Shared memory of a block (U = H / CL, G4 = 4U):
-//      w_s   [H][G4]   T    its gate columns of W_hh, local column g*U + u
-//      h_s   [2][H][R] f32  h of the cluster's rows, double-buffered
-//      gates [R][G4]   f32  h . W_hh for its columns
-//      gx_s  [R][G4]   f32  this step's gx for its columns (cp.async)
-//      c_s   [R][U]    f32  c of its units
-//    With hprev != nullptr (K1) it also writes hprev / cprev [L, B, H] and
-//    the full pre-activations into gx.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
-recurrence_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
-                  const T* __restrict__ w_hh, float* __restrict__ outs, float* __restrict__ hT,
-                  float* __restrict__ cT, float* __restrict__ hprev, float* __restrict__ cprev,
-                  int B, int L, int H, int reverse) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int row0 = (blockIdx.x / CL) * R;
-  const int U = H / CL, G4 = 4 * U, H4 = 4 * H;
-  const int tid = threadIdx.x;
-  const bool train = hprev != nullptr;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);
-  float* h_s = reinterpret_cast<float*>(smem_raw + (size_t)H * G4 * sizeof(T));
-  float* gates = h_s + 2 * H * R;
-  float* gx_s = gates + R * G4;
-  float* c_s = gx_s + R * G4;
-
-  int len[R];
-  int maxlen = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    const int64_t n = row < B ? lengths[row] : 0;
-    len[r] = n < L ? (int)n : L;
-    maxlen = max(maxlen, len[r]);
-  }
-
-  for (int i = tid; i < H * G4; i += THREADS) {
-    const int k = i / G4, c = i % G4, g = c / U, u = c % U;
-    w_s[i] = w_hh[(size_t)k * H4 + g * H + rank * U + u];
-  }
-  for (int i = tid; i < H * R; i += THREADS) h_s[i] = 0.f;  // buffer 0
-  for (int i = tid; i < R * U; i += THREADS) c_s[i] = 0.f;
-  cluster.sync();  // every block of the cluster is running and initialised
-
-  for (int l = 0; l < maxlen; ++l) {
-    const int t = reverse ? maxlen - 1 - l : l;
-    const float* h_cur = h_s + (l & 1) * H * R;
-    float* h_nxt = h_s + ((l & 1) ^ 1) * H * R;
-
-    // this step's gx slice of every valid row, in flight during the dot products
-    const int q4 = U / 4;
-    for (int i = tid; i < R * 4 * q4; i += THREADS) {
-      const int r = i / (4 * q4), g = (i / q4) % 4, q = i % q4;
-      if (t < len[r])
-        __pipeline_memcpy_async(gx_s + r * G4 + g * U + 4 * q,
-                                gx + ((size_t)(row0 + r) * L + t) * H4 + g * H + rank * U + 4 * q,
-                                16);
-    }
-    __pipeline_commit();
-
-    // gates[r][c] = h[r] . w_s[:, c], two columns by two rows a thread
-    for (int i = tid; i < (G4 / 2) * (R / 2); i += THREADS) {
-      const int cp = i % (G4 / 2), rp = i / (G4 / 2);
-      float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
-      const T* wc = w_s + 2 * cp;
-      const float* hr = h_cur + 2 * rp;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float2 wv = load2(wc + (size_t)k * G4);
-        const float2 hv = *reinterpret_cast<const float2*>(hr + k * R);
-        a00 += hv.x * wv.x;
-        a01 += hv.x * wv.y;
-        a10 += hv.y * wv.x;
-        a11 += hv.y * wv.y;
-      }
-      gates[(2 * rp) * G4 + 2 * cp] = a00;
-      gates[(2 * rp) * G4 + 2 * cp + 1] = a01;
-      gates[(2 * rp + 1) * G4 + 2 * cp] = a10;
-      gates[(2 * rp + 1) * G4 + 2 * cp + 1] = a11;
-    }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-
-    // cell update of (row r, unit u); the new h goes to every block of the cluster
-    for (int i = tid; i < R * U; i += THREADS) {
-      const int r = i / U, u = i % U, k = rank * U + u, row = row0 + r;
-      float h = h_cur[k * R + r];
-      if (train && row < B) {
-        hprev[((size_t)t * B + row) * H + k] = h;
-        cprev[((size_t)t * B + row) * H + k] = c_s[i];
-      }
-      float out = 0.f;
-      if (t < len[r]) {
-        const float* gr = gates + r * G4;
-        const float* xr = gx_s + r * G4;
-        const float pi = gr[u] + xr[u], pf = gr[U + u] + xr[U + u];
-        const float pg = gr[2 * U + u] + xr[2 * U + u], po = gr[3 * U + u] + xr[3 * U + u];
-        const float c = sigmoidf(pf) * c_s[i] + sigmoidf(pi) * tanhf(pg);
-        c_s[i] = c;
-        h = sigmoidf(po) * tanhf(c);
-        out = h;
-        if (train) {
-          float* gp = gx + ((size_t)row * L + t) * H4 + k;
-          gp[0] = pi;
-          gp[H] = pf;
-          gp[2 * H] = pg;
-          gp[3 * H] = po;
-        }
-      }
-      for (int dst = 0; dst < CL; ++dst) cluster.map_shared_rank(h_nxt, dst)[k * R + r] = h;
-      if (row < B) outs[((size_t)row * L + t) * H + k] = out;
-    }
-    cluster.sync();
-  }
-
-  // steps past the cluster's longest row output 0; the carries are final.
-  // Their residual carries: the final state in the forward direction, the
-  // zero initial state in the reverse one (those steps come first there).
-  const float* h_fin = h_s + (maxlen & 1) * H * R;
-  for (int i = tid; i < R * U; i += THREADS) {
-    const int r = i / U, u = i % U, k = rank * U + u, row = row0 + r;
-    if (row >= B) continue;
-    const float hf = h_fin[k * R + r], cf = c_s[i];
-    for (int t = maxlen; t < L; ++t) {
-      outs[((size_t)row * L + t) * H + k] = 0.f;
-      if (train) {
-        hprev[((size_t)t * B + row) * H + k] = reverse ? 0.f : hf;
-        cprev[((size_t)t * B + row) * H + k] = reverse ? 0.f : cf;
-      }
-    }
-    hT[(size_t)row * H + k] = hf;
-    cT[(size_t)row * H + k] = cf;
-  }
-}
-
-template <typename T>
-cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
-                       const void* b, void* gx, void* outs, void* hT, void* cT, void* hprev,
-                       void* cprev, int B, int L, int D, int H, int reverse,
-                       cudaStream_t stream) {
-  const int M = B * L, N = 4 * H;
-  dim3 ggrid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  gates_x_kernel<T><<<ggrid, THREADS, 0, stream>>>(
-      static_cast<const T*>(xs), static_cast<const int64_t*>(lengths),
-      static_cast<const T*>(w_ih), static_cast<const T*>(b), static_cast<float*>(gx), M, N, D, L);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  const int U = H / CL, G4 = 4 * U;
-  const size_t smem = (size_t)H * G4 * sizeof(T) +
-                      (size_t)(2 * H * R + 2 * R * G4 + R * U) * sizeof(float);
-  e = cudaFuncSetAttribute(recurrence_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  const int clusters = (B + R - 1) / R;
-  recurrence_kernel<T><<<clusters * CL, THREADS, smem, stream>>>(
-      static_cast<float*>(gx), static_cast<const int64_t*>(lengths), static_cast<const T*>(w_hh),
-      static_cast<float*>(outs), static_cast<float*>(hT), static_cast<float*>(cT),
-      static_cast<float*>(hprev), static_cast<float*>(cprev), B, L, H, reverse);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // Tensor cores in f32 accuracy: mma.sync m16n8k8 in TF32 with split operands.
 // A TF32 operand keeps 10 of f32's 23 mantissa bits (the tensor core reads a
 // register's upper 19 bits), a relative error of ~1e-3 a product, which the
-// backward's tolerances do not allow.  So an f32 operand x is split into
+// scans' f32 tolerances do not allow.  So an f32 operand x is split into
 // hi = x with its low 13 mantissa bits cleared and lo = the same of x - hi
 // (x = hi + lo up to ~2^-21 |x|), and a product takes three MMAs, lo.hi +
 // hi.lo + hi.hi, into one f32 accumulator (lo.lo, ~2^-20, is left out).  A
@@ -451,32 +224,6 @@ __device__ __forceinline__ int valid_row(const int* starts, int B, int L, int v)
 // Shared-memory ints for starts [B + 1], rounded up to 16 bytes.
 __host__ __device__ __forceinline__ int starts_ints(int B) { return (B + 4) & ~3; }
 
-// ---------------------------------------------------------------------------
-// K2.1 The backward recurrence.  Shared memory of a block (U = H / CL units,
-// G4 = 4U columns, KS = G4 / 8 k-steps, MT = H / 16 m-tiles):
-//      wf_s   [MT][KS][32][4] f32  its gate columns of W_hh as mma A
-//                                  fragments of A[k'][c] = W_hh[k', col c]
-//                                  (bf16 weights widened: TF32 values), the
-//                                  warps' registers' source; in f32 then
-//                                  their low TF32 halves
-//      dah_s, dal_s [2][G4][R] u32 this step's da of its columns, split into
-//                                  TF32 halves, double-buffered (then db sums)
-//      part_s [2][CL][U][R]   f32  partial dh_prev of its units from each
-//                                  block of the cluster, double-buffered
-//      nx_s   [3][6][THREADS] f32  gates, c_prev, d_out of this step and the
-//                                  next two
-//      full   [2]             mbarrier  the bytes of each half of part_s
-//    Thread tid < R*U owns (row r = tid % R, unit u = tid / R) and carries
-//    its (dh, dc) and its four columns' sums of da in registers.
-// ---------------------------------------------------------------------------
-constexpr int KQ = 4;       // k-steps whose MMAs a warp issues together
-constexpr int KS_MAX = 16;  // k-steps of the step's product at H = 256 (G4 / 8)
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
 // The step's exchange: each block's partials land in the owning block's
 // shared memory through st.async, which counts their bytes on that block's
 // mbarrier; the owner waits for the bytes of all CL blocks.  No cluster
@@ -525,6 +272,513 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t phase) 
     else if (t - t0 > 2000000000ull)
       __trap();
   }
+}
+
+// 16 bytes (four f32) into block-shared memory of the cluster (st.async),
+// counted on the receiver's mbarrier.
+__device__ __forceinline__ void st_async4(uint32_t addr, const float (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+
+// d += a . b on one tile of bf16 operands: A 16 x 16 row-major, B 16 x 8
+// column-major, f32 D.  Fragments (g = lane / 4, q = lane % 4), two bf16 a
+// register, the lower index in the low half: a = A[g][2q..], A[g+8][2q..],
+// A[g][2q+8..], A[g+8][2q+8..]; b = B[2q..][g], B[2q+8..][g]; d as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j]
+// is matrix j's fragment, lane l holding rows 2(l % 4), 2(l % 4) + 1 of
+// column l / 4 — from rows of B[k][n], a col-major mma B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Forward 1. gates_x: gx[m, n] = sum_k x[m, k] W_ih[k, n] + b[n] at every
+//    valid step m (N = 4H, K = D); the padded steps are not written (the
+//    recurrence reads none, and K1's gate residual is read at valid steps
+//    only).  Block (n tile, y) takes columns [n0, n0 + GX_TN) of valid
+//    steps [y' GX_TM, +GX_TM) for y' = y, y + Y, ... below the valid steps'
+//    count, which it computes from lengths on the device (no host
+//    synchronisation reads them): Y = min(B * L / GX_TM, GX_YMAX) tiles,
+//    the path's valid steps in one to three rounds, without the waves of
+//    blocks that find no valid step that a grid sized for B * L launches.
+//    K streams through a ring of GX_STAGES cp.async stages of 128 bytes a
+//    row (x as [m][k], W_ih as its own [k][n] rows); four warps of 32 x 32
+//    outputs.  bf16: mma.sync m16n8k16 on the bf16 operands, x's
+//    fragments by 32-bit loads, W_ih's by ldmatrix.trans; f32: m16n8k8 in
+//    TF32, both operands split, three MMAs a product issued term by term.
+//    Row strides are padded so that every fragment load is conflict-free.
+// ---------------------------------------------------------------------------
+constexpr int GX_TM = 64, GX_TN = 64, GX_STAGES = 3, GX_THREADS = 128, GX_YMAX = 32;
+constexpr int GX_BS = GX_TN + 8;  // row stride (elements) of a W_ih stage
+
+template <typename T>
+__host__ __device__ constexpr int gx_kc() {  // elements of a stage's 128-byte rows
+  return 128 / sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int gx_as() {  // row stride (elements) of an x stage
+  return gx_kc<T>() + (sizeof(T) == 4 ? 4 : 8);
+}
+
+template <typename T>
+size_t gx_smem(int B) {
+  return (size_t)(starts_ints(B) + GX_TM) * 4 +
+         (size_t)GX_STAGES * (GX_TM * gx_as<T>() + gx_kc<T>() * GX_BS) * sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GX_THREADS)
+gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
+               const T* __restrict__ w, const T* __restrict__ bias, float* __restrict__ gx, int B,
+               int L, int D, int N) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int KC = gx_kc<T>(), AS = gx_as<T>(), EPC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* starts = reinterpret_cast<int*>(smem_raw);
+  int* rows = starts + starts_ints(B);
+  T* a_s = reinterpret_cast<T*>(rows + GX_TM);
+  T* b_s = a_s + GX_STAGES * GX_TM * AS;
+  const int tid = threadIdx.x;
+  valid_starts(lengths, B, L, starts);
+  const int Mv = starts[B];
+  for (int v0 = blockIdx.y * GX_TM; v0 < Mv; v0 += gridDim.y * GX_TM) {
+    __syncthreads();  // the previous tile's rows and stages are read by all
+    if (tid < GX_TM) rows[tid] = v0 + tid < Mv ? valid_row(starts, B, L, v0 + tid) : -1;
+    __syncthreads();
+    const int n0 = blockIdx.x * GX_TN;
+
+    auto load_stage = [&](int st, int k0) {
+      T* as = a_s + st * GX_TM * AS;
+      for (int i = tid; i < GX_TM * (KC / EPC); i += GX_THREADS) {
+        const int r = i / (KC / EPC), kk = k0 + (i % (KC / EPC)) * EPC, m = rows[r];
+        const bool ok = m >= 0 && kk < D;
+        cp_async16(as + r * AS + kk - k0, x + (ok ? (size_t)m * D + kk : 0), ok);
+      }
+      T* bs = b_s + st * KC * GX_BS;
+      for (int i = tid; i < KC * (GX_TN / EPC); i += GX_THREADS) {
+        const int r = i / (GX_TN / EPC), c = (i % (GX_TN / EPC)) * EPC, kk = k0 + r;
+        cp_async16(bs + r * GX_BS + c, w + (kk < D ? (size_t)kk * N + n0 + c : 0), kk < D);
+      }
+    };
+
+    const int nk = (D + KC - 1) / KC;
+#pragma unroll
+    for (int st = 0; st < GX_STAGES - 1; ++st) {  // the ring's first stages
+      if (st < nk) load_stage(st, st * KC);
+      cp_async_commit();
+    }
+
+    const int warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+    const int wm = warp >> 1, wn = warp & 1;  // 32 rows x 32 columns a warp
+    float acc[2][4][4] = {};
+    for (int kc = 0; kc < nk; ++kc) {
+      cp_async_wait<GX_STAGES - 2>();
+      __syncthreads();  // stage kc has landed; stage kc - 1 is read by all
+      const int kn = kc + GX_STAGES - 1;
+      if (kn < nk) load_stage(kn % GX_STAGES, kn * KC);
+      cp_async_commit();
+      const T* as = a_s + (kc % GX_STAGES) * GX_TM * AS + wm * 32 * AS;
+      const T* bs = b_s + (kc % GX_STAGES) * KC * GX_BS + wn * 32;
+      if constexpr (F32) {
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 8) {
+          uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const float* ap = as + (mt * 16 + g8) * AS + kk + q4;
+            tf32_split<true>(ap[0], ah[mt][0], al[mt][0]);
+            tf32_split<true>(ap[8 * AS], ah[mt][1], al[mt][1]);
+            tf32_split<true>(ap[4], ah[mt][2], al[mt][2]);
+            tf32_split<true>(ap[8 * AS + 4], ah[mt][3], al[mt][3]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float* bp = bs + (kk + q4) * GX_BS + nt * 8 + g8;
+            tf32_split<true>(bp[0], bh[nt][0], bl[nt][0]);
+            tf32_split<true>(bp[4 * GX_BS], bh[nt][1], bl[nt][1]);
+          }
+          // term by term: back-to-back MMAs never feed each other
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 16) {
+          uint32_t a[2][4], b[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const T* ap = as + (mt * 16 + g8) * AS + kk + 2 * q4;
+            a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+            a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * AS);
+            a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+            a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * AS + 8);
+          }
+          // matrices (k 0-7, n tile j), (k 8-15, j), (k 0-7, j + 1), (k 8-15, j + 1)
+#pragma unroll
+          for (int j = 0; j < 4; j += 2) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * GX_BS +
+                                     (j + (lane >> 4)) * 8);
+            b[j][0] = r[0], b[j][1] = r[1], b[j + 1][0] = r[2], b[j + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = rows[wm * 32 + mt * 16 + g8 + 8 * h];
+        if (m < 0) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = n0 + wn * 32 + nt * 8 + 2 * q4;
+          *reinterpret_cast<float2*>(gx + (size_t)m * N + n) =
+              make_float2(acc[mt][nt][2 * h] + to_f32(bias[n]),
+                          acc[mt][nt][2 * h + 1] + to_f32(bias[n + 1]));
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward 2. The recurrence.  Block `rank` of a cluster holds the gate
+//    columns of units [rank U, (rank + 1) U) (U = H / CL, G4 = 4U, KS = H / 8
+//    k-steps, MT = G4 / 16 m-tiles, one a warp; warps past MT idle).  The
+//    m-tile of warp w has row 4u + g for gate g of unit rank U + 4w + u, so
+//    a warp holds all four gates of its four units.  Shared memory:
+//      wf_s  [MT][KS][32][4] f32  its gate columns of W_hh as mma A fragments
+//                                 of A[c][k'] = W_hh[k', col c] (bf16 weights
+//                                 widened: TF32 values), the warps' registers'
+//                                 source; in f32 then their low TF32 halves
+//      h_s   [2][H][R]       f32  h of the cluster's rows, double-buffered:
+//                                 step l reads half l & 1, and every block's
+//                                 warps st.async their units' new h into
+//                                 half (l + 1) & 1, counted on full[(l+1) & 1]
+//      gx_s  [3][WARPS][4][R][4] f32  gx of a warp's 4 gates x R rows x 4
+//                                 units for this step and the next two
+//      gt_s  [WARPS][R][GT_S] f32 a warp's h . W_hh, row-major: a lane reads
+//                                 its cell's four gates as one float4
+//      hc_s  [2][R][U]       f32  the final (h, c), for coalesced stores
+//      full  [2]             mbarrier  the bytes of each half of h_s
+//    Lane l of an active warp w owns the cell of row l % 8 and unit rank U
+//    + 4w + l / 8, and carries its (h, c) in registers.
+//    With hprev != nullptr (K1) it also writes hprev / cprev [L, B, H] and
+//    the full pre-activations into gx.
+// ---------------------------------------------------------------------------
+constexpr int FQ = 4;        // k-steps whose MMAs a warp issues together (KS % FQ == 0)
+constexpr int FKS_MAX = 32;  // k-steps of the step's product at H = 256 (H / 8)
+constexpr int GT_S = 20;     // row stride of a gate tile: conflict-free stores and float4 loads
+
+__host__ __device__ constexpr size_t fwd_rec_smem(int H) {
+  return (size_t)(H / 2) * H * 4 + (size_t)2 * H * R * 4 + (size_t)3 * WARPS * 4 * R * 4 * 4 +
+         (size_t)WARPS * R * GT_S * 4 + (size_t)2 * R * (H / CL) * 4 + 2 * 8;
+}
+
+template <typename T>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
+recurrence_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
+                  const T* __restrict__ w_hh, float* __restrict__ outs, float* __restrict__ hT,
+                  float* __restrict__ cT, float* __restrict__ hprev, float* __restrict__ cprev,
+                  int B, int L, int H, int reverse) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / CL) * R;
+  const int U = H / CL, G4 = 4 * U, H4 = 4 * H, KS = H / 8, MT = G4 / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+  const bool train = hprev != nullptr, active = warp < MT;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* wf_s = reinterpret_cast<float*>(smem_raw);
+  float* h_s = wf_s + (size_t)G4 * H;
+  float* gx_s = h_s + 2 * H * R;
+  float* gt_s = gx_s + 3 * WARPS * 4 * R * 4;
+  float* hc_s = gt_s + WARPS * R * GT_S;
+  uint64_t* full = reinterpret_cast<uint64_t*>(hc_s + 2 * R * U);
+  const uint32_t step_bytes = H * R * 4;  // the h a block receives a step
+
+  auto row_len = [&](int row) {
+    const int64_t n = row < B ? lengths[row] : 0;
+    return n < 0 ? 0 : n > L ? L : (int)n;
+  };
+  int maxlen = 0;
+  for (int r = 0; r < R; ++r) maxlen = max(maxlen, row_len(row0 + r));
+  // this lane's cell (row cr, unit k) and the gx chunk it brings in each
+  // step (row fr, gate fg, the warp's four units: 16 bytes)
+  const int cr = lane & 7, cu = lane >> 3, k = rank * U + 4 * warp + cu, crow = row0 + cr;
+  const int fr = lane >> 2, fg = lane & 3;
+  const int clen = row_len(crow), flen = row_len(row0 + fr);
+
+  // gx of step l does not depend on the carries: cp.async brings it two
+  // steps ahead, while the steps before run (valid rows only)
+  auto fetch = [&](int l) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    if (active && l < maxlen && t < flen)
+      cp_async16(gx_s + (((l % 3) * WARPS + warp) * 4 + fg) * R * 4 + fr * 4,
+                 gx + ((size_t)(row0 + fr) * L + t) * H4 + fg * H + rank * U + 4 * warp, true);
+    cp_async_commit();
+  };
+  fetch(0);
+  fetch(1);
+
+  // W_hh's columns of this block into fragment order: column (g, u) is row
+  // 4 (u % 4) + g of m-tile u / 4.  Lane l of a warp loads four units (one
+  // 8- or 16-byte load) at k' = 8 ks + l % 8, gate l / 8, so that a warp's
+  // stores fall into 16 banks (walking along the units put them into 2)
+  {
+    using V = typename std::conditional<F32, float4, uint2>::type;
+    const int quads = U / 4, kin = lane & 7, g = lane >> 3;
+#pragma unroll 8
+    for (int j = warp; j < KS * quads; j += WARPS) {
+      const int ks = j / quads, uq = j % quads;
+      const V v = *reinterpret_cast<const V*>(w_hh + (size_t)(ks * 8 + kin) * H4 + g * H +
+                                              rank * U + 4 * uq);
+      const T* e4 = reinterpret_cast<const T*>(&v);
+      float* slot = wf_s + ((size_t)(uq * KS + ks) * 32 + (kin & 3)) * 4 + 2 * (kin >> 2);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) slot[((4 * u + g) & 7) * 16 + u / 2] = to_f32(e4[u]);
+    }
+  }
+  for (int i = tid; i < H * R; i += THREADS) h_s[i] = 0.f;  // h before the first step
+  // step l >= 1 reads the h that every block sent at step l - 1, into half
+  // l & 1; a half is armed for the next h it receives before that can come
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) mbar_init(smem_u32(&full[b]));
+    if (1 < maxlen) mbar_expect_tx(smem_u32(&full[1]), step_bytes);  // step 1's h
+    if (2 < maxlen) mbar_expect_tx(smem_u32(&full[0]), step_bytes);  // step 2's h
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every block of the cluster is running and initialised
+
+  // this warp's A fragments stay in registers for the whole walk (the TF32
+  // high halves; in f32 the low halves replace the weights in shared
+  // memory, each thread its own slots)
+  uint32_t wa[FKS_MAX][4];
+#pragma unroll
+  for (int ks = 0; ks < FKS_MAX; ++ks) {
+    float* wp = wf_s + (((size_t)min(warp, MT - 1) * KS + min(ks, KS - 1)) * 32 + lane) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(wp);
+    const float w4[4] = {v.x, v.y, v.z, v.w};
+    uint32_t lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32_split<F32>(w4[e], wa[ks][e], lo[e]);
+    if (F32 && active && ks < KS)
+      *reinterpret_cast<uint4*>(wp) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+
+  float h = 0.f, c = 0.f;  // this lane's cell
+  for (int l = 0; active && l < maxlen; ++l) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    const float* h_cur = h_s + (l & 1) * H * R;
+    if (l > 0) {
+      mbar_wait_cluster(smem_u32(&full[l & 1]), ((l - 1) >> 1) & 1);
+      // arm the half for step l + 2's h: it cannot come before every warp
+      // of the cluster has read this one (see the send below)
+      if (tid == 0 && l + 2 < maxlen) mbar_expect_tx(smem_u32(&full[l & 1]), step_bytes);
+    }
+    cp_async_wait<1>();  // this step's gx chunks have landed; the next step's may not have
+    fetch(l + 2);        // into the slot read at step l - 1 (past the walk: an empty group)
+    __syncwarp();        // the warp's chunks are visible to all its lanes
+
+    // gates^T[c][r] = sum_k' W_hh[k', col c] h[r][k'] for the warp's 16
+    // columns on the tensor cores: A = its W_hh fragments, B = h (split into
+    // TF32 halves), FQ k-steps' fragments loaded, then their MMAs issued
+    // term by term so that back-to-back MMAs never feed each other
+    float acc[FQ][4] = {};
+    if (l > 0) {  // h is 0 before the first step
+#pragma unroll
+      for (int ks0 = 0; ks0 < FKS_MAX; ks0 += FQ) {
+        if (ks0 >= KS) break;
+        uint32_t bh[FQ][2], bl[FQ][2], al[FQ][4];
+#pragma unroll
+        for (int kq = 0; kq < FQ; ++kq) {
+          const int ks = ks0 + kq;
+          tf32_split<true>(h_cur[(ks * 8 + q4) * R + g8], bh[kq][0], bl[kq][0]);
+          tf32_split<true>(h_cur[(ks * 8 + q4 + 4) * R + g8], bh[kq][1], bl[kq][1]);
+          if constexpr (F32) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                wf_s + (((size_t)warp * KS + ks) * 32 + lane) * 4);
+            al[kq][0] = v.x, al[kq][1] = v.y, al[kq][2] = v.z, al[kq][3] = v.w;
+          }
+        }
+        if constexpr (F32) {
+#pragma unroll
+          for (int kq = 0; kq < FQ; ++kq) mma_tf32(acc[kq], al[kq], bh[kq][0], bh[kq][1]);
+        }
+#pragma unroll
+        for (int kq = 0; kq < FQ; ++kq) mma_tf32(acc[kq], wa[ks0 + kq], bl[kq][0], bl[kq][1]);
+#pragma unroll
+        for (int kq = 0; kq < FQ; ++kq) mma_tf32(acc[kq], wa[ks0 + kq], bh[kq][0], bh[kq][1]);
+      }
+    }
+    // D[c][r]: (g8, 2 q4), (g8, 2 q4 + 1), (g8 + 8, 2 q4), (g8 + 8, 2 q4 + 1)
+    float* gt = gt_s + warp * R * GT_S;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = acc[0][e];
+#pragma unroll
+      for (int kq = 1; kq < FQ; ++kq) sum += acc[kq][e];
+      gt[(2 * q4 + (e & 1)) * GT_S + g8 + 8 * (e >> 1)] = sum;
+    }
+    __syncwarp();
+    const float4 p = *reinterpret_cast<const float4*>(gt + cr * GT_S + 4 * cu);  // i, f, g, o
+    const float* xg = gx_s + (((l % 3) * WARPS + warp) * 4) * R * 4 + cr * 4 + cu;
+
+    const bool on = crow < B;
+    if (train && on) {
+      hprev[((size_t)t * B + crow) * H + k] = h;
+      cprev[((size_t)t * B + crow) * H + k] = c;
+    }
+    float out = 0.f;
+    if (t < clen) {
+      const float pi = p.x + xg[0], pf = p.y + xg[R * 4];
+      const float pg = p.z + xg[2 * R * 4], po = p.w + xg[3 * R * 4];
+      c = sigmoidf(pf) * c + sigmoidf(pi) * tanhf(pg);
+      h = sigmoidf(po) * tanhf(c);
+      out = h;
+      if (train) {
+        float* gp = gx + ((size_t)crow * L + t) * H4 + k;
+        gp[0] = pi;
+        gp[H] = pf;
+        gp[2 * H] = pg;
+        gp[3 * H] = po;
+      }
+    }
+    if (on) outs[((size_t)crow * L + t) * H + k] = out;
+
+    // The new h of the warp's 4 units x R rows (carries at invalid rows) to
+    // every block of the cluster: 16 bytes (rows 4j..4j+3 of one unit) a
+    // store, two stores a lane.  A warp sends only after its own reads of
+    // h_cur (its B fragments above; the carry is in registers), so a block
+    // has all of step l + 1's h only once every warp of the cluster is done
+    // reading step l's, and only then can any block send step l + 2's h
+    // into that half.  Nothing reads the last step's h.
+    if (l + 1 < maxlen) {
+      const int su = (lane & 7) >> 1, sq = lane & 1;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __shfl_sync(0xffffffffu, h, su * 8 + sq * 4 + e);
+      const int nxt = (l + 1) & 1;
+      const uint32_t dst = smem_u32(h_s + nxt * H * R + (rank * U + 4 * warp + su) * R + sq * 4);
+      const uint32_t bar = smem_u32(&full[nxt]);
+      for (int d = lane >> 3; d < CL; d += 4)
+        st_async4(cluster_addr(dst, d), v, cluster_addr(bar, d));
+    }
+  }
+  // No cluster barrier at the end: the last st.async into a block (the
+  // h of its last step) is awaited by that block before it leaves.
+
+  if (active) {
+    hc_s[cr * U + 4 * warp + cu] = h;
+    hc_s[R * U + cr * U + 4 * warp + cu] = c;
+  }
+  __syncthreads();
+  // steps past the cluster's longest row output 0; the carries are final.
+  // Their residual carries: the final state in the forward direction, the
+  // zero initial state in the reverse one (those steps come first there).
+  for (int i = tid; i < R * U; i += THREADS) {
+    const int row = row0 + i / U, kk = rank * U + i % U;
+    if (row >= B) continue;
+    const float hf = hc_s[i], cf = hc_s[R * U + i];
+    hT[(size_t)row * H + kk] = hf;
+    cT[(size_t)row * H + kk] = cf;
+    for (int t = maxlen; t < L; ++t) {
+      outs[((size_t)row * L + t) * H + kk] = 0.f;
+      if (train) {
+        hprev[((size_t)t * B + row) * H + kk] = reverse ? 0.f : hf;
+        cprev[((size_t)t * B + row) * H + kk] = reverse ? 0.f : cf;
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
+                       const void* b, void* gx, void* outs, void* hT, void* cT, void* hprev,
+                       void* cprev, int B, int L, int D, int H, int reverse,
+                       cudaStream_t stream) {
+  // ops/cuda/lstm_scan.py::lstm_scan_fwd_plan
+  const int N = 4 * H;
+  const size_t gsm = gx_smem<T>(B);
+  cudaError_t e = cudaFuncSetAttribute(gates_x_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsm);
+  if (e != cudaSuccess) return e;
+  dim3 ggrid(N / GX_TN, min((B * L + GX_TM - 1) / GX_TM, GX_YMAX));
+  gates_x_kernel<T><<<ggrid, GX_THREADS, gsm, stream>>>(
+      static_cast<const T*>(xs), static_cast<const int64_t*>(lengths),
+      static_cast<const T*>(w_ih), static_cast<const T*>(b), static_cast<float*>(gx), B, L, D, N);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const size_t smem = fwd_rec_smem(H);
+  if ((e = cudaFuncSetAttribute(recurrence_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
+    return e;
+  const int clusters = (B + R - 1) / R;
+  recurrence_kernel<T><<<clusters * CL, THREADS, smem, stream>>>(
+      static_cast<float*>(gx), static_cast<const int64_t*>(lengths), static_cast<const T*>(w_hh),
+      static_cast<float*>(outs), static_cast<float*>(hT), static_cast<float*>(cT),
+      static_cast<float*>(hprev), static_cast<float*>(cprev), B, L, H, reverse);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2.1 The backward recurrence.  Shared memory of a block (U = H / CL units,
+// G4 = 4U columns, KS = G4 / 8 k-steps, MT = H / 16 m-tiles):
+//      wf_s   [MT][KS][32][4] f32  its gate columns of W_hh as mma A
+//                                  fragments of A[k'][c] = W_hh[k', col c]
+//                                  (bf16 weights widened: TF32 values), the
+//                                  warps' registers' source; in f32 then
+//                                  their low TF32 halves
+//      dah_s, dal_s [2][G4][R] u32 this step's da of its columns, split into
+//                                  TF32 halves, double-buffered (then db sums)
+//      part_s [2][CL][U][R]   f32  partial dh_prev of its units from each
+//                                  block of the cluster, double-buffered
+//      nx_s   [3][6][THREADS] f32  gates, c_prev, d_out of this step and the
+//                                  next two
+//      full   [2]             mbarrier  the bytes of each half of part_s
+//    Thread tid < R*U owns (row r = tid % R, unit u = tid / R) and carries
+//    its (dh, dc) and its four columns' sums of da in registers.
+// ---------------------------------------------------------------------------
+constexpr int KQ = 4;       // k-steps whose MMAs a warp issues together
+constexpr int KS_MAX = 16;  // k-steps of the step's product at H = 256 (G4 / 8)
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __host__ __device__ constexpr size_t rec_smem(int H) {
@@ -769,10 +1023,10 @@ bwd_recurrence_kernel(const float* __restrict__ gates, const float* __restrict__
 //      valid steps [y * DX_TM, +DX_TM) and columns [n0, n0 + DX_TN); later y
 //      write the zeros of the padded steps, DX_TM at a time.  K = 4H streams
 //      through a ring of DX_STAGES cp.async stages of DX_KC columns; four
-//      warps of 16 rows x 32 columns each run m16n8k8 TF32 MMAs.  da is split
-//      (3 MMAs a product) in f32; in bf16 a single TF32 product of da and the
-//      exact bf16 W_ih stays below the rounding of d_xs to bf16, so it takes
-//      one MMA there.
+//      warps of 16 rows x 32 columns each run m16n8k8 TF32 MMAs.  da (f32)
+//      is split in both dtypes, as the reference's f32 product needs: three
+//      MMAs a product in f32 (W_ih split too), two in bf16 (W_ih exact in
+//      TF32); d_xs is rounded to bf16 once, from the f32 sums.
 // ---------------------------------------------------------------------------
 constexpr int DX_TM = 32, DX_TN = 64, DX_KC = 32, DX_STAGES = 3, DX_THREADS = 128;
 constexpr int DX_AS = DX_KC + 4;  // f32 row stride of a da stage: conflict-free fragments
@@ -866,10 +1120,10 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
 #pragma unroll
     for (int kk = 0; kk < DX_KC; kk += 8) {
       uint32_t ah[4], al[4];
-      tf32_split<F32>(as[g8 * DX_AS + kk + q4], ah[0], al[0]);
-      tf32_split<F32>(as[(g8 + 8) * DX_AS + kk + q4], ah[1], al[1]);
-      tf32_split<F32>(as[g8 * DX_AS + kk + q4 + 4], ah[2], al[2]);
-      tf32_split<F32>(as[(g8 + 8) * DX_AS + kk + q4 + 4], ah[3], al[3]);
+      tf32_split<true>(as[g8 * DX_AS + kk + q4], ah[0], al[0]);
+      tf32_split<true>(as[(g8 + 8) * DX_AS + kk + q4], ah[1], al[1]);
+      tf32_split<true>(as[g8 * DX_AS + kk + q4 + 4], ah[2], al[2]);
+      tf32_split<true>(as[(g8 + 8) * DX_AS + kk + q4 + 4], ah[3], al[3]);
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -877,9 +1131,9 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
         tf32_split<F32>(to_f32(ws[(nt * 8 + g8) * WS + kk + q4 + 4]), bh[nt][1], bl[nt][1]);
       }
       // term by term: back-to-back MMAs never feed each other
-      if (F32) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], al, bh[nt][0], bh[nt][1]);
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], al, bh[nt][0], bh[nt][1]);
+      if (F32) {
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], ah, bl[nt][0], bl[nt][1]);
       }
@@ -1136,11 +1390,13 @@ cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, co
 // K3.  xs [B, L, D] and the weights w_ih [D, 4H], w_hh [H, 4H], b [4H] in
 // one dtype; lengths [B] int64; gx [B, L, 4H] f32 scratch; outs [B, L, H],
 // hT and cT [B, H] f32.  H must be a multiple of 32 (U = H / 8 a multiple
-// of 4) with W_hh's slice in shared memory: H <= 256.
+// of 4, whole m-tiles of four units) with a block's W_hh fragments in its
+// registers: H <= 256.  xs rows must be whole 16-byte chunks.
 extern "C" int lstm_scan(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                          const void* b, void* gx, void* outs, void* hT, void* cT, int B, int L,
                          int D, int H, int reverse, int dtype, void* stream) {
-  if (H % 32 != 0 || H > 256) return (int)cudaErrorInvalidValue;
+  if (H % 32 != 0 || H > 256 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_fwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, nullptr,
@@ -1156,7 +1412,8 @@ extern "C" int lstm_scan_train(const void* xs, const void* lengths, const void* 
                                const void* w_hh, const void* b, void* gx, void* outs, void* hT,
                                void* cT, void* hprev, void* cprev, int B, int L, int D, int H,
                                int reverse, int dtype, void* stream) {
-  if (H % 32 != 0 || H > 256) return (int)cudaErrorInvalidValue;
+  if (H % 32 != 0 || H > 256 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_fwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, hprev, cprev,

@@ -4,19 +4,23 @@ forward and backward; CUDA kernels and plain twins.
 K3 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/lstm_scan.py::
 lstm_scan_pallas``, K1 its ``lstm_scan_train_pallas``, K2 its
 ``lstm_scan_bwd_pallas``.  Kernel: ``csrc/lstm_scan.cu`` — the forward is
-one C call of two launches (a tiled GEMM for x . W_ih + b over the valid
-steps, then the recurrence on clusters of 8 blocks that keep W_hh in
-shared memory and trade h through distributed shared memory); K1 also
-writes the pre-step carries and keeps the gate pre-activations as
-residuals.  K2 is one C call of three launches: the reverse-time
+one C call of two launches: a tensor-core GEMM for x . W_ih + b over the
+valid steps only, then the recurrence on clusters of 8 blocks, each warp
+holding its W_hh columns as tensor-core fragments in registers and
+sending its units' new h to every block by st.async (no barrier a step);
+K1 also writes the pre-step carries and keeps the gate pre-activations
+as residuals.  K2 is one C call of three launches: the reverse-time
 recurrence on the same cluster layout (its per-step product on the
 tensor cores), then tensor-core GEMMs for d_xs and for dW_ih, dW_hh and
-db over the valid steps only, in a fixed order (no atomics), in TF32 with
-split operands that keep f32 accuracy.  ``lstm_scan_bwd_plan`` gives the
-backward's launch geometry and ``valid_steps`` / ``split_bounds`` the
-order in which its GEMMs take the valid steps; the CPU tests check both.
-All three are bound by their serial chain of steps, not by bytes or
-FLOPs (the source says more).
+db over the valid steps only, in a fixed order (no atomics).  Every
+product with an f32 operand runs in TF32 with that operand split in two
+halves, which keeps f32 accuracy; bf16 operands are exact there.
+``lstm_scan_fwd_plan`` and ``lstm_scan_bwd_plan`` give the launch
+geometry, ``valid_steps`` / ``split_bounds`` the order in which the GEMMs
+take the valid steps, and ``lstm_scan_fwd_emulated`` /
+``lstm_scan_bwd_emulated`` the kernels' arithmetic in plain torch; the
+CPU tests check all of them.  All three are bound by their serial chain
+of steps, not by bytes or FLOPs (the source says more).
 
 ``lstm_scan``, ``lstm_scan_train`` and ``lstm_scan_bwd`` dispatch by
 device: a CPU tensor goes to the plain version, a CUDA tensor to the
@@ -43,11 +47,18 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
-# csrc/lstm_scan.cu's backward geometry: the recurrence's clusters of CL
-# blocks own R batch rows each; dx_gemm's tiles of DX_TM steps x DX_TN
-# columns; dw_gemm's tiles of DW_TI x DW_TJ outputs, each reduced by a
-# cluster of DW_SPLITS blocks over the valid steps, DW_KC steps a stage
+# csrc/lstm_scan.cu's geometry: both recurrences' clusters of CL blocks
+# own R batch rows each.  Forward: gates_x's tiles of GX_TM valid steps x
+# GX_TN gate columns, at most GX_YMAX blocks along the steps, GX_STAGES
+# stages of 128-byte rows; the walk's warps each hold FKS_MAX k-steps of
+# W_hh fragments (4 registers each) and a gate tile of rows GT_S floats
+# apart.  Backward: dx_gemm's tiles of DX_TM steps x DX_TN columns;
+# dw_gemm's tiles of DW_TI x DW_TJ outputs, each reduced by a cluster of
+# DW_SPLITS blocks over the valid steps, DW_KC steps a stage
 CL, R, THREADS = 8, 8, 256
+WARPS = THREADS // 32
+GX_TM, GX_TN, GX_STAGES, GX_THREADS, GX_YMAX = 64, 64, 3, 128, 32
+FKS_MAX, GT_S = 32, 20
 DX_TM, DX_TN, DX_KC, DX_STAGES, DX_THREADS = 32, 64, 32, 3, 128
 DW_TI, DW_TJ, DW_KC, DW_STAGES, DW_THREADS, DW_SPLITS = 64, 128, 32, 3, 256, 8
 MAX_SMEM = 232448  # shared memory a block can use on the H100
@@ -72,6 +83,37 @@ class BwdPlan(NamedTuple):
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+class FwdPlan(NamedTuple):
+    """K3's and K1's launches.  gates_x's grid (4H tiles, Y step tiles:
+    block y takes step tiles y, y + Y, ... below the valid steps' count,
+    which it computes on the device, so no host synchronisation reads the
+    lengths) of GX_THREADS threads with ``gx_smem`` bytes; the
+    recurrence's ``rec_grid`` blocks (clusters of CL along x) of THREADS
+    threads with ``rec_smem``, of whose warps the first ``rec_warps`` (one
+    a 16-column m-tile of the block's 4H / 8 gate columns) hold
+    ``w_regs`` registers a thread of W_hh fragments."""
+    gx_grid: Tuple[int, int]
+    gx_smem: int
+    rec_grid: int
+    rec_smem: int
+    rec_warps: int
+    w_regs: int
+
+
+def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> FwdPlan:
+    U = H // CL
+    starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
+    kc = 128 // elem_size  # elements of a stage's 128-byte rows
+    x_stride, w_stride = kc + (4 if elem_size == 4 else 8), GX_TN + 8
+    gx_smem = starts + GX_TM * 4 + GX_STAGES * (GX_TM * x_stride + kc * w_stride) * elem_size
+    # W_hh's columns as f32 fragments; h double-buffered; three steps' gx of
+    # every warp; the warps' gate tiles; the final (h, c); two mbarriers
+    rec_smem = (4 * U * H + 2 * H * R + 3 * WARPS * 4 * R * 4 + WARPS * R * GT_S
+                + 2 * R * U) * 4 + 16
+    return FwdPlan((4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX)), gx_smem,
+                   _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 4 * FKS_MAX)
 
 
 def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPlan:
@@ -205,6 +247,50 @@ def _tf32_mm(a: torch.Tensor, b: torch.Tensor, split_a: bool, split_b: bool) -> 
     return out
 
 
+def _block_columns(H: int) -> List[torch.Tensor]:
+    """The gate columns of W_hh that block ``rank`` of a cluster holds:
+    gate g of units [rank U, (rank + 1) U), U = H / CL, gate-major."""
+    U = H // CL
+    return [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U) for g in range(4)])
+            for r in range(CL)]
+
+
+def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
+    """K3's and K1's arithmetic in plain torch on the CPU, as
+    ``csrc/lstm_scan.cu`` cuts it: gx = x . W_ih + b in the kernel's
+    precision (bf16: exact products of the bf16 operands summed in f32;
+    f32: TF32 with both operands split); the step product h . W_hh per
+    block of the cluster (its G4 gate columns) in TF32 with h split into
+    two halves and W_hh split in f32 only (bf16 is exact in TF32); the
+    cell update in f32.  Returns what ``lstm_scan_train_plain`` returns
+    (the pre-activations at every step; the kernel writes only the valid
+    ones)."""
+    B, L, D = xs.shape
+    H = w_hh.shape[0]
+    f32 = xs.dtype == torch.float32
+    x, wih, whh = xs.float().reshape(B * L, D), w_ih.float(), w_hh.float()
+    gx = (_tf32_mm(x, wih, True, True) if f32 else x @ wih).reshape(B, L, 4 * H) + b.float()
+    h = torch.zeros((B, H))
+    c = torch.zeros_like(h)
+    outs = torch.zeros((B, L, H))
+    hprev, cprev = torch.zeros((L, B, H)), torch.zeros((L, B, H))
+    gates = torch.zeros((B, L, 4 * H))
+    cols = _block_columns(H)
+    for l in range(L):
+        t = L - 1 - l if reverse else l
+        hprev[t], cprev[t] = h, c
+        hw = torch.zeros((B, 4 * H))
+        for col in cols:
+            hw[:, col] = _tf32_mm(h, whh[:, col], True, f32)
+        gates[:, t] = hw + gx[:, t]
+        h_new, c_new = _cell(gates[:, t], c, H)
+        valid = (t < lengths)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        outs[:, t] = torch.where(valid, h_new, 0.0)
+    return outs, (h, c), hprev, cprev, gates
+
+
 def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT,
                            reverse: bool = False, split: bool = True):
     """K2's arithmetic in plain torch on the CPU, as ``csrc/lstm_scan.cu``
@@ -214,18 +300,16 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
     ``split_bounds``' partial sums over ``valid_steps``, summed in rank
     order; db over the recurrence's clusters in order.  Every product is
     in TF32 with the operands the kernel splits split (``split=False``:
-    none, plain TF32, for comparison); bf16 operands are exact in TF32 and
-    never split, nor is da in bf16 d_xs.  Returns what ``lstm_scan_bwd``
-    returns."""
+    none, plain TF32, for comparison): da always, as f32 operands are;
+    bf16 operands are exact in TF32 and never split.  Returns what
+    ``lstm_scan_bwd`` returns."""
     B, L, D = xs.shape
     H = w_hh.shape[0]
-    U = H // CL
     f32 = xs.dtype == torch.float32
     whh = w_hh.float()
     dh, dc = dhT.float(), dcT.float()
     da = torch.zeros((B, L, 4 * H))
-    cols = [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U) for g in range(4)])
-            for r in range(CL)]
+    cols = _block_columns(H)
     for l in range(L):
         t = l if reverse else L - 1 - l
         valid = (t < lengths)[:, None]
@@ -249,7 +333,7 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
     ts = torch.tensor([t for _, t in steps], dtype=torch.long)
     dav = da[bs, ts]
     d_xs = torch.zeros((B, L, D))
-    d_xs[bs, ts] = _tf32_mm(dav, w_ih.float().t(), split and f32, split and f32)
+    d_xs[bs, ts] = _tf32_mm(dav, w_ih.float().t(), split, split and f32)
     dws = []
     for a, split_a in ((xs[bs, ts].float(), split and f32), (hprev[ts, bs].float(), split)):
         dw = None
@@ -281,11 +365,16 @@ def _check(name, xs, lengths, w_ih, w_hh, extra=()):
     ins = (xs, lengths, w_ih, w_hh, *(e[1] for e in extra))
     if any(t.device != xs.device for t in ins) or not all(t.is_contiguous() for t in ins):
         raise ValueError(f"{name}: all inputs must be contiguous and on one CUDA device")
+    if (D * xs.element_size()) % 16:
+        raise ValueError(f"{name}: xs rows must be a multiple of 16 bytes (D={D})")
     return B, L, D, H
 
 
 def _forward_cuda(name, symbol, argtypes, xs, lengths, w_ih, w_hh, b, reverse, train):
     B, L, D, H = _check(name, xs, lengths, w_ih, w_hh, (("b", b, (4 * w_hh.shape[0],), xs.dtype),))
+    plan = lstm_scan_fwd_plan(B, L, D, H, xs.element_size())
+    if max(plan.gx_smem, plan.rec_smem) > MAX_SMEM:
+        raise ValueError(f"{name}: batch {B} needs more shared memory than a block has")
     f32 = dict(dtype=torch.float32, device=xs.device)
     gx = torch.empty((B, L, 4 * H), **f32)  # x . W_ih + b (K1: the full pre-activations)
     outs = torch.empty((B, L, H), **f32)
@@ -336,8 +425,6 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
         ("gates", gates, (B, L, 4 * H), f32), ("hprev", hprev, (L, B, H), f32),
         ("cprev", cprev, (L, B, H), f32), ("d_out", d_out, (B, L, H), f32),
         ("dhT", dhT, (B, H), f32), ("dcT", dcT, (B, H), f32)))
-    if (D * xs.element_size()) % 16:
-        raise ValueError(f"lstm_scan_bwd: xs rows must be a multiple of 16 bytes (D={D})")
     plan = lstm_scan_bwd_plan(B, L, D, H, xs.element_size())
     if max(plan.rec_smem, plan.dx_smem, plan.dw_smem) > MAX_SMEM:
         raise ValueError(f"lstm_scan_bwd: batch {B} needs more shared memory than a block has")

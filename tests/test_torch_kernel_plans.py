@@ -291,19 +291,10 @@ def test_lstm_scan_bwd_plan_fits_shared_memory(B, H):
         assert plan.dw_grid[0] * 128 == 4 * H and plan.dw_grid[1] * 64 >= max(64, H)
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("prec", ["bf16", "f32"])
-def test_lstm_bwd_split_tf32_matches_jax(prec, reverse):
-    """K2's arithmetic as its kernels cut it (``lstm_scan_bwd_emulated``):
-    TF32 products with split operands on the tensor cores, the
-    recurrence's per-block partials summed in rank order, dW over the
-    plan's splits in rank order, against the Pallas backward in interpret
-    mode from the same inputs, within the tolerances chip_smoke holds the
-    kernel to: d_xs 8e-3 in bf16 (one bf16 ulp is 2^-8 relative) and 1e-4
-    in f32, dW_ih, dW_hh and db 1e-4, each times max(1, max |JAX|)."""
-    B, L, D, H = 5, 7, 32, 32
-    lengths = np.array([7, 1, 4, 0, 6], np.int64)
-    rng = np.random.default_rng(11)
+def _bwd_emulated_and_jax(prec, reverse, B, L, D, H, lengths, seed=11):
+    """K2's emulated outputs and the Pallas backward's, from the same
+    numpy-seeded inputs and the Pallas forward's carries."""
+    rng = np.random.default_rng(seed)
     u = lambda *shape: ((rng.random(shape) * 2 - 1) / H ** 0.5).astype(np.float32)
     xs = rng.standard_normal((B, L, D)).astype(np.float32)
     w_ih, w_hh, b = u(D, 4 * H), u(H, 4 * H), u(4 * H)
@@ -319,14 +310,41 @@ def test_lstm_bwd_split_tf32_matches_jax(prec, reverse):
                                 jnp.asarray(dhT), jnp.asarray(dcT), reverse=reverse,
                                 interpret=True)
     xt, wit, wht, bt = (torch.from_numpy(a).to(dtype) for a in (xs, w_ih, w_hh, b))
-    lt = torch.from_numpy(lengths)
+    lt = torch.from_numpy(np.asarray(lengths, np.int64))
     _, _, hprev, cprev, gates = t_lstm.lstm_scan_train_plain(xt, lt, wit, wht, bt, reverse)
     got = t_lstm.lstm_scan_bwd_emulated(xt, lt, wit, wht, gates, hprev, cprev,
                                         *(torch.from_numpy(a) for a in (d_out, dhT, dcT)),
                                         reverse=reverse)
     assert got[0].dtype == dtype
-    rtols = (8e-3 if prec == "bf16" else 1e-4, 1e-4, 1e-4, 1e-4)
+    return got, [np.asarray(jnp.asarray(w, jnp.float32)) for w in want]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("prec", ["bf16", "f32"])
+def test_lstm_bwd_split_tf32_matches_jax(prec, reverse):
+    """K2's arithmetic as its kernels cut it (``lstm_scan_bwd_emulated``):
+    TF32 products with split operands on the tensor cores, the
+    recurrence's per-block partials summed in rank order, dW over the
+    plan's splits in rank order, against the Pallas backward in interpret
+    mode from the same inputs: d_xs within 1e-3 in bf16 (da split, as the
+    reference's f32 product needs: one bf16 ulp, 2^-8 relative, is 3.9e-3;
+    da unsplit gave 1.95e-3 here) and 1e-4 in f32, dW_ih, dW_hh and db
+    1e-4, each times max(1, max |JAX|)."""
+    lengths = np.array([7, 1, 4, 0, 6], np.int64)
+    got, want = _bwd_emulated_and_jax(prec, reverse, 5, 7, 32, 32, lengths)
+    rtols = (1e-3 if prec == "bf16" else 1e-4, 1e-4, 1e-4, 1e-4)
     for g, w, rtol in zip(got, want, rtols):
-        w = np.asarray(jnp.asarray(w, jnp.float32))
         np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
                                    atol=rtol * max(1.0, float(np.abs(w).max())))
+
+
+def test_lstm_bwd_bf16_d_xs_rounds_like_jax():
+    """At 16 x 20 x 64 x 64, bf16 d_xs equals the Pallas backward's in all
+    but under 1% of its elements: both round one f32 product to bf16 once,
+    so they differ only where the sums straddle a rounding boundary (da
+    unsplit differed in 6.2%)."""
+    rng = np.random.default_rng(4)
+    lengths = np.concatenate([[20, 0], rng.integers(1, 21, 14)]).astype(np.int64)
+    got, want = _bwd_emulated_and_jax("bf16", False, 16, 20, 64, 64, lengths)
+    differ = float((got[0].float().numpy() != want[0]).mean())
+    assert differ < 0.01, f"{differ:.2%} of bf16 d_xs elements differ from JAX"
