@@ -25,7 +25,11 @@ paper's curriculum recipe, on one GPU.
    name: K1-K3 print each launch's share), which no host time enters;
    comparisons with the library call and the bound use ``device_ms``.
    K6 and K7 are also checked at B = 61 in prng_shared (a short last
-   group), K1-K3 at B = 61 over ragged lengths with a 0 and an 80 (a
+   group), K4 and K5 at B = 61 and B = 1 in every mode (their candidate
+   rows exactly; each launch plan, S, G', blocks and shared memory, is
+   printed, held equal to the one the C entry points compute, and
+   beside it the clusters the card holds at once), K1-K3 at B = 61 over
+   ragged lengths with a 0 and an 80 (a
    short last cluster) and K8 at (B, Din, H) = (37, 200, 48), before any
    timing; K2's bf16 d_xs must differ from its plain version in under 1%
    of its elements (both round one f32 product once):
@@ -544,8 +548,6 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
     valid = torch.rand(B, MC, generator=gen, device=device) < 0.5
     q = torch.randn(B, D + A, generator=gen, device=device) / 32
     d_logits = torch.randn(B, MC + 1, generator=gen, device=device)
-    rows = int(torch.unique(node_sets[0]).numel()) * V * D * features.element_size()
-    loc_rows = int(torch.unique(views).numel()) * V * A * 4
     # K6 at a batch that is not a multiple of 8: a short last prng_shared group
     Br = B - 3
     cd = drop_spec("prng_shared", Br, MC, D, gen, device)
@@ -561,13 +563,35 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
                               f"{e_rb[0]:.3g} > {e_rb[1]:.3g}")
     res = {"ragged": {"B": Br, "mode": "prng_shared", "max_abs_err": e_r[0], "tol": e_r[1]},
            "ragged_bwd": {"B": Br, "mode": "prng_shared", "max_abs_err": e_rb[0],
-                          "tol": e_rb[1]}}
+                          "tol": e_rb[1]},
+           "pano_ragged": {}, "pano_ragged_bwd": {}, "pano_plans": pano_plans(dtype, V, D, A, MC)}
+    # K4 and K5 at B = 61 (a short last prng_shared group, and blocks of 4
+    # samples whose seed is another block's) and at B = 1, in every mode
+    for Bs in (Br, 1):
+        for mode in MODES:
+            pd = drop_spec(mode, Bs, V, D, gen, device)
+            sub = [t[:Bs].contiguous() for t in (node_sets[0], views, cand_view, tv, d_vis)]
+            args = (*sub[:3], features, loc, sub[3])
+            got, want = kp.pano_attend(*args, pd), kp.pano_attend_plain(*args, pd)
+            check(torch.equal(got[2], want[2]),
+                  f"pano_attend {dtype} {mode} at B = {Bs}: candidate rows are exact copies")
+            e4 = compare(got[:2], want[:2], 1e-4)
+            bargs = (sub[0], sub[1], features, loc, got[1], sub[4])
+            e5 = compare((kp.pano_attend_bwd(*bargs, pd),),
+                         (kp.pano_attend_bwd_plain(*bargs, pd),), 1e-4)
+            for name, e in (("pano_attend", e4), ("pano_attend_bwd", e5)):
+                check(e[0] <= e[1], f"{name} {dtype} {mode} at B = {Bs}: |kernel - plain| "
+                                    f"{e[0]:.3g} > {e[1]:.3g}")
+            res["pano_ragged"].setdefault(Bs, {})[mode] = {"max_abs_err": e4[0], "tol": e4[1]}
+            res["pano_ragged_bwd"].setdefault(Bs, {})[mode] = {"max_abs_err": e5[0],
+                                                               "tol": e5[1]}
     for mode in MODES:
         pd = drop_spec(mode, B, V, D, gen, device)
         cd = drop_spec(mode, B, MC, D, gen, device)
         args = (node_sets[0], views, cand_view, features, loc, tv)
         got, want = kp.pano_attend(*args, pd), kp.pano_attend_plain(*args, pd)
-        check(torch.equal(got[2], want[2]), "pano_attend: candidate rows are exact copies")
+        check(torch.equal(got[2], want[2]),
+              f"pano_attend {dtype} {mode} at B = {B}: candidate rows are exact copies")
         e4 = compare(got[:2], want[:2], 1e-4)
         alpha = got[1]
         bargs = (node_sets[0], views, features, loc, alpha, d_vis)
@@ -605,16 +629,15 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
                            "einsum bk,bkd->bd")
         no_lib = dict.fromkeys(("library_ms", "library_device_ms", "library_device_events"))
         ang_b = B * MC * A * features.element_size()
+        b4, b5 = pano_bounds(node_sets[0], views, cand_view, features, tv, got, pd)
         res[mode] = [
             {"name": "pano_attend", "err": e4, **t4, "plain_ms": p4, **no_lib,
              "library_call": "none: no one PyTorch call gathers, drops, attends and copies rows",
-             "bound": bound_ms(rows + loc_rows + nbytes(node_sets[0], views, cand_view, tv)
-                               + drop_bytes(pd) + nbytes(*got), 4 * B * V * (D + A), dtype)},
+             "bound": b4},
             {"name": "pano_attend_bwd", "err": e5, **t5, "plain_ms": p5, **no_lib,
              "library_call": "none: no one PyTorch call re-gathers, drops and back-propagates "
                              "the attention",
-             "bound": bound_ms(rows + loc_rows + nbytes(node_sets[0], views, alpha, d_vis)
-                               + drop_bytes(pd) + B * (D + A) * 4, 4 * B * V * (D + A), dtype)},
+             "bound": b5},
             {"name": "cand_score", "err": e6, **t6, "plain_ms": p6, **l6,
              "library_call": "torch.einsum('bkd,bd->bk') over the image rows",
              "bound": bound_ms(nbytes(cand_sets[0], valid, q, got6) + ang_b + drop_bytes(cd),
@@ -625,6 +648,46 @@ def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
                                + B * (D + A) * 4, 2 * B * MC * (D + A), dtype)},
         ]
     return res
+
+
+def pano_bounds(nodes, views, cand_view, features, tv, outs, drop):
+    """(K4's, K5's) bound (ms, by): the distinct nodes' feature rows and the
+    distinct views' angle rows read once, the indices, the query (or the
+    cotangent and alpha) and the mask or seeds read once, the outputs
+    (vis, alpha, cand; or d_tv) written once; 4 FLOP an element of [rows ;
+    angle rows] a sample (a dot and a weighted sum)."""
+    B, (_, V, D), A = nodes.shape[0], features.shape, tv.shape[1] - features.shape[-1]
+    rows = int(torch.unique(nodes).numel()) * V * D * features.element_size()
+    loc_rows = int(torch.unique(views).numel()) * V * A * 4
+    flops = 4 * B * V * (D + A)
+    return (bound_ms(rows + loc_rows + nbytes(nodes, views, cand_view, tv) + drop_bytes(drop)
+                     + nbytes(*outs), flops, features.dtype),
+            bound_ms(rows + loc_rows + nbytes(nodes, views, outs[1], tv) + drop_bytes(drop)
+                     + nbytes(tv), flops, features.dtype))
+
+
+def pano_plans(dtype, V, D, A, MC):
+    """K4's and K5's launch plans at B = 64, 61 and 1: ``pano_plan`` against
+    the plan the C entry points compute (``plan_query``), with the clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    kp = modules()["pano_fused"]
+    plans = []
+    for name, mc in (("pano_attend", MC), ("pano_attend_bwd", 0)):
+        for B in (BATCH, BATCH - 3, 1):
+            p = kp.pano_plan(B, V, D, A, dtype, mc)
+            q = kp.plan_query(B, V, D, A, dtype, mc)
+            check(q[:6] == (p.cluster, p.samples, p.grid[1], p.cols, p.ang_quads, p.smem),
+                  f"{name} {dtype} at B = {B}: pano_plan {p} is the C plan {q[:6]}")
+            blocks = p.grid[0] * p.grid[1]
+            est = kp.clusters_at_once(p.cluster, p.smem)
+            plans.append({"name": name, "B": B, "S": p.cluster, "G": p.samples, "blocks": blocks,
+                          "smem": p.smem, "waves_planned": p.waves, "clusters_at_once": q[6],
+                          "clusters_at_once_planned": est})
+            log(f"{name:16s} {str(dtype):14s} B={B:3d}: plan S={p.cluster} G'={p.samples} "
+                f"grid {p.grid} = {blocks} blocks, {p.smem} B shared memory a block, "
+                f"{p.waves} wave(s) planned; the card holds {q[6]} of its {p.grid[1]} clusters "
+                f"at once (planned on {est})")
+    return plans
 
 
 def lstm_cell_phase(dtype, device, gen, B=BATCH, Din=64 + FEAT_DIM + 128, H=512, iters=100):
@@ -708,6 +771,14 @@ def kernel_phases(world, lengths, device):
                 log(f"{r['name']:16s} {prec:4s} prng_shared at B={r['ragged']['B']}: "
                     f"max|kernel-plain| {r['ragged']['max_abs_err']:.3g} "
                     f"(tol {r['ragged']['tol']:.3g})")
+            if r["name"] in ("pano_attend", "pano_attend_bwd"):
+                r["ragged"] = by_mode["pano_ragged" if r["name"] == "pano_attend"
+                                      else "pano_ragged_bwd"]
+                r["plans"] = [p for p in by_mode["pano_plans"] if p["name"] == r["name"]]
+                for Bs, errs in r["ragged"].items():
+                    log(f"{r['name']:16s} {prec:4s} at B={Bs}: max|kernel-plain| " + ", ".join(
+                        f"{mode} {e['max_abs_err']:.3g} (tol {e['tol']:.3g})"
+                        for mode, e in errs.items()))
             results[(r["name"], prec)] = r
         del features
         modules()["lstm_cell"].launches = 0
@@ -1311,7 +1382,7 @@ def main() -> int:
     log(f"build: {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -1397,8 +1468,10 @@ def main() -> int:
                                      for prec, x in ((precision, r), ("f32", r32))}
         else:
             entry["tol"] = r["tol"]
-        if "ragged" in r:  # K6, K7 at a short prng_shared group, K8 at ragged edges
+        if "ragged" in r:  # K4-K7 at a short prng_shared group, K8 at ragged edges
             entry["ragged"] = {precision: r["ragged"], "f32": r32["ragged"]}
+        if "plans" in r:  # K4, K5: the launch plans at B = 64, 61 and 1
+            entry["plans"] = {precision: r["plans"], "f32": r32["plans"]}
         if name in OFF_PATH:
             entry.update(shape=r["shape"], kernel_phase_launches=r["kernel_phase_launches"])
         if "modes" in r:

@@ -85,50 +85,6 @@ __device__ __forceinline__ float component(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// The keep flags of elements [4 e4, 4 e4 + 4) of a sample's [MC, D] block,
-// one byte each (0 or 1), as the ext mask holds them.
-__device__ __forceinline__ uint32_t philox_keep4(uint32_t e4, uint32_t k0, uint32_t k1,
-                                                 uint32_t thr) {
-  const uint4 r = philox4x32_10(make_uint4(e4, 0u, 0u, 0u), k0, k1);
-  return (uint32_t)(r.x < thr) | (uint32_t)(r.y < thr) << 8 | (uint32_t)(r.z < thr) << 16 |
-         (uint32_t)(r.w < thr) << 24;
-}
-
-// x / d, correctly rounded, from inv = 1 / d (correctly rounded): one
-// multiply and two FMAs in place of a division.
-__device__ __forceinline__ float div_by(float x, float d, float inv) {
-  const float q = __fmul_rn(x, inv);
-  return fmaf(fmaf(-q, d, x), inv, q);
-}
-
-// NW words of T (N = NW * 4 / sizeof(T) elements) dropped by their keep
-// flags kw (a byte per element, N / 4 words) and widened to f32:
-// round_to<T>(x / keep) where kept, 0 where not.  The flags mask the raw
-// bits first (0 / keep is 0), and bf16 pairs are rounded together.
-template <typename T, int NW>
-__device__ __forceinline__ void dropped_words(const uint32_t* w, const uint32_t* kw, float keep,
-                                              float inv, float* x) {
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int e = 0; e < NW; ++e)
-      x[e] = div_by((kw[e >> 2] >> (8 * (e & 3))) & 0xffu ? __uint_as_float(w[e]) : 0.f, keep,
-                    inv);
-  } else {
-#pragma unroll
-    for (int p = 0; p < NW; ++p) {
-      // the pair's two flags, spread to 0x0000FFFF / 0xFFFF0000
-      const uint32_t bits =
-          w[p] & (__byte_perm(kw[p >> 1], 0u, p & 1 ? 0x4342u : 0x4140u) * 0xFFFFu);
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
-      const __nv_bfloat162 r =
-          __floats2bfloat162_rn(div_by(f.x, keep, inv), div_by(f.y, keep, inv));
-      const float2 o = __bfloat1622float2(r);
-      x[2 * p] = o.x;
-      x[2 * p + 1] = o.y;
-    }
-  }
-}
-
 // NW words of T widened to f32.
 template <typename T, int NW>
 __device__ __forceinline__ void widen_words(const uint32_t* w, float* x) {
@@ -257,24 +213,6 @@ struct Quad<float> {
   using type = uint4;
 };
 
-// 4, 8 or 16 bytes from device to shared memory without registers
-// (cp.async); zeros where !full (the source is then not read).
-template <int N>
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool full) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(full ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(N),
-                 "r"(full ? N : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // Wait until at most n (0..3) of this thread's cp.async groups are pending.
 __device__ __forceinline__ void cp_async_wait_groups(int n) {
   if (n >= 3)

@@ -57,7 +57,6 @@
 // The launch geometry (S, boxes a CTA, shared-memory bytes) comes from
 // ops/cuda/lstm_cell.py::lstm_cell_plan.
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched through the runtime)
 #include <math.h>
 
 #include "common.cuh"
@@ -83,44 +82,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 8 * THREADS * 16 + 1024;
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Wait for the barrier's phase `phase` to complete; a copy that never
-// lands traps after ~2 s rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned phase) {
-  unsigned done = 0;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(phase)
-        : "memory");
-    if (done) return;
-    uint64_t t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    if (!t0) t0 = t;
-    else if (t - t0 > 2000000000ull) __trap();
-  }
-}
-__device__ __forceinline__ void tma_2d(unsigned dst, const CUtensorMap* map, int c0, int c1,
-                                       unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -349,29 +310,6 @@ lstm_cell_kernel(const __grid_constant__ CUtensorMap map_x,
       store_as(h_out + o, og * tanh_fast(cn));
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched through the runtime (no link to libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                                  &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // [rows, cols] row-major, boxes of {KC, BM}: the x or h operand.

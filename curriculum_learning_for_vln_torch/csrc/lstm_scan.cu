@@ -161,9 +161,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full
                "r"(full ? 16 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -228,9 +225,6 @@ __host__ __device__ __forceinline__ int starts_ints(int B) { return (B + 4) & ~3
 // shared memory through st.async, which counts their bytes on that block's
 // mbarrier; the owner waits for the bytes of all CL blocks.  No cluster
 // barrier a step: a block waits only for the data it reads.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 // The address of this block's shared-memory address p in block `rank`.
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t p, int rank) {
   uint32_t r;
@@ -243,13 +237,6 @@ __device__ __forceinline__ void st_async2(uint32_t addr, float a, float b, uint3
           addr),
       "f"(a), "f"(b), "r"(bar)
       : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
 }
 // Wait for the barrier's phase `phase` to complete, acquiring the cluster's
 // writes counted on it; a step whose partials never land traps after ~2 s

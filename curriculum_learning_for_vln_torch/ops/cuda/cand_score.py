@@ -144,7 +144,7 @@ def cand_score_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
                          (B, D + ang.shape[-1]))
     if (D + A) % 4:
         raise ValueError(f"cand_score: q rows must be a multiple of 16 bytes (D + A = {D + A})")
-    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score")
+    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score", cand_img.dtype)
     if any(t.data_ptr() % 16 for t in (cand_img, q, drop.mask) if t is not None):
         raise ValueError("cand_score: the candidate rows, q and the ext mask must be 16-byte "
                          "aligned")
@@ -171,7 +171,7 @@ def cand_score_bwd_cuda(cand_img: torch.Tensor, cand_angle: torch.Tensor,
     if A % 4 or cand_score_bwd_plan(B, MC, D, A, cand_img.dtype).ang_quads > 32:
         raise ValueError(f"cand_score_bwd: the angle rows must be a multiple of 4 wide and at "
                          f"most 32 quads a slice of {BWD_COLS} image columns (A = {A})")
-    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score_bwd")
+    dargs = c_args(drop, B, MC, D, cand_img.device, "cand_score_bwd", cand_img.dtype)
     if drop.mask is not None and drop.mask.data_ptr() % 16:
         raise ValueError("cand_score_bwd: the ext mask must be 16-byte aligned")
     d_q = torch.empty((B, D + A), dtype=torch.float32, device=cand_img.device)

@@ -13,8 +13,13 @@ A ``DropSpec`` says how a kernel drops the image rows it reads:
 
 A kept element becomes ``round_to_table_dtype(x / keep)``, a dropped one
 0, before the f32 accumulation (pano_fused.py:54-59, cand_score.py:52-57).
-``dropped`` is that function in plain torch, for the kernels' plain
-versions; ``c_args`` is what the CUDA entry points take.
+There ``x / keep`` divides a row of the table dtype by a Python float, so
+JAX rounds keep to the table dtype first: a bf16 row is divided by
+bf16(0.7) = 0.69921875, not by f32(0.7).  ``divisor`` is that value, and
+the kernels and the plain versions divide by it; the keep test of the
+prng modes uses the probability itself.  ``dropped`` is the drop in plain
+torch, for the kernels' plain versions; ``c_args`` is what the CUDA entry
+points take.
 """
 from __future__ import annotations
 
@@ -58,6 +63,12 @@ def keep_mask(drop: DropSpec, shape) -> Optional[torch.Tensor]:
     raise ValueError(f"unknown mask mode {drop.mode!r}")
 
 
+def divisor(keep: float, dtype: torch.dtype) -> float:
+    """The keep probability rounded to the table dtype: what a kept element
+    is divided by (bf16(0.7) = 0.69921875 for a bf16 table)."""
+    return float(torch.tensor(keep, dtype=dtype))
+
+
 def dropped(rows: torch.Tensor, drop: DropSpec) -> torch.Tensor:
     """rows [B, n, D] in the table dtype, dropped per ``drop``, in f32 (f64
     for an f64 table)."""
@@ -66,13 +77,14 @@ def dropped(rows: torch.Tensor, drop: DropSpec) -> torch.Tensor:
     if mask is None:
         return rows.to(acc)
     # x / keep by a tensor divisor: an IEEE division, as the kernels make
-    keep = torch.tensor(drop.keep, dtype=acc, device=rows.device)
+    keep = torch.tensor(divisor(drop.keep, rows.dtype), dtype=acc, device=rows.device)
     return torch.where(mask, (rows.to(acc) / keep).to(rows.dtype).to(acc), 0.0)
 
 
-def c_args(drop: DropSpec, B: int, rows: int, D: int, device, name: str):
-    """(mode, mask pointer, seeds pointer, keep, threshold) for a CUDA entry
-    point, after checking the mask or the seeds."""
+def c_args(drop: DropSpec, B: int, rows: int, D: int, device, name: str, dtype: torch.dtype):
+    """(mode, mask pointer, seeds pointer, keep divisor in ``dtype``, the
+    table dtype, and threshold) for a CUDA entry point, after checking the
+    mask or the seeds."""
     if drop.mode not in MODE_CODES:
         raise ValueError(f"{name}: unknown mask mode {drop.mode!r}")
     mask_ptr = seeds_ptr = None
@@ -92,5 +104,5 @@ def c_args(drop: DropSpec, B: int, rows: int, D: int, device, name: str):
         seeds_ptr = s.data_ptr()
     if drop.mode != "none" and not 0.0 < drop.keep <= 1.0:
         raise ValueError(f"{name}: keep probability {drop.keep} outside (0, 1]")
-    return (MODE_CODES[drop.mode], mask_ptr, seeds_ptr, float(drop.keep),
+    return (MODE_CODES[drop.mode], mask_ptr, seeds_ptr, divisor(drop.keep, dtype),
             philox.keep_threshold(drop.keep))

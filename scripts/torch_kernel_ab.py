@@ -1,35 +1,46 @@
 #!/usr/bin/env python3
-"""Time K3, K1 and K2 (the LSTM scan's inference forward, training
-forward and backward) and K7 (the candidate scorer's backward) of this
-checkout against those of another checkout, on one GPU, in turns within
-one process: other, this, this, other.
+"""Time the port's kernels of this checkout against those of another
+checkout, on one GPU, in turns within one process: other, this, this,
+other.
 
-    python3 scripts/torch_kernel_ab.py --other DIR
+    python3 scripts/torch_kernel_ab.py --other DIR [--kernels pano cand lstm]
 
 DIR is the root of another checkout of the repo, e.g. the parent commit
-unpacked with ``git archive``.  Both trees' ``csrc/lstm_scan.cu`` and
-``csrc/cand_score.cu`` (with their ``common.cuh``) are built with this
-checkout's nvcc flags into ``build/ab/`` and called through their C entry
-points, whose signatures both trees share, on the same inputs: K3, K1 and
-K2 at B = 64, L = 80, D = H = 256 at 11-20 and 17-80 tokens (K2 from
-K1's residuals), beside cuDNN's packed ``nn.LSTM`` (forward without and
-with autograd recording, and ``autograd.grad`` through it) and each
-kernel's bound (``chip_smoke.lstm_bounds``), and K3 and K1 also at 0 and
-at 80 tokens in every row (the forward's fixed cost, and its full walk
-of 80 valid steps); K7 at B = 64, 16 candidates
-of 2048 + 128 features, in its four mask modes, rotating over 8
-candidate sets.  Each kernel is timed by ``chip_smoke.device_time_ms``
-(device ms a call, by kernel name) and held against this checkout's
-plain version (the tolerances of chip_smoke.py).  Prints one line per
-(kernel, dtype, case, tree, turn), then the card's name and power limit,
-then one JSON object of every time.
+unpacked with ``git archive``.  Both trees' sources of the chosen groups
+(with their ``common.cuh``) are built with this checkout's nvcc flags into
+``build/ab/`` and called through their C entry points, whose signatures
+both trees share, on the same inputs; every call of a tree is first held
+against this checkout's plain version (the tolerances of chip_smoke.py).
+
+* ``pano``: K4 and K5 (``csrc/pano_fused.cu``) at B = 64, 36 views of
+  2048 + 128 features (the synthetic world's distribution, N(0.5, 0.5^2)),
+  MC = 16, in the four mask modes, again at B = 61 in prng_shared (a short
+  last group) and at B = 64 in prng_shared on a table with every second
+  value 0 ("zeros"), rotating over 8 node sets whose rows together exceed
+  the 50 MB L2 (as chip_smoke.py does), beside each kernel's bound
+  (``chip_smoke.pano_bounds``).
+* ``cand``: K6 and K7 (``csrc/cand_score.cu``) at B = 64, 16 candidates of
+  2048 + 128 features, in the four mask modes, rotating over 8 candidate
+  sets, beside ``torch.einsum`` for K7.
+* ``lstm``: K3, K1 and K2 (``csrc/lstm_scan.cu``) at B = 64, L = 80, D = H
+  = 256 at 11-20 and 17-80 tokens (K2 from K1's residuals), beside cuDNN's
+  packed ``nn.LSTM`` (forward without and with autograd recording, and
+  ``autograd.grad`` through it) and each kernel's bound
+  (``chip_smoke.lstm_bounds``), and K3 and K1 also at 0 and at 80 tokens in
+  every row (the forward's fixed cost, and its full walk of 80 valid steps).
+
+Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
+summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
+around the same back-to-back calls through the C entry point, without the
+wrapper's checks).  Prints one line per (kernel, dtype, case, tree, turn),
+then the card's name and power limit, then one JSON object of every time.
+All groups by default.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -41,27 +52,31 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from curriculum_learning_for_vln_torch.ops import philox  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import build  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import cand_score as kc  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import lstm_scan as kl  # noqa: E402
-from curriculum_learning_for_vln_torch.ops.cuda.drop import NO_DROP, DropSpec, c_args  # noqa: E402
+from curriculum_learning_for_vln_torch.ops.cuda import pano_fused as kp  # noqa: E402
+from curriculum_learning_for_vln_torch.ops.cuda.drop import c_args  # noqa: E402
+from curriculum_learning_for_vln_torch.utils.angles import all_loc_embeddings  # noqa: E402
 
 OUT = ROOT / "build" / "ab"
 CSRC = "curriculum_learning_for_vln_torch/csrc"
 
 
-def build_tree(tag: str, tree: Path):
-    """{source: CDLL} of one tree's K2 and K7 sources, built side by side."""
+SOURCES = {"lstm": "lstm_scan", "cand": "cand_score", "pano": "pano_fused"}
+
+
+def build_tree(tag: str, tree: Path, names):
+    """{source: CDLL} of one tree's sources ``names``, built side by side."""
     src = OUT / tag
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
-    for f in ("lstm_scan.cu", "cand_score.cu", "common.cuh"):
+    for f in (*(f"{n}.cu" for n in names), "common.cuh"):
         shutil.copy(tree / CSRC / f, src / f)
     procs = {name: subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
                                      str(src / f"{name}.so"), str(src / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in ("lstm_scan", "cand_score")}
+             for name in names}
     libs = {}
     for name, p in procs.items():
         log = p.communicate()[0]
@@ -163,9 +178,29 @@ def cand_cases(dtype, dev, gen):
     ang = torch.randn(B, MC, A, generator=gen, device=dev).to(dtype)
     valid = torch.rand(B, MC, generator=gen, device=dev) < 0.5
     d_logits = torch.randn(B, MC + 1, generator=gen, device=dev)
+    q = torch.randn(B, D + A, generator=gen, device=dev) / 32
+    groups = kc.cand_score_plan(B, MC).grid[1]
     for mode in cs.MODES:
         drop = cs.drop_spec(mode, B, MC, D, gen, dev)
-        dargs = c_args(drop, B, MC, D, sets[0].device, "cand_score_bwd")
+        dargs = c_args(drop, B, MC, D, sets[0].device, "cand_score", dtype)
+        want6 = kc.cand_score_plain(sets[0], ang, valid, q, drop)
+        logits = torch.empty((B, MC + 1), device=dev)
+
+        def call6(lib, dargs=dargs, logits=logits, drop=drop):  # drop keeps the mask alive
+            fn = entry(lib, "cand_score", kc._FWD_ARGTYPES)
+
+            def run(i):
+                err = fn(sets[i % 8].data_ptr(), ang.data_ptr(), valid.data_ptr(), q.data_ptr(),
+                         logits.data_ptr(), B, MC, D, A, build.DTYPE_CODES[dtype], *dargs,
+                         groups, build.stream_handle(logits))
+                build.check_launch(err, "cand_score")
+            return run
+
+        def check6(tag, want=want6, logits=logits, mode=mode):
+            e = cs.compare((logits,), (want,), 1e-4)
+            cs.check(e[0] <= e[1], f"K6 {tag} {dtype} {mode}: {e[0]:.3g} > {e[1]:.3g}")
+        yield "cand_score", mode, call6, check6, None, None
+
         want = kc.cand_score_bwd_plain(sets[0], ang, valid, d_logits, drop)
         out = torch.empty((B, D + A), device=dev)
 
@@ -189,22 +224,90 @@ def cand_cases(dtype, dev, gen):
         "bk,bkd->bd", w, sets[i % 8]), None, None
 
 
+def pano_cases(dtype, dev, gen):
+    B0, V, D, A, MC = 64, 36, 2048, 128, 16
+    # the synthetic world's feature distribution (world/synthetic.py), and
+    # the same with every second value 0, as a ReLU leaves many
+    features = (torch.randn(768, V, D, generator=gen, device=dev) * 0.5 + 0.5).to(dtype)
+    zeros = features * (torch.arange(D, device=dev) % 2).to(dtype)
+    loc = torch.from_numpy(all_loc_embeddings()).to(dev)
+    node_sets = [torch.randint(0, 768, (B0,), generator=gen, device=dev) for _ in range(8)]
+    views = torch.randint(0, V, (B0,), generator=gen, device=dev)
+    cand_view = torch.randint(0, V, (B0, MC), generator=gen, device=dev)
+    tv = torch.randn(B0, D + A, generator=gen, device=dev) / 32
+    d_vis = torch.randn(B0, D + A, generator=gen, device=dev)
+    for B, mode, table in ([(B0, m, features) for m in cs.MODES]
+                           + [(B0 - 3, "prng_shared", features), (B0, "prng_shared", zeros)]):
+        case = f"{mode} B={B}" + (" zeros" if table is zeros else "")
+        sets = [n[:B].contiguous() for n in node_sets]
+        vw, cv, q, dv = (t[:B].contiguous() for t in (views, cand_view, tv, d_vis))
+        drop = cs.drop_spec(mode, B, V, D, gen, dev)
+        dargs = c_args(drop, B, V, D, table.device, "pano_attend", dtype)
+        want = kp.pano_attend_plain(sets[0], vw, cv, table, loc, q, drop)
+        want5 = kp.pano_attend_bwd_plain(sets[0], vw, table, loc, want[1], dv, drop)
+        bounds = cs.pano_bounds(sets[0], vw, cv, table, q, want, drop)
+        vis = torch.empty((B, D + A), device=dev)
+        alpha = torch.empty((B, V), device=dev)
+        cand = torch.empty((B, MC, D), dtype=dtype, device=dev)
+        d_tv = torch.empty((B, D + A), device=dev)
+
+        def call4(lib, dargs=dargs, drop=drop, sets=sets, vw=vw, cv=cv, q=q, vis=vis, alpha=alpha,
+                  cand=cand, B=B, table=table):
+            fn = entry(lib, "pano_attend", kp._ARGTYPES)
+
+            def run(i):
+                err = fn(sets[i % 8].data_ptr(), vw.data_ptr(), cv.data_ptr(), table.data_ptr(),
+                         loc.data_ptr(), q.data_ptr(), vis.data_ptr(), alpha.data_ptr(),
+                         cand.data_ptr(), B, V, D, A, MC, build.DTYPE_CODES[dtype], *dargs,
+                         build.stream_handle(vis))
+                build.check_launch(err, "pano_attend")
+            return run
+
+        def check4(tag, want=want, vis=vis, alpha=alpha, cand=cand, case=case):
+            cs.check(torch.equal(cand, want[2]), f"K4 {tag} {dtype} {case}: candidate rows")
+            e = cs.compare((vis, alpha), want[:2], 1e-4)
+            cs.check(e[0] <= e[1], f"K4 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
+        yield "pano_attend", case, call4, check4, bounds[0], None
+
+        def call5(lib, dargs=dargs, drop=drop, sets=sets, vw=vw, alpha=want[1], dv=dv, d_tv=d_tv,
+                  B=B, table=table):
+            fn = entry(lib, "pano_attend_bwd", kp._BWD_ARGTYPES)
+
+            def run(i):
+                err = fn(sets[i % 8].data_ptr(), vw.data_ptr(), table.data_ptr(),
+                         loc.data_ptr(), alpha.data_ptr(), dv.data_ptr(), d_tv.data_ptr(), B, V,
+                         D, A, build.DTYPE_CODES[dtype], *dargs, build.stream_handle(d_tv))
+                build.check_launch(err, "pano_attend_bwd")
+            return run
+
+        def check5(tag, want=want5, d_tv=d_tv, case=case):
+            e = cs.compare((d_tv,), (want,), 1e-4)
+            cs.check(e[0] <= e[1], f"K5 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
+        yield "pano_attend_bwd", case, call5, check5, bounds[1], None
+
+
+CASES = {"pano": pano_cases, "cand": cand_cases, "lstm": lstm_cases}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--kernels", nargs="+", choices=tuple(CASES), default=list(CASES),
+                    help="kernel groups to time (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {"other": build_tree("other", Path(args.other).resolve()),
-            "this": build_tree("this", ROOT)}
+    names = [SOURCES[k] for k in args.kernels]
+    libs = {"other": build_tree("other", Path(args.other).resolve(), names),
+            "this": build_tree("this", ROOT, names)}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for kernel, case, call, check, bound, lib in (item for cases in (lstm_cases, cand_cases)
-                                                      for item in cases(dtype, dev, gen)):
+        for kernel, case, call, check, bound, lib in (item for k in args.kernels
+                                                      for item in CASES[k](dtype, dev, gen)):
             if call is None:  # the library call: no tree, no turns
                 ms = cs.device_time_ms(check, 100)[0]
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case,
@@ -218,20 +321,26 @@ def main() -> int:
                 cs.log(f"{kernel:22s} {str(dtype):14s} {case:13s} cuDNN nn.LSTM: "
                        f"{cs.fmt(lib['library_device_ms'])} ms; bound {bound[0]:.4f} ms "
                        f"({bound[1]})")
+            elif bound is not None:
+                rows.append({"kernel": kernel, "dtype": str(dtype), "case": case,
+                             "tree": "bound", "bound_ms": bound[0], "bound_by": bound[1]})
             lstm = kernel.startswith("lstm_scan")
             iters = 20 if lstm else 100
-            src = "lstm_scan" if lstm else "cand_score"
+            src = ("lstm_scan" if lstm else "pano_fused" if kernel.startswith("pano")
+                   else "cand_score")
             for turn, tag in enumerate(("other", "this", "this", "other")):
                 run = call(libs[tag][src])
                 run(0)
                 torch.cuda.synchronize()
                 check(tag)
                 ms, _, split = cs.device_time_ms(run, iters)
+                event_ms = cs.cuda_time_ms(run, iters)
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case, "tree": tag,
-                             "turn": turn, "device_ms": ms,
+                             "turn": turn, "device_ms": ms, "event_ms": event_ms,
                              "split": {k: v[0] for k, v in split.items()}})
-                cs.log(f"{kernel:22s} {str(dtype):14s} {case:13s} {tag:5s} (turn {turn}): "
-                       f"{ms:.4f} ms | " + ", ".join(f"{k} {v[0]:.4f}" for k, v in split.items()))
+                cs.log(f"{kernel:22s} {str(dtype):14s} {case:16s} {tag:5s} (turn {turn}): "
+                       f"device {ms:.4f} ms, event {event_ms:.4f} ms | "
+                       + ", ".join(f"{k} {v[0]:.4f}" for k, v in split.items()))
     cs.log(cs.card_line())
     cs.log(json.dumps({"ab": rows}))
     return 0
