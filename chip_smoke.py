@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's EnvDrop serving and training paths, and the
-paper's curriculum recipe, on one GPU.
+"""Drive the PyTorch port's EnvDrop serving and training paths, the
+paper's curriculum recipe, and the Follower and Self-Monitor agents, on
+one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
@@ -11,7 +12,7 @@ paper's curriculum recipe, on one GPU.
 2. Builds the port's CUDA kernels from ``curriculum_learning_for_vln_
    torch/csrc`` (one ``nvcc`` per source, all at once) and prints the
    compiler's register and spill report.
-3. Kernel phases (in a full run, after phase 6, so that their profiler
+3. Kernel phases (in a full run, after phase 7, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
@@ -41,7 +42,10 @@ paper's curriculum recipe, on one GPU.
    ext, prng and prng_shared (the plain prng modes draw the kernels'
    Philox bits, so they are held to the tolerance of the arithmetic), and
    K8 (the fused LSTM cell, which no path runs) at the EnvDrop decoder
-   cell's shape beside ``torch.lstm_cell``.
+   cell's shape beside ``torch.lstm_cell``.  K1-K3 also run the Follower's
+   and the Self-Monitor's encoder layers (D = 300 then 256 at H = 128; D =
+   256 at H = 512, the wide walk) at lengths up to 80 and at B = 61 over
+   ragged lengths, each beside cuDNN's ``nn.LSTM`` and its bound.
 4. Serve phase: EnvDrop at the full width of
    ``configs/envdrop/envdrop_config.yaml`` (random weights from a seed) on
    a synthetic world of 12 scans x 64 nodes with 2048-d features, answering
@@ -69,7 +73,25 @@ paper's curriculum recipe, on one GPU.
    episodes done, completed episodes/s, and the device-busy share of one
    under the profiler.  (e) The SPCL update at the epoch's end (BURN_IN 0,
    INTERVAL 1) against a numpy recomputation.
-7. Prints one ``{"kernels": [...]}`` line, the card's name and power
+7. Agents phase: the Follower (``configs/follower/follower_config.yaml``)
+   and the Self-Monitor (``configs/monitor/selfmonitor_config.yaml``) at
+   full width, bf16, B = 64, T = 10, seeded random weights, on the same
+   world.  (a) ``Navigator.navigate_batch`` on 64-request micro-batches:
+   trajectories, first-step logits against the plain versions, latency,
+   and the launches of every call exactly (Follower K3 = 4, K4 = 10;
+   Self-Monitor K3 = 1, K4 = 10).  (b) One sample-feedback training
+   iteration through the kernels against the plain versions from the same
+   parameters, batch and generator seed: the loss, every gradient leaf and
+   the Self-Monitor's BN running statistics.  (c) Timed classic iterations
+   (``engine.loop.agent_one_iter``, Adam, no clip) with exact launches
+   (Follower K1 = K2 = 4, K4 = K5 = 10; Self-Monitor K1 = K2 = 1, K4 = 10,
+   K5 = 0) and the device-busy share of one under the profiler.  (d) One
+   SPCL-weighted iteration on the ``_cl_`` config as shipped (PACKED_RL
+   ignored for these agents): its loss is dot(w, ml_vec) / sum(w)
+   recomputed in numpy.  (e) ``check_the_code`` on the synthetic
+   val_unseen split: SR 1.0.
+8. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+   the Follower's and the Self-Monitor's paths), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -102,6 +124,13 @@ TRAIN_ITERS = 6          # timed training iterations (after one warm-up)
 CURRICULUM_ITERS = 8     # SPCL packed iterations (a warm-up, 6 timed, one profiled)
 MODES = ("none", "ext", "prng", "prng_shared")
 RAGGED_CELL = (37, 200, 48)  # (B, Din, H) of K8's check at ragged edges
+AGENT_CONFIGS = {"FOLLOWER": ("configs/follower/follower_config.yaml",
+                              "configs/follower/follower_cl_config.yaml"),
+                 "SELF-MONITOR": ("configs/monitor/selfmonitor_config.yaml",
+                                  "configs/monitor/selfmonitor_cl_config.yaml")}
+AGENT_T = 10  # their configs' MAX_EPISODE_LEN
+# (D, H) of the Follower's and the Self-Monitor's encoder layers (K1-K3)
+AGENT_LSTM_SHAPES = {"monitor": (256, 512), "follower_l1": (300, 128), "follower_l2": (256, 128)}
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -362,12 +391,13 @@ def long_lengths(B, gen, device, lo=16, hi=80):
     return lengths
 
 
-def lstm_phases(dtype, device, gen, lengths, iters=20):
-    """K3, K1 and K2 at the encoder's shapes (B = 64, L = 80, D = H = 256),
-    both directions, over the token lengths ``lengths``."""
+def lstm_phases(dtype, device, gen, lengths, iters=20, D=256, H=256):
+    """K3, K1 and K2 at an encoder layer's shapes (B = 64, L = 80; EnvDrop's
+    D = H = 256 by default), both directions, over the token lengths
+    ``lengths``."""
     k = modules()["lstm_scan"]
     B = lengths.shape[0]
-    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B)
+    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B, D=D, H=H)
     L, D, H = xs.shape[1], xs.shape[2], w_hh.shape[0]
     valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
     d_out = torch.randn(B, L, H, generator=gen, device=device)
@@ -470,7 +500,7 @@ def lstm_bounds(xs, lengths, w_ih, w_hh, b):
             "lstm_scan_bwd": bound_ms(bwd_bytes, bwd_flops, xs.dtype), "valid_steps": steps}
 
 
-def lstm_ragged(dtype, device, gen, B=61, L=80):
+def lstm_ragged(dtype, device, gen, B=61, L=80, D=256, H=256):
     """K3, K1 and K2 at B = 61 (a short last cluster of 5 rows) over
     ragged lengths 0..L, one row of length 0 and one of L, both
     directions, against their plain versions (the tolerances of
@@ -478,7 +508,7 @@ def lstm_ragged(dtype, device, gen, B=61, L=80):
     k = modules()["lstm_scan"]
     lengths = torch.randint(0, L + 1, (B,), generator=gen, device=device)
     lengths[0], lengths[-1] = 0, L
-    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B, L)
+    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B, L, D, H)
     H = w_hh.shape[0]
     valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
     d_out = torch.randn(B, L, H, generator=gen, device=device)
@@ -486,8 +516,8 @@ def lstm_ragged(dtype, device, gen, B=61, L=80):
     res = {"lstm_scan": {}, "lstm_scan_train": {}, "lstm_scan_bwd": {}}
 
     def put(name, part, e):
-        check(e[0] <= e[1], f"{name} {dtype} at B = {B}: {part} |kernel - plain| {e[0]:.3g} "
-                            f"> {e[1]:.3g}")
+        check(e[0] <= e[1], f"{name} {dtype} D={D} H={H} at B = {B}: {part} |kernel - plain| "
+                            f"{e[0]:.3g} > {e[1]:.3g}")
         old = res[name].get(part, {"max_abs_err": 0.0, "tol": e[1]})
         res[name][part] = max(old, {"max_abs_err": e[0], "tol": e[1]},
                               key=lambda x: x["max_abs_err"] - x["tol"])
@@ -750,7 +780,14 @@ def kernel_phases(world, lengths, device):
                              lstm_phases(dtype, device, gen, long)):
             r["long"] = r_long
             r["ragged"] = {"B": 61, "lengths": "0-80, a 0 and an 80", **ragged[r["name"]]}
+            r["agent_shapes"] = {}
             results[(r["name"], prec)] = r
+        for label, (D, H) in AGENT_LSTM_SHAPES.items():
+            ragged = lstm_ragged(dtype, device, gen, D=D, H=H)
+            for r in lstm_phases(dtype, device, gen, long, D=D, H=H):
+                r["ragged"] = {"B": 61, "lengths": "0-80, a 0 and an 80", **ragged[r["name"]]}
+                r["shape"] = {"D": D, "H": H}
+                results[(r["name"], prec)]["agent_shapes"][label] = r
         by_mode = obs_phases(dtype, device, gen, features)
         for i, r in enumerate(by_mode["prng"]):
             r = dict(r)
@@ -792,12 +829,14 @@ def kernel_phases(world, lengths, device):
             f"Din={rg['Din']} H={rg['H']} {rg['max_abs_err']:.3g} (tol {rg['tol']:.3g}) | "
             f"{times_label(r)}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
         for name in ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"):
-            for r in (results[(name, prec)], results[(name, prec)]["long"]):
+            base = results[(name, prec)]
+            for r in (base, base["long"], *base["agent_shapes"].values()):
                 b_ms, b_by = r["bound"]
                 errs = ", ".join(f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
                                  for part, c in r["checks"].items())
-                log(f"{name:16s} {prec:4s} lengths {r['lengths']}: max|kernel-plain| {errs} | "
-                    f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by}, "
+                shape = r.get("shape", {"D": 256, "H": 256})
+                log(f"{name:16s} {prec:4s} D={shape['D']} H={shape['H']} lengths {r['lengths']}: "
+                    f"max|kernel-plain| {errs} | {times_label(r)}, bound {b_ms:.4f} ms ({b_by}, "
                     f"{r['valid_steps']} valid steps)")
                 log(f"{'':16s} {prec:4s} device ms a call by kernel: " + ", ".join(
                     f"{k} {ms:.4f} ({n:g}x)" for k, (ms, n) in r["device_split"].items()))
@@ -807,13 +846,15 @@ def kernel_phases(world, lengths, device):
                 for part, c in r["checks"].items():
                     check(c["max_abs_err"] <= c["tol"],
                           f"{name} {prec} {part} agrees with its plain version")
-            rg = results[(name, prec)]["ragged"]
-            log(f"{name:16s} {prec:4s} at B={rg['B']}, lengths {rg['lengths']}: max|kernel-plain| "
-                + ", ".join(f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
-                            for part, c in rg.items() if isinstance(c, dict)))
+            for label, r in (("EnvDrop", base), *base["agent_shapes"].items()):
+                rg = r["ragged"]
+                log(f"{name:16s} {prec:4s} {label} at B={rg['B']}, lengths {rg['lengths']}: "
+                    "max|kernel-plain| " + ", ".join(
+                        f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
+                        for part, c in rg.items() if isinstance(c, dict)))
         torch.cuda.synchronize()
     for r in results.values():
-        for x in (r, r.get("long", {})):
+        for x in (r, r.get("long", {}), *r.get("agent_shapes", {}).values()):
             if "bound" in x:
                 x["bound_ms"], x["bound_by"] = x.pop("bound")
     return results
@@ -1361,6 +1402,288 @@ def curriculum_phase(world, data, tok, params0, device):
 
 
 # ---------------------------------------------------------------------------
+# Agents phase: the Follower and the Self-Monitor
+# ---------------------------------------------------------------------------
+
+def agent_launches(name, serve):
+    """The exact launches of one serve call or one training iteration of
+    the Follower or the Self-Monitor at T = AGENT.MAX_EPISODE_LEN steps:
+    the Follower's 2-layer BiLSTM encoder runs K3 (serve) or K1 and K2
+    (train) once per layer and direction, its observation op K4 (and K5
+    under autograd) once a step; the Self-Monitor's 1-layer LSTM runs one
+    K3 or K1 + K2, and K4 once a step on a query that carries no gradient,
+    so no K5.  No path of either runs K6, K7 or K8."""
+    enc = 4 if name == "FOLLOWER" else 1
+    want = dict.fromkeys(KERNELS, 0)
+    if serve:
+        want.update(lstm_scan=enc, pano_attend=AGENT_T)
+    else:
+        want.update(lstm_scan_train=enc, lstm_scan_bwd=enc, pano_attend=AGENT_T,
+                    pano_attend_bwd=AGENT_T if name == "FOLLOWER" else 0)
+    return want
+
+
+# leaves whose gradient is 0 but for f32 rounding: the Follower's b_v (the
+# reparameterised query leaves it out) and ActionScoring's b_act and output
+# bias (each adds one constant to every candidate's score); the
+# Self-Monitor's BN-MLP input bias and first-layer bias (a BatchNorm takes
+# out the shift)
+ZERO_GRAD = {
+    "FOLLOWER": {("decoder", "visual_attn", "linear_in_v", "b"),
+                 ("decoder", "decode_action", "linear_act", "b"),
+                 ("decoder", "decode_action", "linear_out", "b")},
+    "SELF-MONITOR": {("decoder", "proj_navigable_mlp", "bn_in", "bias"),
+                     ("decoder", "proj_navigable_mlp", "layers", 0, "b")},
+}
+
+
+def leaf_paths(tree, prefix=()):
+    """The key path of every leaf, in ``utils.tree.tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, prefix + (i,))]
+    return [] if tree is None else [prefix]
+
+
+def agent_cfg(config, *extra):
+    from curriculum_learning_for_vln_torch.utils.config import get_cfg_defaults
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(config)
+    cfg.merge_from_list(list(extra))
+    check(cfg.AGENT.MAX_EPISODE_LEN == AGENT_T, f"{config} ships T = {AGENT_T}")
+    return cfg
+
+
+def agent_phase(name, config, cl_config, world, data, requests, tok, device, card):
+    """(a) serve, (b) one training iteration through the kernels against
+    the plain versions, (c) timed classic iterations, (d) one SPCL-weighted
+    iteration on the _cl_ config, for one agent at the full width of its
+    config, bf16, B = 64, T = 10, seeded random weights."""
+    from curriculum_learning_for_vln_torch.agents import build_agent, init_agent
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine import curriculum, loop
+    from curriculum_learning_for_vln_torch.engine.trainer import packed_factor
+    from curriculum_learning_for_vln_torch.env.host_env import CLR2RBatchEnv, R2RBatchEnv
+    from curriculum_learning_for_vln_torch.serve import Navigator
+    from curriculum_learning_for_vln_torch.utils import tree
+
+    cfg = agent_cfg(config)
+    precision = cfg.TPU.PRECISION
+    agent = build_agent(cfg, tok.vocab_size(), FEAT_DIM)
+    check(agent.name == name, f"{config} builds {name}")
+    params0, state0 = init_agent(agent, torch.Generator().manual_seed(SEED))
+    m = agent.cfg
+    out = {"config": config, "precision": precision,
+           "parameters": sum(p.numel() for p in tree.tree_leaves(params0))}
+    log(f"{name}: {config}, {precision}, B={BATCH}, T={AGENT_T}, E={m.WORD_EMB_SIZE}, "
+        f"H={m.HIDDEN_SIZE}, encoder {m.ENC_LAYERS} layer(s) bidirectional={m.ENC_BIDIRECTION}, "
+        f"{out['parameters']} parameters")
+
+    # (a) serve
+    nav = Navigator(world, agent, params0, tok, max_batch=BATCH, precision=precision,
+                    device=device, model_state=state0)
+    batches = [requests[i:i + BATCH] for i in range(0, len(requests), BATCH)]
+    nav.navigate_batch(batches[0])
+    torch.cuda.synchronize()
+    lat, outs = [], []
+    for r in range(SERVE_ROUNDS):
+        for reqs in batches:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            o = nav.navigate_batch(reqs)
+            lat.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            check(counts == agent_launches(name, True),
+                  f"{name} serve launches {counts}, expected {agent_launches(name, True)}")
+            if r == 0:
+                outs += o
+    check_trajectories(world, requests, outs, AGENT_T)
+    ep = nav.episodes(batches[0])
+    res_k = nav.rollout(ep)
+    with plain_kernels():
+        res_p = nav.rollout(ep)
+    l_k, l_p = res_k.steps.logits[0].float(), res_p.steps.logits[0].float()
+    live = l_p > -1e29
+    check(bool(torch.equal(live, l_k > -1e29)), f"{name}: the same candidate slots are masked")
+    scale = float(l_p[live].abs().max())
+    err = float((l_k - l_p)[live].abs().max())
+    # f32 encoder and observation outputs summed in another order, then bf16
+    # weights downstream: well inside a bf16 ulp (2^-8) of the logits' scale
+    check(err <= 1e-3 * max(scale, 1.0), f"{name}: first-step logits |kernel - plain| {err:.3g} "
+                                         f"of scale {scale:.3g}")
+    moves = sum(len(o["trajectory"]) - 1 for o in outs)
+    med = statistics.median(lat)
+    out["serve"] = {"calls": len(lat), "latency_ms": [t * 1e3 for t in lat],
+                    "median_ms": med * 1e3, "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3,
+                    "launches_per_call": agent_launches(name, True),
+                    "first_step_logit_err": err, "logit_scale": scale, "moves": moves}
+    log(f"{name} (a) serve: {len(lat)} calls of {BATCH} requests, latency median "
+        f"{med * 1e3:.2f} ms (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
+        f"{BATCH / med:.1f} requests/s; launches a call exact {agent_launches(name, True)}; "
+        f"first-step logits |kernel - plain| {err:.3g} of scale {scale:.3g}; {moves} moves | "
+        f"{card}")
+    wall, busy, rows = profile(lambda: nav.navigate_batch(batches[0]))
+    out["serve"]["busy"] = (wall, busy)
+    print_profile(f"one {name} serve call", wall, busy, rows)
+    del nav
+
+    # (b) one training iteration, kernels vs plain, from the same parameters,
+    # batch and generator seed (sample feedback, dropout on, as configured)
+    tables = world.device_tables(precision, device)
+    env = R2RBatchEnv(world, expand_r2r_items(data, tok), BATCH, tok, seed=SEED, device=device)
+    params = tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0)
+    state = tree.tree_map(lambda t: t.to(device), state0)
+    leaves = tree.tree_leaves(params)
+    batch = env.next_batch()
+    lamb = cfg.TRAIN.PROGMONITOR_WEIGHT
+
+    def grads():
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        total, logs, new_state = loop.agent_iteration_loss(
+            agent, cfg.AGENT.FEEDBACK, tables, params, state, batch, gen, lamb=lamb)
+        for p in leaves:
+            p.grad = None
+        total.backward()
+        # a leaf outside the graph (the Follower's b_v: the reparameterised
+        # query leaves it out, its true gradient is 0) has no gradient
+        return (total.item(), [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                               for p in leaves], tree.tree_leaves(new_state))
+
+    reset_launch_counts()
+    loss_k, g_k, s_k = grads()
+    counts = launch_counts()
+    check(counts == agent_launches(name, False),
+          f"{name} train launches {counts}, expected {agent_launches(name, False)}")
+    with plain_kernels():
+        loss_p, g_p, s_p = grads()
+    loss_err = abs(loss_k - loss_p)
+    check(loss_err <= 1e-4 * max(1.0, abs(loss_p)), f"{name} loss kernels {loss_k} plain {loss_p}")
+    grad_err, top = 0.0, max(float(g.abs().max()) for g in g_p)
+    for path, gk, gp in zip(leaf_paths(params), g_k, g_p):
+        if path in ZERO_GRAD[name]:
+            # a shift every score of a softmax (or every row of a BatchNorm)
+            # takes out: its gradient is 0 up to f32 rounding in both runs
+            e = max(float(gk.abs().max()), float(gp.abs().max()))
+            check(e <= 1e-3 * top, f"{name}: the gradient of {'/'.join(map(str, path))} "
+                                   f"{e:.3g} is not 0 against the largest, {top:.3g}")
+            continue
+        sc = max(float(gp.abs().max()), 1e-6)
+        e = float((gk - gp).abs().max())
+        grad_err = max(grad_err, e / sc)
+        check(e <= 1e-2 * sc, f"{name}: the gradient leaf {'/'.join(map(str, path))}: "
+                              f"|kernel - plain| {e:.3g} > {1e-2 * sc:.3g}")
+    bn_err = 0.0
+    for a, b in zip(s_k, s_p):  # the Self-Monitor's BN running statistics
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+        bn_err = max(bn_err, e)
+        check(e <= 1e-3, f"{name}: BN running statistics |kernel - plain| {e:.3g}")
+    out["check"] = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_err": loss_err,
+                    "grad_rel_err": grad_err, "bn_rel_err": bn_err if s_k else None,
+                    "leaves": len(leaves)}
+    log(f"{name} (b): {cfg.AGENT.FEEDBACK} iteration, loss kernels {loss_k:.6f} plain "
+        f"{loss_p:.6f} (|diff| {loss_err:.3g}); worst gradient leaf |kernel - plain| / max|plain| "
+        f"{grad_err:.3g} (tol 1e-2) over {len(leaves) - len(ZERO_GRAD[name])} leaves, "
+        f"{len(ZERO_GRAD[name])} more 0 up to rounding"
+        + (f"; BN statistics {bn_err:.3g} (tol 1e-3) over {len(s_k)} leaves" if s_k else ""))
+    for p in leaves:
+        p.grad = None
+
+    # (c) timed classic iterations: sample feedback, the config's optimizer
+    optimizer = loop.make_optimizer(cfg.TRAIN.OPTIM, cfg.TRAIN.LR, params)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    before = [p.detach().clone() for p in leaves]
+    box = {"state": state}
+
+    def iterate():
+        logs, box["state"] = loop.agent_one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables,
+                                                 params, box["state"], env.next_batch(), gen,
+                                                 lamb=lamb)
+        return logs
+
+    iterate()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for _ in range(TRAIN_ITERS):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(iterate()["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        counts = launch_counts()
+        check(counts == agent_launches(name, False),
+              f"{name} timed iteration launches {counts}, expected {agent_launches(name, False)}")
+    check(all(x == x and abs(x) < float("inf") for x in losses), f"{name}: finite losses {losses}")
+    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, leaves))
+    med = statistics.median(times)
+    wall, busy, rows = profile(iterate)
+    out["train"] = {"ms": [t * 1e3 for t in times], "median_ms": med * 1e3,
+                    "launches_per_iteration": agent_launches(name, False), "busy": (wall, busy),
+                    "losses": losses, "leaves_moved": moved}
+    log(f"{name} (c): {TRAIN_ITERS} timed {cfg.AGENT.FEEDBACK} iterations ({cfg.TRAIN.OPTIM}), ms "
+        f"per iteration median {med * 1e3:.2f} (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}); launches an iteration exact {agent_launches(name, False)}; "
+        f"losses {[round(x, 4) for x in losses]}; {moved}/{len(leaves)} leaves moved; device busy "
+        f"{100 * busy / wall:.1f}% under the profiler | {card}")
+    print_profile(f"one {name} training iteration", wall, busy, rows)
+
+    # (d) one SPCL-weighted iteration on the _cl_ config as shipped
+    ccfg = agent_cfg(cl_config, "TPU.PACKED_RL", 3)
+    check(ccfg.TRAIN.CLMODE == "SELF-PACE", f"{cl_config} ships SELF-PACE")
+    train = sorted(data[:SERVE_CALLS * BATCH], key=lambda it: it["distance"])
+    per = len(train) // 5
+    rounds = {f"round_{k}": expand_r2r_items(train[(k - 1) * per: k * per if k < 5 else None],
+                                             tok) for k in range(1, 6)}
+    spcl_env = CLR2RBatchEnv(world, rounds, BATCH, ccfg.TRAIN.SELF_PACE.CRATE, tok, SEED,
+                             device=device)
+    spcl = curriculum.SelfPacedCurriculum.from_config(ccfg, spcl_env, device=device)
+    check(packed_factor(ccfg, agent, spcl) == 0, f"PACKED_RL is ignored for {name}")
+    b = spcl_env.next_batch()
+    idx = spcl_env.cur_batch_index
+    w = spcl.batch_weights(idx)
+    check(bool((w != w[0]).any()), "the SPCL weights differ across the batch")
+    logs, box["state"] = loop.agent_one_iter(agent, optimizer, ccfg.AGENT.FEEDBACK, tables, params,
+                                             box["state"], b, gen, weights=w,
+                                             lamb=ccfg.TRAIN.PROGMONITOR_WEIGHT)
+    spcl.record_losses(idx, logs["loss_per_sample"])
+    vec, w_np = logs["loss_per_sample"].cpu().numpy(), w.cpu().numpy()
+    ref = float(np.dot(w_np.astype(np.float64), vec) / w_np.astype(np.float64).sum())
+    spcl_err = abs(float(logs["loss"]) - ref)
+    check(spcl_err <= 1e-5 * max(1.0, abs(ref)), f"{name} SPCL loss {float(logs['loss'])} vs "
+                                                 f"numpy {ref}")
+    recorded = spcl.loss_for_item[spcl._rows(idx)].cpu().numpy()
+    check(np.array_equal(recorded, vec.astype(np.float32)),
+          "the SPCL record is the unscaled per-sample vector")
+    out["spcl"] = {"loss": float(logs["loss"]), "numpy": ref, "err": spcl_err,
+                   "weights": [float(w_np.min()), float(w_np.max())]}
+    log(f"{name} (d): SPCL-weighted iteration on {cl_config} (PACKED_RL 3 ignored): loss "
+        f"{float(logs['loss']):.6f} = dot(w, ml_vec) / sum(w) in numpy {ref:.6f} (|diff| "
+        f"{spcl_err:.3g}); weights {w_np.min():.3g}..{w_np.max():.3g}; record unscaled")
+    return out
+
+
+def agents_phase(world, data, requests, tok, device, card):
+    """The Follower and the Self-Monitor, then (e) ``check_the_code``."""
+    from curriculum_learning_for_vln_torch.engine.trainer import check_the_code
+
+    out = {}
+    for name, (config, cl_config) in AGENT_CONFIGS.items():
+        out[name] = agent_phase(name, config, cl_config, world, data, requests, tok, device, card)
+    _, _, _, valid = curriculum_setup(world, data, tok, device)
+    summary = check_the_code(agent_cfg(AGENT_CONFIGS["FOLLOWER"][0]),
+                             world.device_tables("bf16", device), valid)
+    check(summary["success_rate"] == 1.0 and summary["nav_error"] == 0.0,
+          f"check_the_code: SR {summary['success_rate']}, NE {summary['nav_error']}")
+    out["check_the_code"] = {"val_unseen": summary}
+    log(f"agents (e): check_the_code on the synthetic val_unseen split: SR "
+        f"{summary['success_rate']}, nav error {summary['nav_error']}, "
+        f"{valid['val_unseen'].size()} episodes")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1431,6 +1754,15 @@ def main() -> int:
         f"{CURRICULUM_ITERS - 2}), {pk['episodes_per_s']:.1f} completed episodes/s, device busy "
         f"{100 * pb / pw:.1f}% under the profiler | {card}")
 
+    agents = agents_phase(world, data, requests, tok, device, card)
+    for name in AGENT_CONFIGS:
+        a = agents[name]
+        sw, sb = a["serve"]["busy"]
+        tw, tb = a["train"]["busy"]
+        log(f"agents {name}: serve {a['serve']['median_ms']:.2f} ms a call of {BATCH} (device busy "
+            f"{100 * sb / sw:.1f}%), train {a['train']['median_ms']:.2f} ms an iteration (device "
+            f"busy {100 * tb / tw:.1f}%) | {card}")
+
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
@@ -1456,6 +1788,10 @@ def main() -> int:
             "dtype": precision, "library_call": r["library_call"], "check": "ok",
             "main_path": path, "serve_launches": serve_counts[name],
             "classic_train_launches": train["launches"][name],
+            **{f"{a.lower().replace('-', '_')}_launches": {
+                "serve_call": agents[a]["serve"]["launches_per_call"][name],
+                "train_iteration": agents[a]["train"]["launches_per_iteration"][name]}
+               for a in AGENT_CONFIGS},
             "f32": {k: r32[k] for k in ("max_abs_err", *TIME_KEYS, "bound_ms", "bound_by")},
         }
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
@@ -1466,6 +1802,12 @@ def main() -> int:
             entry["f32"].update(checks=r32["checks"], device_split=r32["device_split"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
+            # the Follower's and the Self-Monitor's encoder layers
+            entry["agent_shapes"] = {
+                label: {prec: {k: x["agent_shapes"][label][k]
+                               for k in ("shape", *keys, "max_abs_err", "ragged")}
+                        for prec, x in ((precision, r), ("f32", r32))}
+                for label in AGENT_LSTM_SHAPES}
         else:
             entry["tol"] = r["tol"]
         if "ragged" in r:  # K4-K7 at a short prng_shared group, K8 at ragged edges

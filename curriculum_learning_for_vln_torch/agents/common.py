@@ -5,7 +5,8 @@ JAX package runs an episode as one ``lax.scan``; here ``rollout_scan`` is
 a Python loop over a fixed ``episode_len`` that calls a model-specific
 step function and does the rest itself — observation metadata, action
 selection, stop conversion, reward shaping and the per-step records
-(per-sample CE against the teacher included).  Ended episodes are frozen
+(per-sample CE against the teacher and the progress monitor's prediction
+included).  Ended episodes are frozen
 by the env semantics and masked in the records; the early exit once
 every episode has ended is not ported yet.
 
@@ -52,6 +53,7 @@ class StepRecord(NamedTuple):
     dist_after: torch.Tensor     # [T, B] distance-to-goal after the action
     teacher: torch.Tensor        # [T, B] teacher action index (IGNORE when ended)
     action: torch.Tensor         # [T, B] chosen action index
+    progress: torch.Tensor       # [T, B] progress-monitor prediction (0 if n/a)
 
 
 class RolloutResult(NamedTuple):
@@ -66,6 +68,22 @@ def cast_compute_params(params, compute_dtype):
     """Compute copies of the float leaves of a parameter tree (bf16 halves
     the weight bytes every step reads); integer leaves and None stay."""
     return tree_map(lambda t: t.to(compute_dtype) if t.is_floating_point() else t, params)
+
+
+def check_dtype(world: WorldTables, compute_dtype: torch.dtype) -> None:
+    """The observation kernels read the feature table in the agent's compute
+    dtype; the JAX package silently drops its fused path on a mismatch."""
+    if world.features.dtype != compute_dtype:
+        raise ValueError(f"feature table dtype {world.features.dtype} differs from the "
+                         f"compute dtype {compute_dtype}")
+
+
+def chosen_feature(cand_feat: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """a_t_prev: the chosen candidate's feature row of cand_feat [B, K, F]
+    (the STOP slot's zeros; an ignored action reads slot 0), as
+    common.py:302-307 gathers it."""
+    a = action.clamp(0, cand_feat.shape[1] - 1)
+    return cand_feat.gather(1, a[:, None, None].expand(-1, 1, cand_feat.shape[2]))[:, 0]
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -107,24 +125,32 @@ def shaped_reward(is_stop: torch.Tensor, dist_before: torch.Tensor, dist_after: 
 
 
 # Model step callback:
-#   model_step(model_carry, meta, env_state, t) -> (logits, new_carry, hidden)
+#   model_step(model_carry, meta, env_state, t) -> (logits, new_carry, hidden, progress)
+#   (progress [B] of a progress monitor, or None: recorded as zeros)
+# Optional post-action callback (e.g. the a_t_prev feature update):
+#   model_post(model_carry, meta, action) -> model_carry
 ModelStepFn = Callable
 
 
 def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
                  model_step: ModelStepFn, episode_len: int, feedback: int,
                  compute_dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None) -> RolloutResult:
-    """Run ``episode_len`` decoder steps over the batch."""
+                 generator: Optional[torch.Generator] = None,
+                 model_post: Optional[Callable] = None) -> RolloutResult:
+    """Run ``episode_len`` decoder steps over the batch; ``model_post``
+    updates the carry from the chosen action before the env steps
+    (common.py:208-210)."""
     state = state0 = E.reset(world, ep)
     mc = model_carry0
     records = []
     for t in range(episode_len):
         meta = E.observe_meta(world, state, compute_dtype)
-        logits, mc, hidden = model_step(mc, meta, state, t)
+        logits, mc, hidden, progress = model_step(mc, meta, state, t)
         masked = torch.where(meta.cand_mask, NEG_INF, logits)
         action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
         ce = cross_entropy_per_sample(masked, meta.teacher, E.IGNORE_ID)
+        if model_post is not None:
+            mc = model_post(mc, meta, action)
 
         alive_before = torch.logical_not(state.ended)
         is_stop = E.action_is_stop(world, state, action)
@@ -145,11 +171,19 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
             dist_after=dist_after,
             teacher=meta.teacher,
             action=action,
+            progress=(torch.zeros_like(meta.dist) if progress is None else progress),
         ))
         state = new_state
     steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
     return RolloutResult(final_state=state, start_node=state0.node, start_view=state0.view_idx,
                          steps=steps, model_carry=mc)
+
+
+def ml_loss_mean_over_alive(steps: StepRecord) -> torch.Tensor:
+    """The reference's CrossEntropyLoss(reduction='mean', ignore_index)
+    summed over time (common.py:295-299): per step, the mean over the
+    non-ignored samples (0 when there are none)."""
+    return (steps.ce.sum(dim=1) / steps.ce_count.clamp_min(1).float()).sum()
 
 
 def ml_loss_per_sample(steps: StepRecord) -> torch.Tensor:

@@ -127,12 +127,6 @@ class EnvDropAgent:
 
         return decode
 
-    def _check_dtype(self, world: WorldTables) -> None:
-        if world.features.dtype != self.compute_dtype:
-            # the JAX package silently drops its fused path on this mismatch
-            raise ValueError(f"feature table dtype {world.features.dtype} differs from the "
-                             f"compute dtype {self.compute_dtype}")
-
     def rollout_packed(self, params: dict, world: WorldTables, pool: EpisodeBatch,
                        batch_size: int, episode_len: Optional[int] = None,
                        generator: Optional[torch.Generator] = None
@@ -142,7 +136,7 @@ class EnvDropAgent:
         pool encoded once, the shared ``decode`` per step, the critic on a
         last decode step, and ``packed_a2c``.  With N == B it computes the
         unpacked ``rollout(train_rl=True)`` A2C loss."""
-        self._check_dtype(world)
+        C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask_pool = pool.instr_tokens == PAD_IDX
@@ -168,15 +162,17 @@ class EnvDropAgent:
     def rollout(self, params: dict, world: WorldTables, ep: EpisodeBatch, feedback: int,
                 train: bool = False, train_ml: bool = True, train_rl: bool = False,
                 episode_len: Optional[int] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                model_state: Optional[dict] = None
                 ) -> Tuple[EnvDropLosses, C.RolloutResult]:
         """One batched episode rollout.  Returns (losses, result); the A2C
         terms are computed with sample feedback and ``train_rl``.
         ``generator`` (on the device of the tables) draws the dropout masks
-        and the sampled actions."""
+        and the sampled actions.  EnvDrop has no model state: callers that
+        serve any agent may pass one, and it is not read."""
         if feedback != C.FEEDBACK_SAMPLE:
             train_rl = False  # (ref: envdrop.py:100)
-        self._check_dtype(world)
+        C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask = ep.instr_tokens == PAD_IDX
@@ -186,7 +182,7 @@ class EnvDropAgent:
         decode = self._decode(params["decoder"], world, train, generator)
 
         def model_step(mc, meta, state, t):
-            return decode(mc, ctx, ctx_mask, meta, state)
+            return (*decode(mc, ctx, ctx_mask, meta, state), None)
 
         # h_tilde starts as the encoder's h (ref: envdrop.py:150)
         result = C.rollout_scan(world, ep, (h0, c0, h0), model_step,

@@ -96,6 +96,10 @@
 // slice, one cell update and one exchange within the cluster, on 64 of
 // the card's 132 SMs at B = 64.  Both walks keep W_hh in registers and
 // exchange by st.async; their input GEMMs visit the valid steps only.
+// Above H = 256 (the Self-Monitor's encoder, H = 512) a block's slice no
+// longer fits: the wide walks below stream it from L2 every step, so a
+// step costs the time to bring 256 KB (bf16) or 512 KB (f32) into each of
+// the 64 blocks, several times a step of the walks above.
 //
 // Semantics (lstm_scan.py:63-67, 264-286): step l reads t = L-1-l when
 // reversed; a row with t >= len keeps its carry and outputs 0; gate order
@@ -712,10 +716,272 @@ recurrence_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide walks, for 256 < H <= 512 (the Self-Monitor's encoder: H = 512).
+//    A block's eighth of W_hh is then 256 gate columns x 512 rows: 512 KB in
+//    f32, 256 KB in bf16, more than its shared memory and, as fragments, far
+//    more than its registers.  So the wide walks keep the cluster-of-8
+//    layout, the split-TF32 products and the st.async exchange of the
+//    walks above, and stream the block's slice from device memory every
+//    step (it stays in the 50 MB L2: all of W_hh is 4 MB in f32).
+//    pack_whh_kernel first lays W_hh out in the walks' fragment order, so
+//    that each lane's fragment of a k-step is one 16-byte (f32) or 8-byte
+//    (bf16) load; each warp then streams its own fragments through a ring
+//    of WSTAGES groups in shared memory by cp.async, WSTAGES - 1 groups in
+//    flight while it multiplies one, and reads back only what it copied
+//    (no barrier for the ring).  The fragments' order does not depend on the
+//    step, so the ring runs on across steps: the first groups of step l + 1
+//    are in flight while step l ends and its h travels.  Blocks of WT = 512
+//    threads: in the forward one warp an m-tile (16 gate columns, as above),
+//    in the backward one thread a (row, unit) cell and two m-tiles a warp.
+//    The per-step inputs that do not depend on the carries (gx; the saved
+//    gates, c_prev and d_out) are loaded into registers a step ahead.
+// ---------------------------------------------------------------------------
+constexpr int WT = 512;      // threads of a wide walk's block
+constexpr int WW = WT / 32;  // its warps
+constexpr int WFQ = 4;       // k-steps of a forward group (one m-tile)
+constexpr int WBQ = 2;       // k-steps of a backward group (two m-tiles)
+constexpr int WSTAGES = 4;   // groups in a warp's ring
+
+// W_hh in the wide walks' fragment order: element e of lane l's A fragment of
+// k-step ks of m-tile mt of block `rank` at (((rank MT + mt) KS + ks) 32 + l)
+// 4 + e.  Forward (bwd = 0): A[c][k'] = W_hh[k'][column c], MT = U / 4 tiles
+// whose row 4u + g is gate g of unit rank U + 4 mt + u (recurrence_kernel's
+// order), KS = H / 8.  Backward: A[k'][c] = W_hh[k'][column c] over the
+// block's G4 columns, gate-major (bwd_recurrence_kernel's), MT = H / 16, KS
+// = G4 / 8.
+template <typename T>
+__global__ void __launch_bounds__(256)
+pack_whh_kernel(const T* __restrict__ w, T* __restrict__ out, int H, int bwd) {
+  const int U = H / CL, H4 = 4 * H;
+  const int MT = bwd ? H / 16 : U / 4, KS = bwd ? U / 2 : H / 8;
+  const int n = CL * MT * KS * 32;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int lane = i & 31, f = i >> 5, ks = f % KS, mt = (f / KS) % MT, rank = f / KS / MT;
+    const int g8 = lane >> 2, q4 = lane & 3;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = g8 + 8 * (e & 1), kk = ks * 8 + q4 + 4 * (e >> 1);  // A[m][kk] of the tile
+      const int row = bwd ? mt * 16 + m : kk;
+      const int col = bwd ? (kk / U) * H + rank * U + kk % U
+                          : (m & 3) * H + rank * U + 4 * mt + (m >> 2);
+      out[(size_t)i * 4 + e] = w[(size_t)row * H4 + col];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t pack_whh(const void* w_hh, void* wpack, int H, int bwd, cudaStream_t stream) {
+  const int n = H * H;  // fragments: CL MT KS 32, either way
+  pack_whh_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(static_cast<const T*>(w_hh),
+                                                          static_cast<T*>(wpack), H, bwd);
+  return cudaGetLastError();
+}
+
+// A packed fragment (4 elements of T) as TF32 halves: f32 split, bf16 exact.
+template <typename T>
+__device__ __forceinline__ void load_frag(const unsigned char* p, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    tf32_split<true>(v.x, hi[0], lo[0]);
+    tf32_split<true>(v.y, hi[1], lo[1]);
+    tf32_split<true>(v.z, hi[2], lo[2]);
+    tf32_split<true>(v.w, hi[3], lo[3]);
+  } else {  // element e's bf16 bits are the high half of its f32 bits
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    hi[0] = v.x << 16, hi[1] = v.x & 0xffff0000u, hi[2] = v.y << 16, hi[3] = v.y & 0xffff0000u;
+    lo[0] = lo[1] = lo[2] = lo[3] = 0u;
+  }
+}
+
+__host__ __device__ constexpr size_t wide_fwd_smem(int H, int elem) {
+  return (size_t)WW * WSTAGES * WFQ * 32 * 4 * elem + (size_t)2 * H * R * 4 +
+         (size_t)WW * R * GT_S * 4 + (size_t)2 * R * (H / CL) * 4 + 2 * 8;
+}
+
+// Forward 2, wide.  recurrence_kernel's layout and arithmetic (warp w the
+// m-tile of units rank U + 4w .. + 3, lane l the cell of row l % 8 and unit
+// rank U + 4w + l / 8), its W_hh fragments streamed from wpack.  Shared
+// memory: the warps' rings [WW][WSTAGES][WFQ][32] fragments, h_s [2][H][R],
+// gt_s [WW][R][GT_S], hc_s [2][R][U], full [2].
+template <typename T>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(WT)
+recurrence_wide_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
+                       const T* __restrict__ wpack, float* __restrict__ outs,
+                       float* __restrict__ hT, float* __restrict__ cT, float* __restrict__ hprev,
+                       float* __restrict__ cprev, int B, int L, int H, int reverse) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int FB = 4 * sizeof(T);  // bytes of a lane's fragment
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / CL) * R;
+  const int U = H / CL, H4 = 4 * H, KS = H / 8, NG = KS / WFQ, MT = U / 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+  const bool train = hprev != nullptr, active = warp < MT;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* wring = smem_raw + (size_t)warp * WSTAGES * WFQ * 32 * FB;
+  float* h_s = reinterpret_cast<float*>(smem_raw + (size_t)WW * WSTAGES * WFQ * 32 * FB);
+  float* gt_s = h_s + 2 * H * R;
+  float* hc_s = gt_s + WW * R * GT_S;
+  uint64_t* full = reinterpret_cast<uint64_t*>(hc_s + 2 * R * U);
+  const uint32_t step_bytes = H * R * 4;
+
+  auto row_len = [&](int row) {
+    const int64_t n = row < B ? lengths[row] : 0;
+    return n < 0 ? 0 : n > L ? L : (int)n;
+  };
+  int maxlen = 0;
+  for (int r = 0; r < R; ++r) maxlen = max(maxlen, row_len(row0 + r));
+  const int cr = lane & 7, cu = lane >> 3, k = rank * U + 4 * warp + cu, crow = row0 + cr;
+  const int clen = row_len(crow);
+
+  // group j: k-steps (j % NG) WFQ .. of this warp's m-tile, into ring slot j % WSTAGES
+  const T* wp = wpack + (size_t)(rank * MT + min(warp, MT - 1)) * KS * 32 * 4;
+  auto load_group = [&](int j) {
+    if (active) {
+      const int ks0 = (j % NG) * WFQ;
+      unsigned char* dst = wring + (size_t)(j % WSTAGES) * WFQ * 32 * FB;
+#pragma unroll
+      for (int kq = 0; kq < WFQ; ++kq)
+        cp_async_n<FB>(dst + (kq * 32 + lane) * FB, wp + ((size_t)(ks0 + kq) * 32 + lane) * 4,
+                       true);
+    }
+    cp_async_commit();
+  };
+  // gx of this lane's cell at step l (valid steps only)
+  auto gx_at = [&](int l, float (&v)[4]) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    if (active && l < maxlen && t < clen) {
+      const float* p = gx + ((size_t)crow * L + t) * H4 + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] = p[g * H];
+    }
+  };
+
+  for (int i = tid; i < H * R; i += WT) h_s[i] = 0.f;  // h before the first step
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) mbar_init(smem_u32(&full[b]));
+    if (1 < maxlen) mbar_expect_tx(smem_u32(&full[1]), step_bytes);  // step 1's h
+    if (2 < maxlen) mbar_expect_tx(smem_u32(&full[0]), step_bytes);  // step 2's h
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = 0; j < WSTAGES - 1; ++j) load_group(j);
+  cluster.sync();  // every block of the cluster is running and initialised
+
+  float h = 0.f, c = 0.f, xg[4] = {0.f, 0.f, 0.f, 0.f};
+  gx_at(0, xg);
+  for (int l = 0; active && l < maxlen; ++l) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    const float* h_cur = h_s + (l & 1) * H * R;
+    float xn[4] = {0.f, 0.f, 0.f, 0.f};
+    gx_at(l + 1, xn);  // the next step's, in flight during this one
+    if (l > 0) {
+      mbar_wait_cluster(smem_u32(&full[l & 1]), ((l - 1) >> 1) & 1);
+      if (tid == 0 && l + 2 < maxlen) mbar_expect_tx(smem_u32(&full[l & 1]), step_bytes);
+    }
+
+    // gates^T = W_hh^T h for the warp's 16 columns, as recurrence_kernel
+    // takes it (h is 0 at the first step: its products are 0)
+    float acc[WFQ][4] = {};
+    for (int gi = 0; gi < NG; ++gi) {
+      const int j = l * NG + gi;
+      cp_async_wait<WSTAGES - 2>();  // group j has landed (this lane's copies)
+      load_group(j + WSTAGES - 1);   // into the slot read at group j - 1
+      const unsigned char* src = wring + (size_t)(j % WSTAGES) * WFQ * 32 * FB;
+      uint32_t ah[WFQ][4], al[WFQ][4], bh[WFQ][2], bl[WFQ][2];
+#pragma unroll
+      for (int kq = 0; kq < WFQ; ++kq) {
+        const int ks = gi * WFQ + kq;
+        load_frag<T>(src + (kq * 32 + lane) * FB, ah[kq], al[kq]);
+        tf32_split<true>(h_cur[(ks * 8 + q4) * R + g8], bh[kq][0], bl[kq][0]);
+        tf32_split<true>(h_cur[(ks * 8 + q4 + 4) * R + g8], bh[kq][1], bl[kq][1]);
+      }
+      if constexpr (F32) {
+#pragma unroll
+        for (int kq = 0; kq < WFQ; ++kq) mma_tf32(acc[kq], al[kq], bh[kq][0], bh[kq][1]);
+      }
+#pragma unroll
+      for (int kq = 0; kq < WFQ; ++kq) mma_tf32(acc[kq], ah[kq], bl[kq][0], bl[kq][1]);
+#pragma unroll
+      for (int kq = 0; kq < WFQ; ++kq) mma_tf32(acc[kq], ah[kq], bh[kq][0], bh[kq][1]);
+    }
+    float* gt = gt_s + warp * R * GT_S;
+    __syncwarp();  // every lane has read the previous step's gate tile
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = acc[0][e];
+#pragma unroll
+      for (int kq = 1; kq < WFQ; ++kq) sum += acc[kq][e];
+      gt[(2 * q4 + (e & 1)) * GT_S + g8 + 8 * (e >> 1)] = sum;
+    }
+    __syncwarp();
+    const float4 p = *reinterpret_cast<const float4*>(gt + cr * GT_S + 4 * cu);  // i, f, g, o
+
+    const bool on = crow < B;
+    if (train && on) {
+      hprev[((size_t)t * B + crow) * H + k] = h;
+      cprev[((size_t)t * B + crow) * H + k] = c;
+    }
+    float out = 0.f;
+    if (t < clen) {
+      const float pi = p.x + xg[0], pf = p.y + xg[1], pg = p.z + xg[2], po = p.w + xg[3];
+      c = sigmoidf(pf) * c + sigmoidf(pi) * tanhf(pg);
+      h = sigmoidf(po) * tanhf(c);
+      out = h;
+      if (train) {
+        float* gp = gx + ((size_t)crow * L + t) * H4 + k;
+        gp[0] = pi;
+        gp[H] = pf;
+        gp[2 * H] = pg;
+        gp[3 * H] = po;
+      }
+    }
+    if (on) outs[((size_t)crow * L + t) * H + k] = out;
+
+    // the new h to every block of the cluster, as recurrence_kernel sends it
+    if (l + 1 < maxlen) {
+      const int su = (lane & 7) >> 1, sq = lane & 1;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __shfl_sync(0xffffffffu, h, su * 8 + sq * 4 + e);
+      const int nxt = (l + 1) & 1;
+      const uint32_t dst = smem_u32(h_s + nxt * H * R + (rank * U + 4 * warp + su) * R + sq * 4);
+      const uint32_t bar = smem_u32(&full[nxt]);
+      for (int d = lane >> 3; d < CL; d += 4)
+        st_async4(cluster_addr(dst, d), v, cluster_addr(bar, d));
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xg[g] = xn[g];
+  }
+  cp_async_wait<0>();  // the groups the ring ran ahead
+
+  if (active) {
+    hc_s[cr * U + 4 * warp + cu] = h;
+    hc_s[R * U + cr * U + 4 * warp + cu] = c;
+  }
+  __syncthreads();
+  for (int i = tid; i < R * U; i += WT) {
+    const int row = row0 + i / U, kk = rank * U + i % U;
+    if (row >= B) continue;
+    const float hf = hc_s[i], cf = hc_s[R * U + i];
+    hT[(size_t)row * H + kk] = hf;
+    cT[(size_t)row * H + kk] = cf;
+    for (int t = maxlen; t < L; ++t) {
+      outs[((size_t)row * L + t) * H + kk] = 0.f;
+      if (train) {
+        hprev[((size_t)t * B + row) * H + kk] = reverse ? 0.f : hf;
+        cprev[((size_t)t * B + row) * H + kk] = reverse ? 0.f : cf;
+      }
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                        const void* b, void* gx, void* outs, void* hT, void* cT, void* hprev,
-                       void* cprev, int B, int L, int D, int H, int reverse,
+                       void* cprev, void* wpack, int B, int L, int D, int H, int reverse,
                        cudaStream_t stream) {
   // ops/cuda/lstm_scan.py::lstm_scan_fwd_plan
   const int N = 4 * H;
@@ -729,12 +995,26 @@ cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, co
       static_cast<const T*>(w_ih), static_cast<const T*>(b), static_cast<float*>(gx), B, L, D, N);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
+  const int clusters = (B + R - 1) / R;
+  if (H > 256) {
+    if ((e = pack_whh<T>(w_hh, wpack, H, 0, stream)) != cudaSuccess) return e;
+    const size_t wsm = wide_fwd_smem(H, sizeof(T));
+    if ((e = cudaFuncSetAttribute(recurrence_wide_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsm)) !=
+        cudaSuccess)
+      return e;
+    recurrence_wide_kernel<T><<<clusters * CL, WT, wsm, stream>>>(
+        static_cast<float*>(gx), static_cast<const int64_t*>(lengths),
+        static_cast<const T*>(wpack), static_cast<float*>(outs), static_cast<float*>(hT),
+        static_cast<float*>(cT), static_cast<float*>(hprev), static_cast<float*>(cprev), B, L, H,
+        reverse);
+    return cudaGetLastError();
+  }
   const size_t smem = fwd_rec_smem(H);
   if ((e = cudaFuncSetAttribute(recurrence_kernel<T>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return e;
-  const int clusters = (B + R - 1) / R;
   recurrence_kernel<T><<<clusters * CL, THREADS, smem, stream>>>(
       static_cast<float*>(gx), static_cast<const int64_t*>(lengths), static_cast<const T*>(w_hh),
       static_cast<float*>(outs), static_cast<float*>(hT), static_cast<float*>(cT),
@@ -1328,24 +1608,248 @@ dw_gemm_kernel(const T* __restrict__ xs, const float* __restrict__ hprev,
   cluster.sync();  // no block leaves while another reads its partial
 }
 
+__host__ __device__ constexpr size_t wide_bwd_smem(int H, int elem) {
+  return (size_t)WW * WSTAGES * WBQ * 2 * 32 * 4 * elem +
+         (size_t)(4 * (H / 2) * R + 2 * CL * R * (H / CL)) * 4 + 2 * 8;
+}
+
+// K2.1, wide.  bwd_recurrence_kernel's layout and arithmetic (thread tid
+// < R U owns row tid % R and unit tid / R; warp w the m-tiles 2w, 2w + 1 of
+// the H units), its W_hh fragments streamed from wpack.  Shared memory: the
+// warps' rings [WW][WSTAGES][WBQ x 2][32] fragments, dah_s and dal_s
+// [2][G4][R], part_s [2][CL][U][R], full [2].
+template <typename T>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(WT)
+bwd_recurrence_wide_kernel(const float* __restrict__ gates, const float* __restrict__ cprev,
+                           const float* __restrict__ d_out, const float* __restrict__ dhT,
+                           const float* __restrict__ dcT, const int64_t* __restrict__ lengths,
+                           const T* __restrict__ wpack, float* __restrict__ da,
+                           float* __restrict__ db_part, int B, int L, int H, int reverse) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int FB = 4 * sizeof(T);  // bytes of a lane's fragment
+  constexpr int MPW = 2;             // m-tiles a warp
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / CL) * R;
+  const int U = H / CL, G4 = 4 * U, H4 = 4 * H, KS = G4 / 8, NG = KS / WBQ, MT = H / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* wring = smem_raw + (size_t)warp * WSTAGES * WBQ * MPW * 32 * FB;
+  uint32_t* dah_s =
+      reinterpret_cast<uint32_t*>(smem_raw + (size_t)WW * WSTAGES * WBQ * MPW * 32 * FB);
+  uint32_t* dal_s = dah_s + 2 * G4 * R;
+  float* part_s = reinterpret_cast<float*>(dal_s + 2 * G4 * R);
+  uint64_t* full = reinterpret_cast<uint64_t*>(part_s + 2 * CL * U * R);
+  const uint32_t step_bytes = CL * U * R * 4;
+
+  int maxlen = 0;
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const int64_t n = row < B ? lengths[row] : 0;
+    maxlen = max(maxlen, (int)(n < L ? n : L));
+  }
+  const bool owner = tid < R * U;
+  const int r = tid % R, u = tid / R, k = rank * U + u, row = row0 + r;
+  int my_len = 0;
+  float dh = 0.f, dc = 0.f, db[4] = {0.f, 0.f, 0.f, 0.f};
+  if (owner && row < B) {
+    const int64_t n = lengths[row];
+    my_len = (int)(n < L ? n : L);
+    dh = dhT[(size_t)row * H + k];
+    dc = dcT[(size_t)row * H + k];
+  }
+  // the saved gates (4), c_prev and d_out of step t, in registers a step ahead
+  auto inputs_at = [&](int t, float (&v)[6]) {
+    if (owner && t >= 0 && t < my_len) {
+      const float* gp = gates + ((size_t)row * L + t) * H4 + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] = gp[g * H];
+      v[4] = cprev[((size_t)t * B + row) * H + k];
+      v[5] = d_out[((size_t)row * L + t) * H + k];
+    }
+  };
+  // group j: k-steps (j % NG) WBQ .. of this warp's two m-tiles
+  const T* wp = wpack + (size_t)rank * MT * KS * 32 * 4;
+  auto load_group = [&](int j) {
+    const int ks0 = (j % NG) * WBQ;
+    unsigned char* dst = wring + (size_t)(j % WSTAGES) * WBQ * MPW * 32 * FB;
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      const int mt = warp * MPW + i;
+      if (mt >= MT) continue;
+#pragma unroll
+      for (int kq = 0; kq < WBQ; ++kq)
+        cp_async_n<FB>(dst + ((i * WBQ + kq) * 32 + lane) * FB,
+                       wp + (((size_t)mt * KS + ks0 + kq) * 32 + lane) * 4, true);
+    }
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(&full[b]));
+      mbar_expect_tx(smem_u32(&full[b]), step_bytes);  // steps 0 and 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = 0; j < WSTAGES - 1; ++j) load_group(j);
+  cluster.sync();  // every block of the cluster is running and initialised
+
+  float nx[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  inputs_at(reverse ? 0 : maxlen - 1, nx);
+  for (int l = 0; l < maxlen; ++l) {
+    const int t = reverse ? l : maxlen - 1 - l;  // the forward's steps, backwards
+    float* part = part_s + (l & 1) * CL * U * R;
+    uint32_t* dah = dah_s + (l & 1) * G4 * R;
+    uint32_t* dal = dal_s + (l & 1) * G4 * R;
+    float nn[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    inputs_at(reverse ? l + 1 : maxlen - 2 - l, nn);  // the next step's
+
+    float d4[4] = {0.f, 0.f, 0.f, 0.f};
+    if (owner) {
+      if (t < my_len) {
+        const float ig = sigmoidf(nx[0]), fg = sigmoidf(nx[1]);
+        const float gg = tanhf(nx[2]), og = sigmoidf(nx[3]);
+        const float cp = nx[4];
+        const float tc = tanhf(fg * cp + ig * gg);
+        const float dh_eff = dh + nx[5];
+        const float dct = dc + dh_eff * og * (1.f - tc * tc);
+        d4[0] = dct * gg * ig * (1.f - ig);
+        d4[1] = dct * cp * fg * (1.f - fg);
+        d4[2] = dct * ig * (1.f - gg * gg);
+        d4[3] = dh_eff * tc * og * (1.f - og);
+        dc = dct * fg;
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        tf32_split<true>(d4[g], dah[(g * U + u) * R + r], dal[(g * U + u) * R + r]);
+        db[g] += d4[g];
+      }
+    }
+    __syncthreads();
+
+    // partial dh_prev = W_hh da over the block's columns, as
+    // bwd_recurrence_kernel takes it, WBQ k-steps of both m-tiles a group
+    float acc[MPW][WBQ][4] = {};
+    for (int gi = 0; gi < NG; ++gi) {
+      const int j = l * NG + gi;
+      cp_async_wait<WSTAGES - 2>();  // group j has landed (this lane's copies)
+      load_group(j + WSTAGES - 1);   // into the slot read at group j - 1
+      const unsigned char* src = wring + (size_t)(j % WSTAGES) * WBQ * MPW * 32 * FB;
+      uint32_t bh[WBQ][2], bl[WBQ][2], ah[MPW][WBQ][4], al[MPW][WBQ][4];
+#pragma unroll
+      for (int kq = 0; kq < WBQ; ++kq) {
+        const int ks = gi * WBQ + kq;
+        bh[kq][0] = dah[(ks * 8 + q4) * R + g8];
+        bh[kq][1] = dah[(ks * 8 + q4 + 4) * R + g8];
+        bl[kq][0] = dal[(ks * 8 + q4) * R + g8];
+        bl[kq][1] = dal[(ks * 8 + q4 + 4) * R + g8];
+#pragma unroll
+        for (int i = 0; i < MPW; ++i)
+          load_frag<T>(src + ((i * WBQ + kq) * 32 + lane) * FB, ah[i][kq], al[i][kq]);
+      }
+#pragma unroll
+      for (int i = 0; i < MPW; ++i) {
+        if (warp * MPW + i >= MT) continue;
+        if constexpr (F32) {
+#pragma unroll
+          for (int kq = 0; kq < WBQ; ++kq) mma_tf32(acc[i][kq], al[i][kq], bh[kq][0], bh[kq][1]);
+        }
+#pragma unroll
+        for (int kq = 0; kq < WBQ; ++kq) mma_tf32(acc[i][kq], ah[i][kq], bl[kq][0], bl[kq][1]);
+#pragma unroll
+        for (int kq = 0; kq < WBQ; ++kq) mma_tf32(acc[i][kq], ah[i][kq], bh[kq][0], bh[kq][1]);
+      }
+    }
+    // each partial to the block that owns its unit
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      const int mt = warp * MPW + i;
+      if (mt >= MT) continue;
+      float s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] = acc[i][0][e];
+#pragma unroll
+        for (int q = 1; q < WBQ; ++q) s[e] += acc[i][q][e];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = mt * 16 + g8 + 8 * h;
+        st_async2(cluster_addr(smem_u32(part + (rank * U + kk % U) * R + 2 * q4), kk / U),
+                  s[2 * h], s[2 * h + 1], cluster_addr(smem_u32(&full[l & 1]), kk / U));
+      }
+    }
+    if (owner && t < my_len) {
+      float* dp = da + ((size_t)row * L + t) * H4 + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dp[g * H] = d4[g];
+    }
+    if (owner) {
+      mbar_wait_cluster(smem_u32(&full[l & 1]), (l >> 1) & 1);
+      if (t < my_len) {
+        float s = 0.f;
+        for (int src = 0; src < CL; ++src) s += part[(src * U + u) * R + r];
+        dh = s;
+      }
+      if (tid == 0 && l + 2 < maxlen) mbar_expect_tx(smem_u32(&full[l & 1]), step_bytes);
+    }
+#pragma unroll
+    for (int q = 0; q < 6; ++q) nx[q] = nn[q];
+  }
+  cp_async_wait<0>();  // the groups the ring ran ahead
+  cluster.sync();      // every block is done with every other's shared memory
+
+  float* db_s = reinterpret_cast<float*>(dah_s);
+  if (owner) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) db_s[(g * U + u) * R + r] = db[g];
+  }
+  __syncthreads();
+  for (int c = tid; c < G4; c += WT) {
+    float s = 0.f;
+    for (int r2 = 0; r2 < R; ++r2) s += db_s[c * R + r2];
+    db_part[(size_t)(blockIdx.x / CL) * H4 + (c / U) * H + rank * U + c % U] = s;
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                        const void* gates, const void* hprev, const void* cprev,
                        const void* d_out, const void* dhT, const void* dcT, void* da,
-                       void* db_part, void* d_xs, void* dw_ih, void* dw_hh, void* db, int B,
-                       int L, int D, int H, int reverse, cudaStream_t stream) {
+                       void* db_part, void* d_xs, void* dw_ih, void* dw_hh, void* db,
+                       void* wpack, int B, int L, int D, int H, int reverse,
+                       cudaStream_t stream) {
   const int H4 = 4 * H;
   const int clusters = (B + R - 1) / R;
-  const size_t smem = rec_smem(H);
-  cudaError_t e = cudaFuncSetAttribute(bwd_recurrence_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  bwd_recurrence_kernel<T><<<clusters * CL, THREADS, smem, stream>>>(
-      static_cast<const float*>(gates), static_cast<const float*>(cprev),
-      static_cast<const float*>(d_out), static_cast<const float*>(dhT),
-      static_cast<const float*>(dcT), static_cast<const int64_t*>(lengths),
-      static_cast<const T*>(w_hh), static_cast<float*>(da), static_cast<float*>(db_part), B, L, H,
-      reverse);
+  cudaError_t e;
+  if (H > 256) {
+    if ((e = pack_whh<T>(w_hh, wpack, H, 1, stream)) != cudaSuccess) return e;
+    const size_t wsm = wide_bwd_smem(H, sizeof(T));
+    if ((e = cudaFuncSetAttribute(bwd_recurrence_wide_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsm)) !=
+        cudaSuccess)
+      return e;
+    bwd_recurrence_wide_kernel<T><<<clusters * CL, WT, wsm, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(cprev),
+        static_cast<const float*>(d_out), static_cast<const float*>(dhT),
+        static_cast<const float*>(dcT), static_cast<const int64_t*>(lengths),
+        static_cast<const T*>(wpack), static_cast<float*>(da), static_cast<float*>(db_part), B,
+        L, H, reverse);
+  } else {
+    const size_t smem = rec_smem(H);
+    if ((e = cudaFuncSetAttribute(bwd_recurrence_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    bwd_recurrence_kernel<T><<<clusters * CL, THREADS, smem, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(cprev),
+        static_cast<const float*>(d_out), static_cast<const float*>(dhT),
+        static_cast<const float*>(dcT), static_cast<const int64_t*>(lengths),
+        static_cast<const T*>(w_hh), static_cast<float*>(da), static_cast<float*>(db_part), B, L,
+        H, reverse);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   // ops/cuda/lstm_scan.py::lstm_scan_bwd_plan
@@ -1377,19 +1881,21 @@ cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, co
 // K3.  xs [B, L, D] and the weights w_ih [D, 4H], w_hh [H, 4H], b [4H] in
 // one dtype; lengths [B] int64; gx [B, L, 4H] f32 scratch; outs [B, L, H],
 // hT and cT [B, H] f32.  H must be a multiple of 32 (U = H / 8 a multiple
-// of 4, whole m-tiles of four units) with a block's W_hh fragments in its
-// registers: H <= 256.  xs rows must be whole 16-byte chunks.
+// of 4, whole m-tiles of four units) up to 512: up to 256 a block's W_hh
+// fragments sit in its registers; above, the wide walk streams them from
+// wpack [4H * H] (the dtype's scratch; unused up to 256).  xs rows must be
+// whole 16-byte chunks (ops/cuda/lstm_scan.py pads them).
 extern "C" int lstm_scan(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
-                         const void* b, void* gx, void* outs, void* hT, void* cT, int B, int L,
-                         int D, int H, int reverse, int dtype, void* stream) {
-  if (H % 32 != 0 || H > 256 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
+                         const void* b, void* gx, void* outs, void* hT, void* cT, void* wpack,
+                         int B, int L, int D, int H, int reverse, int dtype, void* stream) {
+  if (H % 32 != 0 || H > 512 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_fwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, nullptr,
-                                     nullptr, B, L, D, H, reverse, s);
-  return launch_fwd<float>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, nullptr, nullptr, B, L,
-                           D, H, reverse, s);
+                                     nullptr, wpack, B, L, D, H, reverse, s);
+  return launch_fwd<float>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, nullptr, nullptr, wpack,
+                           B, L, D, H, reverse, s);
 }
 
 // K1.  As K3, and also writes hprev and cprev [L, B, H] f32 (the carries
@@ -1397,34 +1903,36 @@ extern "C" int lstm_scan(const void* xs, const void* lengths, const void* w_ih, 
 // pre-activations of every valid step.
 extern "C" int lstm_scan_train(const void* xs, const void* lengths, const void* w_ih,
                                const void* w_hh, const void* b, void* gx, void* outs, void* hT,
-                               void* cT, void* hprev, void* cprev, int B, int L, int D, int H,
-                               int reverse, int dtype, void* stream) {
-  if (H % 32 != 0 || H > 256 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
+                               void* cT, void* hprev, void* cprev, void* wpack, int B, int L,
+                               int D, int H, int reverse, int dtype, void* stream) {
+  if (H % 32 != 0 || H > 512 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_fwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, hprev, cprev,
-                                     B, L, D, H, reverse, s);
-  return launch_fwd<float>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, hprev, cprev, B, L, D,
-                           H, reverse, s);
+                                     wpack, B, L, D, H, reverse, s);
+  return launch_fwd<float>(xs, lengths, w_ih, w_hh, b, gx, outs, hT, cT, hprev, cprev, wpack, B,
+                           L, D, H, reverse, s);
 }
 
 // K2.  From K1's residuals (gates = its gx, hprev, cprev) and the
 // cotangents d_out [B, L, H], dhT and dcT [B, H] (f32): d_xs [B, L, D] in
 // the dtype of xs, dw_ih [D, 4H], dw_hh [H, 4H] and db [4H] f32.  da
-// [B, L, 4H] and db_part [ceil(B / 8), 4H] are f32 scratch.
+// [B, L, 4H], db_part [ceil(B / 8), 4H] (f32) and wpack (as K3's) are
+// scratch.
 extern "C" int lstm_scan_bwd(const void* xs, const void* lengths, const void* w_ih,
                              const void* w_hh, const void* gates, const void* hprev,
                              const void* cprev, const void* d_out, const void* dhT,
                              const void* dcT, void* da, void* db_part, void* d_xs, void* dw_ih,
-                             void* dw_hh, void* db, int B, int L, int D, int H, int reverse,
-                             int dtype, void* stream) {
-  if (H % 32 != 0 || H > 256) return (int)cudaErrorInvalidValue;
+                             void* dw_hh, void* db, void* wpack, int B, int L, int D, int H,
+                             int reverse, int dtype, void* stream) {
+  if (H % 32 != 0 || H > 512 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_bwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT,
-                                     dcT, da, db_part, d_xs, dw_ih, dw_hh, db, B, L, D, H,
+                                     dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H,
                                      reverse, s);
   return launch_bwd<float>(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT, da,
-                           db_part, d_xs, dw_ih, dw_hh, db, B, L, D, H, reverse, s);
+                           db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H, reverse, s);
 }

@@ -9,8 +9,9 @@ array reconstruction and plain builtin containers only, and stands an
 inert stub in for every other class, so the bundle's arrays come back
 without importing either.  (The orbax directory format is not read.)
 
-``save_checkpoint`` writes the same layout from the port: ``params`` as
-numpy arrays in the JAX layout (``convert.params_to_jax``), so either
+``save_checkpoint`` writes the same layout from the port: ``params`` and
+``model_state`` (the Self-Monitor's BN statistics) as numpy arrays in the
+JAX layout (``convert.params_to_jax``, ``model_state_to_jax``), so either
 package's loader reads them; ``opt_state`` the port's own optimizer state
 (``torch.optim`` state dict, tensors as numpy); ``rng`` the state of the
 port's generator; ``curriculum`` a curriculum trainer's state in the
@@ -80,13 +81,14 @@ def to_numpy(tree: Any) -> Any:
 
 def save_checkpoint(path: str, params: dict, optimizer: Optional[torch.optim.Optimizer] = None,
                     generator: Optional[torch.Generator] = None, epoch: int = 0,
-                    cfg_yaml: Optional[str] = None, curriculum: Optional[dict] = None) -> None:
+                    cfg_yaml: Optional[str] = None, curriculum: Optional[dict] = None,
+                    model_state: Optional[dict] = None) -> None:
     """Write one bundle atomically (a temporary file, then a rename)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     bundle = {
         "params": to_numpy(params),  # the JAX layout (convert.params_to_jax)
         "opt_state": to_numpy(optimizer.state_dict()) if optimizer is not None else None,
-        "model_state": {},
+        "model_state": to_numpy(model_state) if model_state is not None else {},
         "rng": generator.get_state().numpy().copy() if generator is not None else None,
         "epoch": int(epoch),
         "curriculum": to_numpy(curriculum) if curriculum is not None else None,

@@ -1,17 +1,21 @@
 """The training iteration, the optimizers and the evaluation runner.
 
-The port of ``curriculum_learning_for_vln_tpu/engine/loop.py`` for
-EnvDrop.  One iteration is the reference's dual rollout — teacher-forced
-IL then sampled A2C on the same minibatch, one optimizer step over the
+The port of ``curriculum_learning_for_vln_tpu/engine/loop.py``.  One
+EnvDrop iteration is the reference's dual rollout — teacher-forced IL
+then sampled A2C on the same minibatch, one optimizer step over the
 summed loss (ref: tasks/R2R-judy/src/engine/trainer.py:411-427; JAX
 loop.py:97-173) — run eagerly: two rollouts through autograd, one
 backward, a clip of the encoder's and the decoder's gradients at 40, one
-optimizer step.  SPCL weighting enters as a per-sample weight vector
-(``weights``), so one iteration serves the classic and the curriculum
-trainers.  The packed iteration (``TPU.PACKED_RL``, loop.py:277-342)
-runs the IL arm on one batch and the A2C arm over a pool of ``factor``
-batches (agents/packed.py); weighted, its objective is dot(w_il, ml_vec)
-+ dot(w_pool, rl_loss_per_episode).
+optimizer step.  The Follower's and the Self-Monitor's iteration
+(``agent_one_iter``, loop.py:147-163) is one rollout in AGENT.FEEDBACK
+and ``agent.loss_fn``, with no clip, and it returns the updated model
+state (the Self-Monitor's BN statistics).  SPCL weighting enters as a
+per-sample weight vector (``weights``), so one iteration serves the
+classic and the curriculum trainers.  The packed iteration
+(``TPU.PACKED_RL``, loop.py:277-342) runs EnvDrop's IL arm on one batch
+and the A2C arm over a pool of ``factor`` batches (agents/packed.py);
+weighted, its objective is dot(w_il, ml_vec) + dot(w_pool,
+rl_loss_per_episode).
 
 Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
@@ -91,7 +95,8 @@ def iteration_loss(agent, feedback: str, tables: WorldTables, params: dict, ep,
     sampled A2C rollout at the full horizon, on the same minibatch.
     Returns (total loss, logs)."""
     if agent.name != "ENVDROP":
-        raise NotImplementedError(f"the {agent.name} iteration is not ported yet")
+        raise ValueError(f"iteration_loss is EnvDrop's; the {agent.name} iteration is "
+                         "agent_iteration_loss")
     il, _ = agent.rollout(params, tables, ep, FEEDBACK_TEACHER, train=True, train_ml=True,
                           train_rl=False, episode_len=il_len, generator=generator)
     rl = None
@@ -156,15 +161,53 @@ def packed_iteration_loss(agent, tables: WorldTables, params: dict, ep: EpisodeB
 
 
 def _update(optimizer: torch.optim.Optimizer, params: dict, total: torch.Tensor,
-            logs: dict) -> dict:
-    """Gradients of ``total``, the clip at 40 of the encoder's and the
-    decoder's, one optimizer step on ``params`` (in place); the detached
-    logs."""
+            logs: dict, clip: bool = True) -> dict:
+    """Gradients of ``total``, with ``clip`` the clip at 40 of the encoder's
+    and the decoder's (EnvDrop's alone, loop.py:146), one optimizer step on
+    ``params`` (in place); the detached logs."""
     optimizer.zero_grad(set_to_none=True)
     total.backward()
-    clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
+    if clip:
+        clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
     optimizer.step()
     return {k: v.detach() for k, v in logs.items()}
+
+
+def agent_iteration_loss(agent, feedback: str, tables: WorldTables, params: dict,
+                         model_state: dict, ep: EpisodeBatch,
+                         generator: Optional[torch.Generator],
+                         weights: Optional[torch.Tensor] = None, il_len: Optional[int] = None,
+                         lamb: float = 0.5):
+    """The objective of one Follower or Self-Monitor iteration (loop.py:
+    147-163): one rollout in ``feedback`` at train=True, truncated to
+    ``il_len`` only when teacher-forced, ``agent.loss_fn`` (SPCL-weighted
+    with ``weights``), ``lamb`` = TRAIN.PROGMONITOR_WEIGHT for the
+    Self-Monitor.  Returns (total, logs, new model state); the logs' per-
+    sample record is ``ml_loss_per_sample`` unscaled (EnvDrop's is scaled
+    by B)."""
+    fb = FEEDBACK_IDS[feedback]
+    kwargs = {"lamb": lamb} if agent.name == "SELF-MONITOR" else {}
+    losses, _, model_state = agent.rollout(
+        params, tables, ep, fb, train=True, generator=generator, model_state=model_state,
+        episode_len=il_len if fb == FEEDBACK_TEACHER else None, **kwargs)
+    total = agent.loss_fn(losses, weights)
+    logs = {"loss": total, "ml_loss": losses.ml_loss,
+            "loss_per_sample": losses.ml_loss_per_sample}
+    if agent.name == "SELF-MONITOR":
+        logs["progress_loss"] = losses.progress_loss
+    return total, logs, model_state
+
+
+def agent_one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
+                   params: dict, model_state: dict, ep: EpisodeBatch,
+                   generator: Optional[torch.Generator], weights: Optional[torch.Tensor] = None,
+                   il_len: Optional[int] = None, lamb: float = 0.5):
+    """One Follower or Self-Monitor iteration: ``agent_iteration_loss`` and
+    one unclipped update of ``params``.  Returns (the detached logs, the
+    new model state)."""
+    total, logs, model_state = agent_iteration_loss(agent, feedback, tables, params, model_state,
+                                                    ep, generator, weights, il_len, lamb)
+    return _update(optimizer, params, total, logs, clip=False), model_state
 
 
 def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
@@ -207,24 +250,24 @@ def check_pool_valid(pool: EpisodeBatch) -> None:
 
 def build_eval_rollout(agent) -> Callable:
     """Argmax eval rollout without autograd (the encoder runs K3):
-    (tables, params, ep, generator) -> RolloutResult."""
+    (tables, params, ep, generator, model_state) -> RolloutResult."""
 
     @torch.no_grad()
-    def roll(tables, params, ep, generator=None):
+    def roll(tables, params, ep, generator=None, model_state=None):
         return agent.rollout(params, tables, ep, FEEDBACK_ARGMAX, train=False,
-                             generator=generator)[1]
+                             generator=generator, model_state=model_state)[1]
 
     return roll
 
 
 def run_eval(agent, params: dict, tables: WorldTables, henv,
-             eval_rollout: Optional[Callable] = None) -> list:
+             eval_rollout: Optional[Callable] = None, model_state: Optional[dict] = None) -> list:
     """Full-split evaluation with exact coverage (replaces the reference's
     loop-until-instr_id-repeats, base.py:63-82)."""
     if eval_rollout is None:
         eval_rollout = build_eval_rollout(agent)
     results = []
     for ep in henv.eval_batches():
-        result = eval_rollout(tables, params, ep)
+        result = eval_rollout(tables, params, ep, model_state=model_state)
         results += assemble_trajectories(henv.world, ep, result, henv.data)
     return results

@@ -11,6 +11,12 @@ With ``TPU.PACKED_RL`` >= 2 (the shipped EnvDrop configs set 3) each
 iteration draws that many batches: IL on the first, the packed A2C
 rollout over all of them (trainer.py:204-216, 279-298).
 
+The Follower and the Self-Monitor train by ``engine.loop.agent_one_iter``
+(no clip), their model state (the Self-Monitor's BN statistics) carried
+through the epochs, the evaluations and the checkpoints.
+``check_the_code`` is the teacher-following sanity check (trainer.py:
+108-118).
+
 The curriculum trainers (engine/curriculum.py) are this trainer with its
 hooks overridden: ``select_env`` / ``iter_env`` choose the episode source,
 ``batch_weights`` / ``record_losses`` / ``end_epoch`` carry SPCL's
@@ -29,14 +35,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..convert import params_from_jax
+from ..agents import TestAgent, init_agent
+from ..convert import model_state_from_jax, params_from_jax
 from ..utils.logging_utils import ScalarWriter, clean_dir, prettyprint
 from ..utils.tree import tree_map
 from ..world.compiler import resolve_device
 from .checkpoint import load_checkpoint, restore_training_state, save_checkpoint
 from .evaluator import Evaluation
-from .loop import (build_eval_rollout, check_pool_valid, concat_batches, make_optimizer,
-                   one_iter, packed_one_iter, run_eval)
+from .loop import (agent_one_iter, build_eval_rollout, check_pool_valid, concat_batches,
+                   make_optimizer, one_iter, packed_one_iter, run_eval)
 
 logger = logging.getLogger("main.train")
 
@@ -73,6 +80,18 @@ def il_bucket_fn(cfg, agent):
         return None
 
     return bucket
+
+
+def check_the_code(cfg, tables, valid_env) -> dict:
+    """The sanity check (ref: trainer.py:27-39): the model-free
+    teacher-follower (agents/test_agent.py) through val_unseen, scored;
+    an SR near 1 shows the env, the teacher and the metrics agree."""
+    agent = TestAgent(episode_len=cfg.AGENT.MAX_EPISODE_LEN)
+    henv = valid_env["val_unseen"]
+    results = run_eval(agent, {}, tables, henv)
+    summary, _ = Evaluation(henv.world, dedup_by_path(henv.data)).score(results)
+    prettyprint({"val_unseen": summary})
+    return summary
 
 
 def packed_factor(cfg, agent, trainer) -> int:
@@ -133,7 +152,7 @@ class ClassicTrainer:
         writer = ScalarWriter(osp.join(tsboard_dir, time_str) if tsboard_dir else None)
 
         # the same parameters for a seed on any device
-        params = agent.init(torch.Generator().manual_seed(seed))
+        params, model_state = init_agent(agent, torch.Generator().manual_seed(seed))
         generator = torch.Generator(device=device).manual_seed(seed + 1)
         start_epoch = train_cfg.START_EPOCH
         ckpt_root = cfg.OUTPUT.CKPT_DIR or "snapshots/checkpoints"
@@ -143,9 +162,13 @@ class ClassicTrainer:
             logger.info("Resuming %s from %s", cfg.MODEL.NAME, ckpt_path)
             bundle = load_checkpoint(ckpt_path)
             params = params_from_jax(bundle["params"])
+            if bundle.get("model_state"):
+                model_state = model_state_from_jax(bundle["model_state"])
             if bundle.get("curriculum") is not None:
                 self.load_curriculum_state(bundle["curriculum"])
         params = tree_map(lambda t: t.to(device).requires_grad_(t.is_floating_point()), params)
+        model_state = tree_map(lambda t: t.to(device), model_state)
+        envdrop = agent.name == "ENVDROP"
         optimizer = make_optimizer(train_cfg.OPTIM, train_cfg.LR, params)
         if bundle is not None:
             start_epoch = restore_training_state(bundle, optimizer, generator) + 1
@@ -163,11 +186,12 @@ class ClassicTrainer:
 
         def save(path, ep):
             save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump(),
-                            curriculum=self.curriculum_state())
+                            curriculum=self.curriculum_state(), model_state=model_state)
 
         start_time = last_time = time.time()
         iters = train_cfg.ITER_PER_EPOCH
-        log_keys = ("loss", "entropy", "critic_loss", "total_actions")
+        log_keys = (("loss", "entropy", "critic_loss", "total_actions") if envdrop
+                    else ("loss", "progress_loss") if agent.name == "SELF-MONITOR" else ("loss",))
         if packed:
             log_keys += ("episodes_done", "episodes_started")
         for ep in range(start_epoch, train_cfg.MAX_EPOCH + 1):
@@ -192,9 +216,14 @@ class ClassicTrainer:
                     logs = packed_one_iter(agent, optimizer, tables, params, batch, pool,
                                            generator, self.batch_weights(idx),
                                            self.batch_weights(np.concatenate(pool_idx)), il_len)
-                else:
+                elif envdrop:
                     logs = one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, batch,
                                     generator, weights=self.batch_weights(idx), il_len=il_len)
+                else:
+                    logs, model_state = agent_one_iter(
+                        agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, model_state, batch,
+                        generator, weights=self.batch_weights(idx), il_len=il_len,
+                        lamb=train_cfg.PROGMONITOR_WEIGHT)
                 self.record_losses(idx, logs["loss_per_sample"])
                 log_entries.append(logs)
             host = {k: torch.stack([e[k] for e in log_entries]).cpu() for k in log_keys}
@@ -205,10 +234,15 @@ class ClassicTrainer:
             writer.add_scalar("train/ml_iter_avg", avg_iter, ep)
             writer.add_scalar("train/ml_iter_max", max(epoch_losses), ep)
             writer.add_scalar("train/ml_iter_min", min(epoch_losses), ep)
-            total = max(float(host["total_actions"].sum()), 1.0)
-            writer.add_scalar("train/critic_loss", float(host["critic_loss"].sum()) / total, ep)
-            writer.add_scalar("train/policy_entropy", float(host["entropy"].sum()) / total, ep)
-            writer.add_scalar("train/total_actions", total, ep)
+            if "progress_loss" in host:
+                writer.add_scalar("train/progress_loss", float(host["progress_loss"].sum()), ep)
+            if envdrop:
+                total = max(float(host["total_actions"].sum()), 1.0)
+                writer.add_scalar("train/critic_loss", float(host["critic_loss"].sum()) / total,
+                                  ep)
+                writer.add_scalar("train/policy_entropy", float(host["entropy"].sum()) / total,
+                                  ep)
+                writer.add_scalar("train/total_actions", total, ep)
 
             cost = (time.time() - last_time) / 60
             remain = ((time.time() - start_time) / (60 * (ep + 1 - start_epoch))
@@ -226,7 +260,7 @@ class ClassicTrainer:
             if ep % train_cfg.EVAL_INTERVAL == 0:
                 summary = {}
                 for key, env in valid_env.items():
-                    results = run_eval(agent, params, tables, env, eval_rollout)
+                    results = run_eval(agent, params, tables, env, eval_rollout, model_state)
                     scores, _ = valid_evaluator[key].score(results)
                     summary[key] = scores
                     for mk in METRIC_KEYS:

@@ -7,14 +7,18 @@
 
 Config = defaults <- YAML file <- dotted-path overrides.  Runs on CUDA
 unless ``--device`` names another device, and raises without a GPU.  It
-trains EnvDrop on R2R or CLR2R (real or ``TPU.SYNTHETIC_WORLD``) with the
-trainer ``TRAIN.CLMODE`` names for CLR2R (main.py:102-124): the classic
-one, ``NaiveCurriculum`` (NAIVE) or ``SelfPacedCurriculum`` (SELF-PACE),
-with packed RL where ``TPU.PACKED_RL`` >= 2.  Not ported yet, and
-refused: the ``--check-the-code``, ``--beam`` and ``--self-train`` modes,
-the AUTO (Exp3.S) curriculum, the per-round train-split evaluation
-(``TRAIN.EVAL_TRAIN``), the rollout early exit (``TPU.SCAN_EARLY_EXIT``),
-the hand-written BPTT (``TPU.FUSED_BPTT``) and the other agents.
+trains the agent ``MODEL.NAME`` names (ENVDROP, FOLLOWER or SELF-MONITOR)
+on R2R or CLR2R (real or ``TPU.SYNTHETIC_WORLD``) with the trainer
+``TRAIN.CLMODE`` names for CLR2R (main.py:102-124): the classic one,
+``NaiveCurriculum`` (NAIVE) or ``SelfPacedCurriculum`` (SELF-PACE), with
+EnvDrop's packed RL where ``TPU.PACKED_RL`` >= 2; or, with
+``--check-the-code``, runs the teacher-following sanity check on
+val_unseen and exits.  Not ported yet, and refused: the ``--beam`` and
+``--self-train`` modes, the AUTO (Exp3.S) curriculum, the per-round
+train-split evaluation (``TRAIN.EVAL_TRAIN``), the rollout early exit
+(``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT (``TPU.FUSED_BPTT``),
+frozen GloVe embeddings (``MODEL.FOLLOWER.GLOVE_PATH``) and the other
+agents.
 """
 from __future__ import annotations
 
@@ -26,23 +30,28 @@ import traceback
 import numpy as np
 
 from . import pipeline
-from .agents.envdrop import EnvDropAgent
+from .agents import build_agent
 from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
-from .engine.trainer import ClassicTrainer
+from .engine.trainer import ClassicTrainer, check_the_code
 from .utils import logging_utils
 from .utils.config import get_cfg_defaults
-from .world.compiler import PRECISIONS, resolve_device
+from .world.compiler import resolve_device
+
+PORTED_AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR")
 
 
 def check_ported(args, cfg) -> None:
     """Raise on every mode and option of the JAX CLI that the port does
     not run yet, before any data is loaded."""
-    for flag, name in ((args.check_the_code, "--check-the-code"), (args.beam > 0, "--beam"),
-                       (args.self_train, "--self-train")):
+    for flag, name in ((args.beam > 0, "--beam"), (args.self_train, "--self-train")):
         if flag:
             raise NotImplementedError(f"{name} is not ported yet")
-    if cfg.MODEL.NAME != "ENVDROP":
-        raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet (ENVDROP only)")
+    if cfg.MODEL.NAME not in PORTED_AGENTS:
+        raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet "
+                                  f"({', '.join(PORTED_AGENTS)})")
+    if cfg.MODEL.NAME == "FOLLOWER" and cfg.MODEL.FOLLOWER.GLOVE_PATH:
+        raise NotImplementedError("MODEL.FOLLOWER.GLOVE_PATH (frozen GloVe embeddings) is not "
+                                  "ported yet")
     pipeline.curriculum_mode(cfg)  # raises on AUTO
     for on, name in ((cfg.TRAIN.EVAL_TRAIN, "TRAIN.EVAL_TRAIN (the per-round train-split "
                                             "evaluation)"),
@@ -83,9 +92,12 @@ def main(args, cfg) -> None:
                                                                         device=device)
     logger.info("[3] world compiled (%d nodes) and environments created", world.num_nodes)
 
-    agent = EnvDropAgent(cfg.MODEL.ENVDROP, cfg.DATA.MAX_ENC_LEN, tok.vocab_size(), feat_dim,
-                         cfg.AGENT.MAX_EPISODE_LEN, compute_dtype=PRECISIONS[cfg.TPU.PRECISION],
-                         obs_masks=cfg.TPU.OBS_MASKS)
+    if args.check_the_code:  # (main.py:63-65)
+        logger.info("Checking the code (teacher-following agent on val_unseen)")
+        check_the_code(cfg, world.device_tables(cfg.TPU.PRECISION, device), valid_env)
+        return
+
+    agent = build_agent(cfg, tok.vocab_size(), feat_dim)
     try:
         trainer = build_trainer(cfg, train_env, logger)
         trainer.train(cfg, agent, cfg.OUTPUT.TSBOARD_DIR, train_env, valid_env, seed=args.seed,
@@ -106,7 +118,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: cuda; raises without a GPU)")
     parser.add_argument("--check-the-code", action="store_true",
-                        help="run the teacher-following sanity check and exit (not ported yet)")
+                        help="run the teacher-following sanity check and exit")
     parser.add_argument("--self-train", action="store_true",
                         help="speaker-augmented back-translation stage (not ported yet)")
     parser.add_argument("--beam", default=0, type=int, metavar="N",

@@ -65,9 +65,12 @@ def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
-    """Inverted dropout by a boolean keep-mask, in the dtype of x
-    (core.py:91-94: a bf16 x gives the bf16-rounded x / keep)."""
-    return torch.where(mask, x / (1.0 - rate), 0.0).to(x.dtype)
+    """Inverted dropout by a boolean keep-mask, in the dtype of x: x divided
+    by the keep probability rounded to that dtype, as core.py:91-94 divides
+    (a bf16 x by bf16(1 - rate); torch would divide by a Python float in
+    f32, one bf16 ulp off in a third of the elements at rate 0.1)."""
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -126,6 +129,44 @@ def bilstm_layer(p_fwd: dict, p_bwd: Optional[dict], xs: torch.Tensor, lengths: 
     out_b, (h_b, c_b) = masked_lstm(p_bwd, xs, lengths, reverse=True)
     return (torch.cat([out_f, out_b], dim=-1),
             (torch.cat([h_f, h_b], dim=-1), torch.cat([c_f, c_b], dim=-1)))
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (the Self-Monitor's MLP; ref: units.py:210-242)
+# ---------------------------------------------------------------------------
+
+def batchnorm_init(dim: int, device=None) -> Tuple[dict, dict]:
+    """(params {scale, bias}, state {mean, var, count}), all f32."""
+    params = {"scale": torch.ones(dim, device=device), "bias": torch.zeros(dim, device=device)}
+    state = {"mean": torch.zeros(dim, device=device), "var": torch.ones(dim, device=device),
+             "count": torch.zeros((), device=device)}
+    return params, state
+
+
+def batchnorm(params: dict, state: dict, x: torch.Tensor, train: bool, momentum: float = 0.1,
+              eps: float = 1e-5) -> Tuple[torch.Tensor, dict]:
+    """BatchNorm1d over x [N, C] (core.py:180-203): the batch statistics in
+    train, with the running mean, the unbiased running variance and
+    ``count`` updated as a returned value (carrying no gradient), the
+    running statistics in eval.  The state stays in its own dtype (f32);
+    x and the statistics promote as jnp does."""
+    if train:
+        mean = x.mean(dim=0)
+        var = x.var(dim=0, unbiased=False)
+        n = x.shape[0]
+        with torch.no_grad():
+            unbiased = var.detach() * n / max(n - 1, 1)
+            new_state = {
+                "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+                "var": (1 - momentum) * state["var"] + momentum * unbiased,
+                "count": state["count"] + 1,
+            }
+            new_state = {k: v.to(state[k].dtype) for k, v in new_state.items()}
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,14 @@ recurrence on the same cluster layout (its per-step product on the
 tensor cores), then tensor-core GEMMs for d_xs and for dW_ih, dW_hh and
 db over the valid steps only, in a fixed order (no atomics).  Every
 product with an f32 operand runs in TF32 with that operand split in two
-halves, which keeps f32 accuracy; bf16 operands are exact there.
+halves, which keeps f32 accuracy; bf16 operands are exact there.  Up
+to H = 256 both walks keep their block's eighth of W_hh in registers (and
+the f32 low halves in shared memory); above, to H = 512 (the
+Self-Monitor's encoder), the wide walks (512 threads a block) stream it
+every step, in the fragment order ``whh_pack_order`` gives, which one
+more launch writes into a scratch copy.  Rows of xs that are not whole
+16-byte chunks (the Follower's 300-wide bf16 embeddings) are zero-padded
+by ``pad_rows``, and d_xs and dW_ih cut back: exact.
 ``lstm_scan_fwd_plan`` and ``lstm_scan_bwd_plan`` give the launch
 geometry, ``valid_steps`` / ``split_bounds`` the order in which the GEMMs
 take the valid steps, and ``lstm_scan_fwd_emulated`` /
@@ -41,9 +48,9 @@ launches = 0
 train_launches = 0
 bwd_launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_TRAIN_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TRAIN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -61,16 +68,26 @@ GX_TM, GX_TN, GX_STAGES, GX_THREADS, GX_YMAX = 64, 64, 3, 128, 32
 FKS_MAX, GT_S = 32, 20
 DX_TM, DX_TN, DX_KC, DX_STAGES, DX_THREADS = 32, 64, 32, 3, 128
 DW_TI, DW_TJ, DW_KC, DW_STAGES, DW_THREADS, DW_SPLITS = 64, 128, 32, 3, 256, 8
+# The wide walks (256 < H <= 512): WT threads a block, each warp streaming
+# its W_hh fragments (packed by pack_whh_kernel into 4H * H elements)
+# through a ring of WSTAGES groups, a group WFQ k-steps of one m-tile
+# (forward) or WBQ k-steps of two (backward)
+WIDE_H, WT, WFQ, WBQ, WSTAGES = 256, 512, 4, 2, 4
+WW = WT // 32
+MAX_H = 512
 MAX_SMEM = 232448  # shared memory a block can use on the H100
 
 
 class BwdPlan(NamedTuple):
     """K2's launches.  ``rec_grid`` blocks of the recurrence (clusters of
-    CL along x) with ``rec_smem`` bytes; dx_gemm's grid (D tiles, step
-    tiles + 1: blocks past the valid steps' tiles write the padded steps'
-    zeros) with ``dx_smem``; dw_gemm's grid (4H tiles, max(D, H) tiles, 2
-    matrices x ``splits``, clusters of ``splits`` along z) with
-    ``dw_smem``, ``dw_blocks_per_sm`` of which fit an SM."""
+    CL along x) of ``rec_threads`` threads with ``rec_smem`` bytes, which
+    stream ``w_stream`` bytes of W_hh a step (the wide walk; 0 when W_hh
+    sits in shared memory and registers) from a packed copy of
+    ``w_pack`` elements; dx_gemm's grid (D tiles, step tiles + 1: blocks
+    past the valid steps' tiles write the padded steps' zeros) with
+    ``dx_smem``; dw_gemm's grid (4H tiles, max(D, H) tiles, 2 matrices x
+    ``splits``, clusters of ``splits`` along z) with ``dw_smem``,
+    ``dw_blocks_per_sm`` of which fit an SM."""
     rec_grid: int
     rec_smem: int
     dx_grid: Tuple[int, int]
@@ -79,6 +96,9 @@ class BwdPlan(NamedTuple):
     dw_smem: int
     dw_blocks_per_sm: int
     splits: int
+    rec_threads: int
+    w_stream: int
+    w_pack: int
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -90,16 +110,21 @@ class FwdPlan(NamedTuple):
     block y takes step tiles y, y + Y, ... below the valid steps' count,
     which it computes on the device, so no host synchronisation reads the
     lengths) of GX_THREADS threads with ``gx_smem`` bytes; the
-    recurrence's ``rec_grid`` blocks (clusters of CL along x) of THREADS
-    threads with ``rec_smem``, of whose warps the first ``rec_warps`` (one
-    a 16-column m-tile of the block's 4H / 8 gate columns) hold
-    ``w_regs`` registers a thread of W_hh fragments."""
+    recurrence's ``rec_grid`` blocks (clusters of CL along x) of
+    ``rec_threads`` threads with ``rec_smem``, of whose warps the first
+    ``rec_warps`` (one a 16-column m-tile of the block's 4H / 8 gate
+    columns) hold ``w_regs`` registers a thread of W_hh fragments (up to
+    H = 256), or stream ``w_stream`` bytes of them a step from a packed
+    copy of ``w_pack`` elements (the wide walk)."""
     gx_grid: Tuple[int, int]
     gx_smem: int
     rec_grid: int
     rec_smem: int
     rec_warps: int
     w_regs: int
+    rec_threads: int
+    w_stream: int
+    w_pack: int
 
 
 def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> FwdPlan:
@@ -108,20 +133,34 @@ def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> FwdPla
     kc = 128 // elem_size  # elements of a stage's 128-byte rows
     x_stride, w_stride = kc + (4 if elem_size == 4 else 8), GX_TN + 8
     gx_smem = starts + GX_TM * 4 + GX_STAGES * (GX_TM * x_stride + kc * w_stride) * elem_size
+    gx_grid = (4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX))
+    if H > WIDE_H:
+        # the warps' rings; h double-buffered; the gate tiles; the final
+        # (h, c); two mbarriers.  A block streams its 4U columns of W_hh
+        rec_smem = (WW * WSTAGES * WFQ * 32 * 4 * elem_size
+                    + (2 * H * R + WW * R * GT_S + 2 * R * U) * 4 + 16)
+        return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 0, WT,
+                       4 * U * H * elem_size, 4 * H * H)
     # W_hh's columns as f32 fragments; h double-buffered; three steps' gx of
     # every warp; the warps' gate tiles; the final (h, c); two mbarriers
     rec_smem = (4 * U * H + 2 * H * R + 3 * WARPS * 4 * R * 4 + WARPS * R * GT_S
                 + 2 * R * U) * 4 + 16
-    return FwdPlan((4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX)), gx_smem,
-                   _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 4 * FKS_MAX)
+    return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 4 * FKS_MAX,
+                   THREADS, 0, 0)
 
 
 def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPlan:
     U = H // CL
     starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
-    # W_hh's columns as f32 fragments; da's TF32 halves and the partials,
-    # double-buffered; three steps' inputs; two mbarriers
-    rec_smem = 4 * U * H * 4 + (4 * 4 * U * R + 2 * CL * R * U + 3 * 6 * THREADS) * 4 + 16
+    if H > WIDE_H:  # the warps' rings (two m-tiles each); da's halves; the partials
+        rec_smem = (WW * WSTAGES * WBQ * 2 * 32 * 4 * elem_size
+                    + (4 * 4 * U * R + 2 * CL * R * U) * 4 + 16)
+        rec = (WT, 4 * U * H * elem_size, 4 * H * H)
+    else:
+        # W_hh's columns as f32 fragments; da's TF32 halves and the partials,
+        # double-buffered; three steps' inputs; two mbarriers
+        rec_smem = 4 * U * H * 4 + (4 * 4 * U * R + 2 * CL * R * U + 3 * 6 * THREADS) * 4 + 16
+        rec = (THREADS, 0, 0)
     w_stride = DX_KC + (4 if elem_size == 4 else 8)
     dx_smem = starts + DX_TM * 4 + DX_STAGES * (DX_TM * (DX_KC + 4) * 4
                                                 + DX_TN * w_stride * elem_size)
@@ -130,7 +169,32 @@ def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPla
     return BwdPlan(_ceil_div(B, R) * CL, rec_smem,
                    (_ceil_div(D, DX_TN), _ceil_div(B * L, DX_TM) + 1), dx_smem,
                    (4 * H // DW_TJ, _ceil_div(max(D, H), DW_TI), 2 * DW_SPLITS), dw_smem,
-                   min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS)
+                   min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS, *rec)
+
+
+def whh_pack_order(H: int, bwd: bool) -> torch.Tensor:
+    """The flat W_hh [H, 4H] index of each element that pack_whh_kernel
+    writes, in its order: element e of lane l's A fragment (m16n8k8 TF32:
+    e = 0..3 are rows g, g + 8, g, g + 8 and columns q, q, q + 4, q + 4 of
+    the tile, g = l / 4, q = l % 4) of k-step ks of m-tile mt of block rank
+    at (((rank MT + mt) KS + ks) 32 + l) 4 + e.  Forward: A[c][k'] =
+    W_hh[k'][column c], tile row 4u + g the gate g of unit rank U + 4 mt +
+    u; backward: A[k'][c] over the block's 4U columns, gate-major."""
+    U = H // CL
+    MT, KS = (H // 16, U // 2) if bwd else (U // 4, H // 8)
+    i = torch.arange(CL * MT * KS * 32)
+    lane, f = i % 32, i // 32
+    ks, mt, rank = f % KS, (f // KS) % MT, f // KS // MT
+    g8, q4 = lane // 4, lane % 4
+    out = []
+    for e in range(4):
+        m, kk = g8 + 8 * (e & 1), ks * 8 + q4 + 4 * (e >> 1)
+        if bwd:
+            row, col = mt * 16 + m, (kk // U) * H + rank * U + kk % U
+        else:
+            row, col = kk, (m % 4) * H + rank * U + 4 * mt + m // 4
+        out.append(row * 4 * H + col)
+    return torch.stack(out, dim=1).reshape(-1)
 
 
 def valid_steps(lengths, L: int) -> List[Tuple[int, int]]:
@@ -359,19 +423,32 @@ def _check(name, xs, lengths, w_ih, w_hh, extra=()):
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} must be {dt} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if H % 32 or not 32 <= H <= 256:
-        raise ValueError(f"{name}: hidden size {H} must be a multiple of 32 up to 256 "
-                         "(an eighth of W_hh per block's shared memory)")
+    if H % 32 or not 32 <= H <= MAX_H:
+        raise ValueError(f"{name}: hidden size {H} must be a multiple of 32 up to {MAX_H} "
+                         "(whole m-tiles of four units a block of the cluster)")
     ins = (xs, lengths, w_ih, w_hh, *(e[1] for e in extra))
     if any(t.device != xs.device for t in ins) or not all(t.is_contiguous() for t in ins):
         raise ValueError(f"{name}: all inputs must be contiguous and on one CUDA device")
-    if (D * xs.element_size()) % 16:
-        raise ValueError(f"{name}: xs rows must be a multiple of 16 bytes (D={D})")
     return B, L, D, H
 
 
+def pad_rows(xs: torch.Tensor, w_ih: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xs [B, L, D] and w_ih [D, 4H] with D zero-padded to whole 16-byte rows,
+    which the kernels' loads need (the Follower's 300-wide bf16 embedding
+    rows are 600 bytes).  A zero feature adds nothing to any product, so the
+    results are exact once d_xs and dW_ih are cut back to D."""
+    pad = -xs.shape[-1] % (16 // xs.element_size())
+    if not pad:
+        return xs, w_ih
+    return (torch.nn.functional.pad(xs, (0, pad)).contiguous(),
+            torch.nn.functional.pad(w_ih, (0, 0, 0, pad)).contiguous())
+
+
 def _forward_cuda(name, symbol, argtypes, xs, lengths, w_ih, w_hh, b, reverse, train):
-    B, L, D, H = _check(name, xs, lengths, w_ih, w_hh, (("b", b, (4 * w_hh.shape[0],), xs.dtype),))
+    _check(name, xs, lengths, w_ih, w_hh, (("b", b, (4 * w_hh.shape[0],), xs.dtype),))
+    xs, w_ih = pad_rows(xs, w_ih)
+    B, L, D = xs.shape
+    H = w_hh.shape[0]
     plan = lstm_scan_fwd_plan(B, L, D, H, xs.element_size())
     if max(plan.gx_smem, plan.rec_smem) > MAX_SMEM:
         raise ValueError(f"{name}: batch {B} needs more shared memory than a block has")
@@ -380,10 +457,11 @@ def _forward_cuda(name, symbol, argtypes, xs, lengths, w_ih, w_hh, b, reverse, t
     outs = torch.empty((B, L, H), **f32)
     hT, cT = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
     residual = (torch.empty((L, B, H), **f32), torch.empty((L, B, H), **f32)) if train else ()
+    wpack = torch.empty((plan.w_pack,), dtype=xs.dtype, device=xs.device)  # the wide walk's
     fn = build.kernel_function("lstm_scan", symbol, argtypes)
     err = fn(xs.data_ptr(), lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
              gx.data_ptr(), outs.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-             *(t.data_ptr() for t in residual), B, L, D, H, int(reverse),
+             *(t.data_ptr() for t in residual), wpack.data_ptr(), B, L, D, H, int(reverse),
              build.DTYPE_CODES[xs.dtype], build.stream_handle(xs))
     build.check_launch(err, name)
     return outs, (hT, cT), residual, gx
@@ -418,13 +496,15 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
                        dcT: torch.Tensor, reverse: bool = False):
     """``lstm_scan_bwd_plain`` as one call of K2 (three launches)."""
     global bwd_launches
-    B, L, D = xs.shape
+    B, L, D0 = xs.shape
     H = w_hh.shape[0]
     f32 = torch.float32
-    B, L, D, H = _check("lstm_scan_bwd", xs, lengths, w_ih, w_hh, (
+    _check("lstm_scan_bwd", xs, lengths, w_ih, w_hh, (
         ("gates", gates, (B, L, 4 * H), f32), ("hprev", hprev, (L, B, H), f32),
         ("cprev", cprev, (L, B, H), f32), ("d_out", d_out, (B, L, H), f32),
         ("dhT", dhT, (B, H), f32), ("dcT", dcT, (B, H), f32)))
+    xs, w_ih = pad_rows(xs, w_ih)
+    D = xs.shape[2]
     plan = lstm_scan_bwd_plan(B, L, D, H, xs.element_size())
     if max(plan.rec_smem, plan.dx_smem, plan.dw_smem) > MAX_SMEM:
         raise ValueError(f"lstm_scan_bwd: batch {B} needs more shared memory than a block has")
@@ -434,12 +514,15 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
     d_xs = torch.empty((B, L, D), dtype=xs.dtype, device=xs.device)
     dw_ih, dw_hh = torch.empty((D, 4 * H), **dev), torch.empty((H, 4 * H), **dev)
     db = torch.empty((4 * H,), **dev)
+    wpack = torch.empty((plan.w_pack,), dtype=xs.dtype, device=xs.device)  # the wide walk's
     fn = build.kernel_function("lstm_scan", "lstm_scan_bwd", _BWD_ARGTYPES)
     err = fn(*(t.data_ptr() for t in (xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT,
-                                      dcT, da, db_part, d_xs, dw_ih, dw_hh, db)),
+                                      dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack)),
              B, L, D, H, int(reverse), build.DTYPE_CODES[xs.dtype], build.stream_handle(xs))
     build.check_launch(err, "lstm_scan_bwd")
     bwd_launches += 1
+    if D != D0:  # cut the padded features back
+        d_xs, dw_ih = d_xs[..., :D0].contiguous(), dw_ih[:D0].contiguous()
     return d_xs, dw_ih, dw_hh, db
 
 

@@ -17,8 +17,9 @@ image-sized.  The backward regenerates the forward's mask.  Each op runs
 its CUDA kernels for tensors on the card and their plain twins on the
 CPU; there is no backend switch and no gate that could skip a kernel.
 The masks follow the ``DropSpec``'s mode: "none", "ext", "prng" or
-"prng_shared" (ops/cuda/drop.py).  The Self-Monitor's ``cands_only``
-short-circuit is not ported yet.
+"prng_shared" (ops/cuda/drop.py).  ``pano_cands`` is the Self-Monitor's
+``cands_only`` use (fused_obs.py:116-128, 140-141): K4 on a zero query
+that carries no gradient, so no backward (K5) ever runs for it.
 """
 from __future__ import annotations
 
@@ -84,3 +85,17 @@ def cand_attend_logits(cand_img: torch.Tensor, cand_angle: torch.Tensor,
     rows + angle features and the projected query q [B, F], with the image
     rows dropped per ``drop``."""
     return CandAttend.apply(q, cand_img, cand_angle, cand_valid, drop)
+
+
+def pano_cands(node: torch.Tensor, view: torch.Tensor, c_view: torch.Tensor,
+               features: torch.Tensor, loc_embed: torch.Tensor) -> torch.Tensor:
+    """cand_img [B, MC, D] alone, for a decoder that attends over the
+    candidates and not the panorama (the Self-Monitor).  The JAX package
+    flags the call ``cands_only`` and returns a zero query cotangent; the
+    port's route is a query that carries no gradient: K4 runs once on a
+    zero f32 query, nothing in the call requires a gradient, so autograd
+    records no backward and K5 never launches.  No env-dropout (the
+    Self-Monitor has none)."""
+    tv = torch.zeros((node.shape[0], features.shape[-1] + loc_embed.shape[-1]),
+                     dtype=torch.float32, device=features.device)
+    return PanoAttend.apply(tv, node, view, c_view, features, loc_embed, NO_DROP)[1]

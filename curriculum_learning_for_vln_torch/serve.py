@@ -1,11 +1,12 @@
 """Inference/serving API: instruction -> trajectory.
 
 The port of ``curriculum_learning_for_vln_tpu/serve.py``.  ``Navigator``
-holds a compiled world's tables and an EnvDrop agent's weights on the
+holds a compiled world's tables and an agent's weights and model state
+(EnvDrop, Follower or Self-Monitor; the last's BN statistics) on the
 device and runs one argmax rollout per micro-batch of requests (padded to
 ``max_batch`` slots, padding slots born ended).  On the card the rollout
-runs the port's CUDA kernels (encoder LSTM scan, observation step,
-candidate scoring); there is no backend switch.
+runs the port's CUDA kernels (encoder LSTM scan, observation step, and
+EnvDrop's candidate scoring); there is no backend switch.
 
     nav = Navigator.from_checkpoint(world, agent, "ckpt/best_val_unseen.ckpt", tok,
                                     max_batch=64, precision="bf16")
@@ -16,7 +17,7 @@ candidate scoring); there is no backend switch.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,14 +31,17 @@ from .world.compiler import CompiledWorld, resolve_device
 
 
 class Navigator:
-    """Request-level navigation over a trained EnvDrop agent.
+    """Request-level navigation over a trained agent.
 
     Runs on CUDA unless ``device`` names another device; raises when CUDA
     is asked for and absent.  ``precision`` ("f32" | "bf16") is the
-    feature table's dtype and must equal ``agent.compute_dtype``."""
+    feature table's dtype and must equal ``agent.compute_dtype``.
+    ``model_state`` is the agent's (the Self-Monitor's BN statistics; {}
+    for the others), as JAX's serve.py:33-73 holds it."""
 
     def __init__(self, world: CompiledWorld, agent, params: dict, tokenizer: Tokenizer,
-                 max_batch: int = 8, precision: str = "f32", device=None):
+                 max_batch: int = 8, precision: str = "f32", device=None,
+                 model_state: Optional[dict] = None):
         self.device = resolve_device(device)
         self.world = world
         self.agent = agent
@@ -49,12 +53,16 @@ class Navigator:
                              f"feature table but the agent computes in {agent.compute_dtype}")
         self.params = tree_map(lambda t: t.to(self.device),
                                cast_compute_params(params, agent.compute_dtype))
+        self.model_state = tree_map(lambda t: t.to(self.device), model_state or {})
 
     @classmethod
     def from_checkpoint(cls, world: CompiledWorld, agent, ckpt_path: str,
                         tokenizer: Tokenizer, **kwargs) -> "Navigator":
-        """A Navigator over the weights of a JAX package checkpoint."""
-        return cls(world, agent, load_jax_checkpoint(ckpt_path)["params"], tokenizer, **kwargs)
+        """A Navigator over the weights and model state of a checkpoint of
+        the JAX package (or the port)."""
+        bundle = load_jax_checkpoint(ckpt_path)
+        return cls(world, agent, bundle["params"], tokenizer, model_state=bundle["model_state"],
+                   **kwargs)
 
     def episodes(self, requests: Sequence[dict]) -> EpisodeBatch:
         """The padded episode batch for a micro-batch of requests."""
@@ -92,7 +100,8 @@ class Navigator:
 
     @torch.inference_mode()
     def rollout(self, ep: EpisodeBatch) -> RolloutResult:
-        return self.agent.rollout(self.params, self.tables, ep, FEEDBACK_ARGMAX, train=False)[1]
+        return self.agent.rollout(self.params, self.tables, ep, FEEDBACK_ARGMAX, train=False,
+                                  model_state=self.model_state)[1]
 
     def navigate_batch(self, requests: Sequence[dict]) -> List[dict]:
         """Each request: {"instruction", "scan", "start_viewpoint",

@@ -9,8 +9,10 @@ DIR is the root of another checkout of the repo, e.g. the parent commit
 unpacked with ``git archive``.  Both trees' sources of the chosen groups
 (with their ``common.cuh``) are built with this checkout's nvcc flags into
 ``build/ab/`` and called through their C entry points, whose signatures
-both trees share, on the same inputs; every call of a tree is first held
-against this checkout's plain version (the tolerances of chip_smoke.py).
+both trees share (but for the LSTM scans' packed-W_hh scratch, which a
+tree from before the wide walks does not take and H = 256 does not read),
+on the same inputs; every call of a tree is first held against this
+checkout's plain version (the tolerances of chip_smoke.py).
 
 * ``pano``: K4 and K5 (``csrc/pano_fused.cu``) at B = 64, 36 views of
   2048 + 128 features (the synthetic world's distribution, N(0.5, 0.5^2)),
@@ -83,6 +85,7 @@ def build_tree(tag: str, tree: Path, names):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {tag}/{name}:\n{log}")
         libs[name] = ctypes.CDLL(str(src / f"{name}.so"))
+        libs[name].takes_wpack = "void* wpack" in (src / f"{name}.cu").read_text()
     return libs
 
 
@@ -91,6 +94,15 @@ def entry(lib, symbol, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def lstm_entry(lib, symbol, argtypes):
+    """An LSTM scan's entry point and the extra pointers it takes after the
+    tensors: the packed-W_hh scratch (null: H = 256 does not read it), or
+    nothing for a tree whose signature predates it."""
+    if lib.takes_wpack:
+        return entry(lib, symbol, argtypes), [0]
+    return entry(lib, symbol, argtypes[:-8] + argtypes[-7:]), []
 
 
 def lstm_cases(dtype, dev, gen):
@@ -122,9 +134,9 @@ def lstm_cases(dtype, dev, gen):
         for name, argtypes, train in (("lstm_scan", kl._ARGTYPES, False),
                                       ("lstm_scan_train", kl._TRAIN_ARGTYPES, True)):
             def call(lib, name=name, argtypes=argtypes, train=train):
-                fn = entry(lib, name, argtypes)
+                fn, extra = lstm_entry(lib, name, argtypes)
                 ptrs = [t.data_ptr() for t in (xs, lengths, w_ih, w_hh, b, gx, *fouts,
-                                               *(carries if train else ()))]
+                                               *(carries if train else ()))] + extra
 
                 def run(i):
                     build.check_launch(fn(*ptrs, B, L, D, H, 0, build.DTYPE_CODES[dtype],
@@ -156,10 +168,10 @@ def lstm_cases(dtype, dev, gen):
         scratch = (torch.empty((B, L, 4 * H), **f32), torch.empty((-(-B // 8), 4 * H), **f32))
 
         def call(lib):
-            fn = entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES)
+            fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES)
 
             def run(i):
-                err = fn(*(t.data_ptr() for t in (*res, *scratch, *outs)), B, L, D, H, 0,
+                err = fn(*(t.data_ptr() for t in (*res, *scratch, *outs)), *extra, B, L, D, H, 0,
                          build.DTYPE_CODES[dtype], build.stream_handle(xs))
                 build.check_launch(err, "lstm_scan_bwd")
             return run

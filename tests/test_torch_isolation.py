@@ -43,6 +43,24 @@ def test_no_jax_import():
     assert not bad, f"imports of JAX or the JAX package: {bad}"
 
 
+# the Follower and Self-Monitor slice's modules, among the files scanned above
+AGENT_MODULES = ("agents/__init__.py", "agents/follower.py", "agents/monitor.py",
+                 "agents/test_agent.py", "models/attention.py", "models/decoders.py",
+                 "models/core.py", "ops/fused_obs.py", "engine/loop.py", "engine/trainer.py",
+                 "convert.py", "serve.py", "main.py")
+
+
+def test_agent_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(AGENT_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in AGENT_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
 def test_package_import_leaves_jax_out():
     code = ("import sys, curriculum_learning_for_vln_torch.serve, chip_smoke;"
             f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
