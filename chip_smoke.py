@@ -10,8 +10,10 @@ one GPU.
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions.
 2. Builds the port's CUDA kernels from ``curriculum_learning_for_vln_
-   torch/csrc`` (one ``nvcc`` per source, all at once) and prints the
-   compiler's register and spill report.
+   torch/csrc`` (one ``nvcc`` per source, all at once, anew) and prints the
+   compiler's register and spill report; the resident LSTM walk
+   (``recurrence_res_kernel``, which holds W_hh in registers) must show no
+   spills.
 3. Kernel phases (in a full run, after phase 7, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
@@ -44,8 +46,14 @@ one GPU.
    K8 (the fused LSTM cell, which no path runs) at the EnvDrop decoder
    cell's shape beside ``torch.lstm_cell``.  K1-K3 also run the Follower's
    and the Self-Monitor's encoder layers (D = 300 then 256 at H = 128; D =
-   256 at H = 512, the wide walk) at lengths up to 80 and at B = 61 over
-   ragged lengths, each beside cuDNN's ``nn.LSTM`` and its bound.
+   256 at H = 512, the resident walk in bf16) at lengths up to 80 and at
+   B = 61 over ragged lengths (the Self-Monitor's also at B = 40 and 1: one
+   row group), each beside cuDNN's ``nn.LSTM`` and its bound.  The forward
+   walk's plan at the Self-Monitor's shape (B = 64, 61 and 1, bf16 and f32)
+   is printed: blocks a cluster, rows a cluster, where W_hh sits, and the
+   clusters against those the card holds at once
+   (cudaOccupancyMaxActiveClusters), held equal to the C entry points' own
+   plan (``lstm_scan.plan_query``); a plan of more than one wave fails.
 4. Serve phase: EnvDrop at the full width of
    ``configs/envdrop/envdrop_config.yaml`` (random weights from a seed) on
    a synthetic world of 12 scans x 64 nodes with 2048-d features, answering
@@ -500,6 +508,53 @@ def lstm_bounds(xs, lengths, w_ih, w_hh, b):
             "lstm_scan_bwd": bound_ms(bwd_bytes, bwd_flops, xs.dtype), "valid_steps": steps}
 
 
+def kernel_resources(log_text: str, kernel: str):
+    """[(entry, registers, spill store bytes, spill load bytes)] of each
+    instantiation of ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    out, entry, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "bytes spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = (nums[1], nums[2])  # stack frame, spill stores, spill loads
+        elif entry and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            if kernel in entry:
+                out.append((entry, regs, *spills))
+            entry, spills = None, (0, 0)
+    return out
+
+
+def lstm_walk_plans(dtype, D=256, H=512, L=80):
+    """The forward walk's plans at an encoder shape, B = 64, 61 and 1:
+    ``lstm_scan_fwd_plan`` from the clusters the card holds at once, held
+    equal to the plan the C entry points compute (``plan_query``), and one
+    wave of clusters at most."""
+    k = modules()["lstm_scan"]
+    elem = torch.empty((), dtype=dtype).element_size()
+    plans = []
+    for B in (BATCH, BATCH - 3, 1):
+        q = k.plan_query(B, H, dtype)
+        p = k.lstm_scan_fwd_plan(B, L, D, H, elem, clusters_at_once=q[5])
+        check(q[:5] == (p.cluster, p.rows, p.clusters, p.rec_threads, p.rec_smem),
+              f"lstm_scan {dtype} H={H} at B = {B}: lstm_scan_fwd_plan {p} is the C plan {q}")
+        waves = -(-p.clusters // q[6])
+        plans.append({"B": B, "D": D, "H": H, "cluster": p.cluster, "rows": p.rows,
+                      "clusters": p.clusters, "blocks": p.rec_grid, "threads": p.rec_threads,
+                      "smem": p.rec_smem, "w_where": p.w_where, "w_regs": p.w_regs,
+                      "w_stream": p.w_stream, "clusters_at_once": q[6],
+                      "clusters_at_once_planned": q[5], "waves": waves})
+        log(f"lstm_scan walk   {str(dtype):14s} D={D} H={H} B={B:2d}: W_hh: {p.w_where}, "
+            f"cluster of {p.cluster} blocks, R = {p.rows} rows a cluster, {p.clusters} clusters "
+            f"({p.rec_grid} blocks) of {p.rec_threads} threads, {p.rec_smem} B shared memory a "
+            f"block, {p.w_regs} W_hh registers a thread, {p.w_stream} B of W_hh streamed a step; "
+            f"the card holds {q[6]} of these clusters at once (planned on {q[5]}): {waves} wave(s)")
+        check(waves == 1, f"lstm_scan {dtype} H={H} at B = {B}: {p.clusters} clusters of "
+                          f"{p.cluster} need {waves} waves (the card holds {q[6]} at once)")
+    return plans
+
+
 def lstm_ragged(dtype, device, gen, B=61, L=80, D=256, H=256):
     """K3, K1 and K2 at B = 61 (a short last cluster of 5 rows) over
     ragged lengths 0..L, one row of length 0 and one of L, both
@@ -782,11 +837,19 @@ def kernel_phases(world, lengths, device):
             r["ragged"] = {"B": 61, "lengths": "0-80, a 0 and an 80", **ragged[r["name"]]}
             r["agent_shapes"] = {}
             results[(r["name"], prec)] = r
+        plans = lstm_walk_plans(dtype, *AGENT_LSTM_SHAPES["monitor"])
         for label, (D, H) in AGENT_LSTM_SHAPES.items():
             ragged = lstm_ragged(dtype, device, gen, D=D, H=H)
+            # the Self-Monitor's walk also at one row group and one cluster
+            small = ({B: lstm_ragged(dtype, device, gen, B=B, D=D, H=H) for B in (40, 1)}
+                     if label == "monitor" else {})
             for r in lstm_phases(dtype, device, gen, long, D=D, H=H):
                 r["ragged"] = {"B": 61, "lengths": "0-80, a 0 and an 80", **ragged[r["name"]]}
+                for B, res in small.items():
+                    r["ragged"][f"B={B}"] = res[r["name"]]
                 r["shape"] = {"D": D, "H": H}
+                if label == "monitor" and r["name"] != "lstm_scan_bwd":
+                    r["plans"] = plans
                 results[(r["name"], prec)]["agent_shapes"][label] = r
         by_mode = obs_phases(dtype, device, gen, features)
         for i, r in enumerate(by_mode["prng"]):
@@ -851,7 +914,13 @@ def kernel_phases(world, lengths, device):
                 log(f"{name:16s} {prec:4s} {label} at B={rg['B']}, lengths {rg['lengths']}: "
                     "max|kernel-plain| " + ", ".join(
                         f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
-                        for part, c in rg.items() if isinstance(c, dict)))
+                        for part, c in rg.items()
+                        if isinstance(c, dict) and not part.startswith("B=")))
+                for Bs, parts in rg.items():
+                    if Bs.startswith("B="):
+                        log(f"{name:16s} {prec:4s} {label} at {Bs}: max|kernel-plain| " + ", ".join(
+                            f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
+                            for part, c in parts.items()))
         torch.cuda.synchronize()
     for r in results.values():
         for x in (r, r.get("long", {}), *r.get("agent_shapes", {}).values()):
@@ -1701,12 +1770,20 @@ def main() -> int:
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    for name in build.SOURCES:  # anew, so that the compiler reports every kernel
+        build.library_path(name).unlink(missing_ok=True)
     logs = build.build(ptxas_verbose=True)
     log(f"build: {len(build.SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    res = kernel_resources(logs["lstm_scan"], "recurrence_res_kernel")
+    check(len(res) == 2, f"the resident walk's two instantiations in the build report: {res}")
+    for entry, regs, st, ld in res:
+        log(f"resident walk {entry}: {regs} registers a thread, {st} B spill stores, "
+            f"{ld} B spill loads")
+        check(st == ld == 0 and regs <= 128, f"{entry}: {regs} registers, spills {st} / {ld}")
 
     t0 = time.perf_counter()
     world, data, requests, tok, cfg, m, params = build_serving()
@@ -1805,7 +1882,8 @@ def main() -> int:
             # the Follower's and the Self-Monitor's encoder layers
             entry["agent_shapes"] = {
                 label: {prec: {k: x["agent_shapes"][label][k]
-                               for k in ("shape", *keys, "max_abs_err", "ragged")}
+                               for k in ("shape", *keys, "max_abs_err", "ragged", "plans")
+                               if k in x["agent_shapes"][label]}
                         for prec, x in ((precision, r), ("f32", r32))}
                 for label in AGENT_LSTM_SHAPES}
         else:

@@ -96,10 +96,12 @@
 // slice, one cell update and one exchange within the cluster, on 64 of
 // the card's 132 SMs at B = 64.  Both walks keep W_hh in registers and
 // exchange by st.async; their input GEMMs visit the valid steps only.
-// Above H = 256 (the Self-Monitor's encoder, H = 512) a block's slice no
-// longer fits: the wide walks below stream it from L2 every step, so a
-// step costs the time to bring 256 KB (bf16) or 512 KB (f32) into each of
-// the 64 blocks, several times a step of the walks above.
+// Above H = 256 (the Self-Monitor's encoder, H = 512) a block's eighth no
+// longer fits.  The bf16 forward at H = 512 (the resident walk below) takes
+// clusters of 16 blocks, each holding its sixteenth in registers; the
+// other wide walks stream their eighth from L2 every step, so a step costs
+// the time to bring 256 KB (bf16) or 512 KB (f32) into each of the 64
+// blocks, several times a step of the walks above.
 //
 // Semantics (lstm_scan.py:63-67, 264-286): step l reads t = L-1-l when
 // reversed; a row with t >= len keeps its carry and outputs 0; gate order
@@ -978,6 +980,381 @@ recurrence_wide_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengt
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward 2, resident: the wide walk in bf16 at H = 512 (the Self-Monitor's
+//    encoder), with no byte of W_hh read from L2 inside the step loop.  The
+//    streaming walk above brings each block's 256 KB eighth of W_hh (bf16)
+//    from L2 every step: 8.5 us a step at B = 64 on the H100.  Here a
+//    cluster has RCL = 16 blocks (a non-portable size, launched with
+//    cudaLaunchKernelEx), so block `rank` owns U = H / 16 units, G4 = 4U
+//    gate columns x H rows of W_hh: 128 KB, 64 registers a thread at RT =
+//    512 threads, loaded once a launch (W_hh [H, 4H] staged through shared
+//    memory, then ldmatrix.trans into mma.sync A fragments of A[c][k'] =
+//    W_hh[k'][column c], the block's columns gate-major: c = g U + u).
+//    Rows: a cluster takes R <= 16 batch rows, R = ceil(B / the clusters the
+//    card holds at once), so that the launch is one wave (res_rows): the
+//    H100 (132 SMs, one block an SM) holds 7 clusters of 16, so B = 64 runs
+//    as 7 clusters of 10 rows.  The rows fall into NT = ceil(R / 8) groups,
+//    one n-tile of 8 each, which walk a step in turn.
+//    A group's step: its product gates^T[c][r] = sum_k' W_hh[k'][c] h[r][k']
+//    on mma.sync m16n8k16 in bf16: the weights exact, h (f32) as three bf16
+//    terms h1 + h2 + h3 (h within 2^-24 |h|: as accurate as f32), three MMAs
+//    a 16-k step, exact products summed in f32.  Warp w = (mg, kg) = (w /
+//    RKG, w % RKG) holds MPW m-tiles (16 columns each) of m-group mg over
+//    KPW 16-k steps of k-group kg, loads its B fragments of h (f32) and
+//    splits each value there (so each value is split by the RMG = 2 warps
+//    that multiply it, where the streaming walk split it in all 16), and
+//    stores its partial tile to part[kg].  One block barrier; then the warp
+//    that owns a row sums each of its U cells' gates over the RKG partials
+//    in k-group order, adds gx, updates (h, c) in f32 registers (lane u:
+//    unit rank U + u) and sends the new h (f32), 4 units a 16-byte st.async,
+//    to every block of the cluster, counted on the receiver's mbarrier of
+//    the group, half and k-group the units fall in (a wait that never
+//    completes traps after ~2 s).  No cluster barrier a step.
+//    What bounds the step: the product on the tensor cores (1,536 MMAs a
+//    block a step at two row groups, on mma.sync, not wgmma) and the
+//    exchange (every block receives R H 4 bytes a step over the SMs'
+//    shared-memory network, whose rate is far below shared memory's); while
+//    one group's h travels, the other group multiplies.  Sending h as its
+//    three bf16 terms (split once, by its owner) moved 6 bytes a value and
+//    was slower than splitting where it is read; so was a TMA bulk copy or
+//    a TMA multicast through L2 in place of st.async (PERF.md).
+//    Shared memory: the staged slice w_s [H][WS] (prologue only), then in
+//    its place each group's h as received hf_s [NT][2][8][HF] f32
+//    (double-buffered as in recurrence_kernel) and partial tiles part_s
+//    [2][RKG][8][PS] f32, a group's step taking buffer (l NT + g) & 1: the
+//    warps that write a buffer have passed the barrier of the group step
+//    in between, so its cells are done reading it (at NT = 1 nothing else
+//    orders the step l + 1 products after the step l cells, since the h
+//    that starts them comes from other blocks); the mbarriers full
+//    [NT][2][RKG] at the end.
+// ---------------------------------------------------------------------------
+constexpr int RCL = 16;      // blocks per cluster of the resident walk (non-portable)
+constexpr int RT = 512;      // its threads
+constexpr int RW = RT / 32;  // its warps
+constexpr int RKG = 8;       // k-groups (warps sharing an m-group); RW / RKG m-groups
+constexpr int RMG = RW / RKG;
+
+template <int H>
+struct Res {
+  static constexpr int U = H / RCL, G4 = 4 * U, MT = G4 / 16, KS = H / 16;
+  static constexpr int MPW = MT / RMG, KPW = KS / RKG;  // a warp's m-tiles and 16-k steps
+  static constexpr int WS = G4 + 8;  // row stride (elements) of the staged slice
+  static constexpr int HF = H + 8;   // row stride (floats) of h as received
+  static constexpr int PS = G4 + 4;  // row stride (floats) of a partial tile
+  static_assert(U == 32 && MT % RMG == 0 && KS % RKG == 0, "a lane a unit; whole m-tiles, k-steps");
+};
+
+template <int H>
+__host__ __device__ constexpr size_t res_smem(int NT) {
+  using P = Res<H>;
+  const size_t stage = (size_t)H * P::WS * 2;
+  const size_t walk = (size_t)NT * 2 * 8 * P::HF * 4 + (size_t)2 * RKG * 8 * P::PS * 4;
+  return (stage > walk ? stage : walk) + (size_t)NT * 2 * RKG * 8;
+}
+
+// A pair of f32 as three pairs of bf16 terms (the low element in the low
+// half), each the rounding of what the terms before leave (x - t1 and
+// x - t1 - t2 are exact in f32).
+__device__ __forceinline__ void split3_bf16x2(float x, float y, uint32_t (&t)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    t[a] = *reinterpret_cast<const uint32_t*>(&v);
+    const float2 f = __bfloat1622float2(v);
+    x -= f.x;
+    y -= f.y;
+  }
+}
+
+template <int H, int NT>
+__global__ void __launch_bounds__(RT, 1)
+recurrence_res_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
+                      const __nv_bfloat16* __restrict__ w_hh, float* __restrict__ outs,
+                      float* __restrict__ hT, float* __restrict__ cT, float* __restrict__ hprev,
+                      float* __restrict__ cprev, int B, int L, int RR, int reverse) {
+  using P = Res<H>;
+  constexpr int U = P::U, G4 = P::G4, MPW = P::MPW, KPW = P::KPW;
+  constexpr int WS = P::WS, HF = P::HF, PS = P::PS, H4 = 4 * H;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / RCL) * RR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int mg = warp / RKG, kg = warp % RKG;
+  const bool train = hprev != nullptr;
+  // the rows' groups: RG rows each (the last may have fewer), one n-tile each
+  const int RG = (RR + NT - 1) / NT;
+  auto group_rows = [&](int g) { return max(0, min(RG, RR - g * RG)); };
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // the prologue's
+  float* hf_s = reinterpret_cast<float*>(smem_raw);                 // [NT][2][8][HF]
+  float* part_s = hf_s + NT * 2 * 8 * HF;                           // [2][RKG][8][PS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + res_smem<H>(NT) -
+                                               (size_t)NT * 2 * RKG * 8);  // [NT][2][RKG]
+
+  auto row_len = [&](int row) {
+    const int64_t n = row < B ? lengths[row] : 0;
+    return n < 0 ? 0 : n > L ? L : (int)n;
+  };
+  int maxlen = 0;
+  for (int r = 0; r < RR; ++r) maxlen = max(maxlen, row_len(row0 + r));
+  // warp w < RR owns row row0 + w (group w / RG, n-tile row w % RG), lane
+  // u the cell of unit rank U + u
+  const bool cell = warp < RR;
+  const int crow = row0 + warp, k = rank * U + lane, grp = warp / RG, ctr = warp % RG;
+  const int clen = cell ? row_len(crow) : 0;
+  // gx of this lane's cell at step l (valid steps only)
+  auto gx_at = [&](int l, float (&v)[4]) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    if (l < maxlen && t < clen) {
+      const float* p = gx + ((size_t)crow * L + t) * H4 + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] = p[g * H];
+    }
+  };
+
+  // the block's slice of W_hh, w_s[k'][g U + u] = W_hh[k'][g H + rank U + u],
+  // by 16-byte chunks (a chunk stays in one gate)
+  constexpr int CPR = G4 / 8;
+  for (int i = tid; i < H * CPR; i += RT) {
+    const int kk = i / CPR, c = (i % CPR) * 8, g = c / U, u = c % U;
+    *reinterpret_cast<uint4*>(w_s + kk * WS + c) =
+        *reinterpret_cast<const uint4*>(w_hh + (size_t)kk * H4 + g * H + rank * U + u);
+  }
+  __syncthreads();
+  // this warp's A fragments, in registers for the whole walk: matrices (k'
+  // 0-7, c 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of each 16 x 16 tile
+  uint32_t wa[MPW][KPW][4];
+#pragma unroll
+  for (int mt = 0; mt < MPW; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KPW; ++ks)
+      ldmatrix_x4_trans(wa[mt][ks], w_s + ((kg * KPW + ks) * 16 + ((lane >> 4) & 1) * 8 +
+                                           (lane & 7)) * WS +
+                                        (mg * MPW + mt) * 16 + ((lane >> 3) & 1) * 8);
+  // group g's step l >= 1 reads the h its rows' warps sent at step l - 1,
+  // into half l & 1, each k-group's units counted on its own barrier
+  // full[g][l & 1][kg] (the bytes of the group's rows of the KPW 16 units
+  // that the two blocks owning them send); a barrier is armed for the next
+  // h it receives before that can come
+  auto group_bytes = [&](int g) { return (uint32_t)group_rows(g) * KPW * 16 * 4; };
+  if (tid == 0) {
+    for (int b = 0; b < NT * 2 * RKG; ++b) mbar_init(smem_u32(&full[b]));
+    for (int g = 0; g < NT; ++g)
+      for (int q = 0; q < RKG; ++q) {
+        if (1 < maxlen) mbar_expect_tx(smem_u32(&full[(g * 2 + 1) * RKG + q]), group_bytes(g));
+        if (2 < maxlen) mbar_expect_tx(smem_u32(&full[(g * 2) * RKG + q]), group_bytes(g));
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block of the cluster is running, initialised and done reading its
+  // staged slice, over which h and the partials now land
+  cluster.sync();
+
+  // the walk, a group at a time: one group's h travels while the other's
+  // product runs
+  float h = 0.f, c = 0.f, xg[4] = {0.f, 0.f, 0.f, 0.f};
+  if (cell) gx_at(0, xg);
+  for (int l = 0; l < maxlen; ++l) {
+    const int t = reverse ? maxlen - 1 - l : l;
+    float xn[4] = {0.f, 0.f, 0.f, 0.f};
+    if (cell) gx_at(l + 1, xn);  // the next step's, in flight during this one
+#pragma unroll
+    for (int g = 0; g < NT; ++g) {  // NT = ceil(RR / 8): no group is empty
+      float* part = part_s + (size_t)((l * NT + g) & 1) * RKG * 8 * PS;
+      if (l > 0) {  // h is 0 at the first step: its products are 0
+        // this warp's k-slice of the group's h has landed; the first
+        // m-group's warp arms its barrier for step l + 2 (which cannot come
+        // before every block has passed this group's barrier below)
+        const uint32_t bar = smem_u32(&full[(g * 2 + (l & 1)) * RKG + kg]);
+        mbar_wait_cluster(bar, ((l - 1) >> 1) & 1);
+        if (mg == 0 && lane == 0 && l + 2 < maxlen) mbar_expect_tx(bar, group_bytes(g));
+        const float* hf = hf_s + (size_t)(g * 2 + (l & 1)) * 8 * HF + g8 * HF;
+        float acc[MPW][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KPW; ++ks) {
+          // B fragment: h[row g8][k' 2 q4, + 1] and [k' 2 q4 + 8, + 1], each
+          // value split here into its three bf16 terms.  Rows of the n-tile
+          // past the group's read stale values, whose products land only in
+          // their own columns of D, which no cell reads.
+          const float* hp = hf + (kg * KPW + ks) * 16 + 2 * q4;
+          const float2 lo = *reinterpret_cast<const float2*>(hp);
+          const float2 hi = *reinterpret_cast<const float2*>(hp + 8);
+          uint32_t b0[3], b1[3];
+          split3_bf16x2(lo.x, lo.y, b0);
+          split3_bf16x2(hi.x, hi.y, b1);
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int mt = 0; mt < MPW; ++mt) mma_bf16(acc[mt], wa[mt][ks], b0[a], b1[a]);
+        }
+        // D[c][r]: (g8, 2 q4), (g8, 2 q4 + 1), (g8 + 8, 2 q4), (g8 + 8, 2 q4 + 1)
+        float* pp = part + ((size_t)kg * 8 + 2 * q4) * PS + mg * MPW * 16 + g8;
+#pragma unroll
+        for (int mt = 0; mt < MPW; ++mt) {
+          pp[mt * 16] = acc[mt][0];
+          pp[PS + mt * 16] = acc[mt][1];
+          pp[mt * 16 + 8] = acc[mt][2];
+          pp[PS + mt * 16 + 8] = acc[mt][3];
+        }
+      }
+      __syncthreads();  // every k-group's partials of the group are in part
+
+      if (warp < RR && grp == g) {
+        float pre[4];
+        const float* pp = part + (size_t)ctr * PS + lane;
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) {
+          float s = 0.f;
+          if (l > 0) {
+            s = pp[gt * U];
+#pragma unroll
+            for (int q = 1; q < RKG; ++q) s += pp[(size_t)q * 8 * PS + gt * U];
+          }
+          pre[gt] = s + xg[gt];
+        }
+        const bool on = crow < B;
+        if (train && on) {
+          hprev[((size_t)t * B + crow) * H + k] = h;
+          cprev[((size_t)t * B + crow) * H + k] = c;
+        }
+        float out = 0.f;
+        if (t < clen) {
+          c = sigmoidf(pre[1]) * c + sigmoidf(pre[0]) * tanhf(pre[2]);
+          h = sigmoidf(pre[3]) * tanhf(c);
+          out = h;
+          if (train) {
+            float* gp = gx + ((size_t)crow * L + t) * H4 + k;
+#pragma unroll
+            for (int gt = 0; gt < 4; ++gt) gp[gt * H] = pre[gt];
+          }
+        }
+        if (on) outs[((size_t)crow * L + t) * H + k] = out;
+
+        // the new h of the row's U units (carries at invalid rows) to every
+        // block of the cluster: lane l gathers chunk j = l % 8 (units
+        // 4j..4j+3) and sends it to blocks l / 8 + 4m, counted on the
+        // barrier of the k-group its units fall in.  A block has all of
+        // the group's step l + 1 h only once every block has passed the
+        // group's barrier above, i.e. is done reading its step l h;
+        // nothing reads the last step's h.
+        if (l + 1 < maxlen) {
+          const int j = lane & 7;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = __shfl_sync(0xffffffffu, h, 4 * j + e);
+          const int half = g * 2 + ((l + 1) & 1);
+          const uint32_t dst = smem_u32(hf_s + ((size_t)half * 8 + ctr) * HF + rank * U + 4 * j);
+          const uint32_t bar = smem_u32(&full[half * RKG + rank / 2]);
+#pragma unroll
+          for (int m = 0; m < RCL / 4; ++m) {
+            const int d = (lane >> 3) + 4 * m;
+            st_async4(cluster_addr(dst, d), v, cluster_addr(bar, d));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int gt = 0; gt < 4; ++gt) xg[gt] = xn[gt];
+  }
+  // No cluster barrier at the end: the last st.async into a block (the h
+  // of its last step) is awaited by that block before it leaves.
+
+  // steps past the cluster's longest row output 0; the carries are final
+  // (their residual carries: the final state forward, the zero initial
+  // state in reverse, where those steps come first)
+  if (cell && crow < B) {
+    hT[(size_t)crow * H + k] = h;
+    cT[(size_t)crow * H + k] = c;
+    for (int t = maxlen; t < L; ++t) {
+      outs[((size_t)crow * L + t) * H + k] = 0.f;
+      if (train) {
+        hprev[((size_t)t * B + crow) * H + k] = reverse ? 0.f : h;
+        cprev[((size_t)t * B + crow) * H + k] = reverse ? 0.f : c;
+      }
+    }
+  }
+}
+
+// The resident walk's kernel and its launch configuration for clusters of
+// RCL blocks (grid: `clusters` of them).
+template <int H, int NT>
+cudaError_t res_config(int clusters, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                       cudaLaunchAttribute* attr) {
+  const auto kern = recurrence_res_kernel<H, NT>;
+  const size_t smem = res_smem<H>(NT);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * RCL);
+  cfg->blockDim = dim3(RT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = RCL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+// The clusters of the resident walk (NT n-tiles) that the card holds at
+// once (cudaOccupancyMaxActiveClusters), asked once a process.
+template <int H, int NT>
+cudaError_t res_clusters_at_once(int* n) {
+  static int cached = -1;
+  if (cached < 0) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t e = res_config<H, NT>(1, nullptr, &cfg, &attr);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&cached, recurrence_res_kernel<H, NT>, &cfg);
+    if (e != cudaSuccess) {
+      cached = -1;
+      return e;
+    }
+  }
+  *n = cached;
+  return cudaSuccess;
+}
+
+// The resident walk's rows a cluster: B spread over the clusters the card
+// holds at once, at most 16 (ops/cuda/lstm_scan.py::res_rows).
+template <int H>
+cudaError_t res_rows(int B, int* rows, int* at_once) {
+  const cudaError_t e = res_clusters_at_once<H, 1>(at_once);
+  const int n = max(*at_once, 1);
+  *rows = min((B + n - 1) / n, 16);
+  return e;
+}
+
+template <int H, int NT>
+cudaError_t launch_res(float* gx, const int64_t* lengths, const __nv_bfloat16* w_hh, float* outs,
+                       float* hT, float* cT, float* hprev, float* cprev, int B, int L, int rows,
+                       int reverse, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = res_config<H, NT>((B + rows - 1) / rows, stream, &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&cfg, recurrence_res_kernel<H, NT>, gx, lengths, w_hh, outs, hT, cT,
+                            hprev, cprev, B, L, rows, reverse);
+}
+
+template <int H>
+cudaError_t launch_res(float* gx, const int64_t* lengths, const __nv_bfloat16* w_hh, float* outs,
+                       float* hT, float* cT, float* hprev, float* cprev, int B, int L,
+                       int reverse, cudaStream_t stream) {
+  int rows, at_once;
+  const cudaError_t e = res_rows<H>(B, &rows, &at_once);
+  if (e != cudaSuccess) return e;
+  return (rows <= 8 ? launch_res<H, 1> : launch_res<H, 2>)(
+      gx, lengths, w_hh, outs, hT, cT, hprev, cprev, B, L, rows, reverse, stream);
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                        const void* b, void* gx, void* outs, void* hT, void* cT, void* hprev,
@@ -997,6 +1374,14 @@ cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, co
 
   const int clusters = (B + R - 1) / R;
   if (H > 256) {
+    if constexpr (!std::is_same<T, float>::value) {  // bf16 at H = 512: W_hh resident
+      if (H == 512)
+        return launch_res<512>(
+            static_cast<float*>(gx), static_cast<const int64_t*>(lengths),
+            static_cast<const T*>(w_hh),
+            static_cast<float*>(outs), static_cast<float*>(hT), static_cast<float*>(cT),
+            static_cast<float*>(hprev), static_cast<float*>(cprev), B, L, reverse, stream);
+    }
     if ((e = pack_whh<T>(w_hh, wpack, H, 0, stream)) != cudaSuccess) return e;
     const size_t wsm = wide_fwd_smem(H, sizeof(T));
     if ((e = cudaFuncSetAttribute(recurrence_wide_kernel<T>,
@@ -1882,9 +2267,10 @@ cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, co
 // one dtype; lengths [B] int64; gx [B, L, 4H] f32 scratch; outs [B, L, H],
 // hT and cT [B, H] f32.  H must be a multiple of 32 (U = H / 8 a multiple
 // of 4, whole m-tiles of four units) up to 512: up to 256 a block's W_hh
-// fragments sit in its registers; above, the wide walk streams them from
-// wpack [4H * H] (the dtype's scratch; unused up to 256).  xs rows must be
-// whole 16-byte chunks (ops/cuda/lstm_scan.py pads them).
+// fragments sit in its registers, and so they do in bf16 at H = 512
+// (the resident walk, clusters of 16); otherwise the wide walk streams them
+// from wpack [4H * H] (the dtype's scratch; unused by the other walks).  xs
+// rows must be whole 16-byte chunks (ops/cuda/lstm_scan.py pads them).
 extern "C" int lstm_scan(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                          const void* b, void* gx, void* outs, void* hT, void* cT, void* wpack,
                          int B, int L, int D, int H, int reverse, int dtype, void* stream) {
@@ -1935,4 +2321,45 @@ extern "C" int lstm_scan_bwd(const void* xs, const void* lengths, const void* w_
                                      reverse, s);
   return launch_bwd<float>(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT, da,
                            db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H, reverse, s);
+}
+
+// The forward walk's plan at (B, H, dtype), as launch_fwd takes it: out[0..6]
+// = blocks a cluster, batch rows a cluster, clusters, threads a block,
+// shared memory bytes a block, the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters) that the plan chose the rows from (the
+// resident walk's at one row group), and those of the launched walk.
+extern "C" int lstm_scan_plan_query(int B, int H, int dtype, int* out) {
+  if (H % 32 != 0 || H > 512) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  int cl = CL, rows = R, threads = THREADS, planned = 0, at_once = 0;
+  size_t smem = fwd_rec_smem(H);
+  cudaLaunchConfig_t cfg = {};
+  if (dtype == DTYPE_BF16 && H == 512) {
+    e = res_rows<512>(B, &rows, &planned);
+    const int nt = rows <= 8 ? 1 : 2;
+    cl = RCL, threads = RT, at_once = planned;
+    smem = res_smem<512>(nt);
+    if (e == cudaSuccess && nt == 2)  // the launched kernel's own count
+      e = res_clusters_at_once<512, 2>(&at_once);
+  } else {
+    const void* kern;
+    if (H > 256) {
+      threads = WT;
+      smem = wide_fwd_smem(H, dtype == DTYPE_BF16 ? 2 : 4);
+      kern = dtype == DTYPE_BF16 ? (const void*)recurrence_wide_kernel<__nv_bfloat16>
+                                 : (const void*)recurrence_wide_kernel<float>;
+    } else {
+      kern = dtype == DTYPE_BF16 ? (const void*)recurrence_kernel<__nv_bfloat16>
+                                 : (const void*)recurrence_kernel<float>;
+    }
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cfg.gridDim = dim3(CL);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&at_once, kern, &cfg);
+    planned = at_once;
+  }
+  const int vals[7] = {cl, rows, (B + rows - 1) / rows, threads, (int)smem, planned, at_once};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return (int)e;
 }

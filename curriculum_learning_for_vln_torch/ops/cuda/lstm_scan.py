@@ -16,12 +16,17 @@ db over the valid steps only, in a fixed order (no atomics).  Every
 product with an f32 operand runs in TF32 with that operand split in two
 halves, which keeps f32 accuracy; bf16 operands are exact there.  Up
 to H = 256 both walks keep their block's eighth of W_hh in registers (and
-the f32 low halves in shared memory); above, to H = 512 (the
-Self-Monitor's encoder), the wide walks (512 threads a block) stream it
-every step, in the fragment order ``whh_pack_order`` gives, which one
-more launch writes into a scratch copy.  Rows of xs that are not whole
-16-byte chunks (the Follower's 300-wide bf16 embeddings) are zero-padded
-by ``pad_rows``, and d_xs and dW_ih cut back: exact.
+the f32 low halves in shared memory).  The bf16 forward at H = 512 (the
+Self-Monitor's encoder; the resident walk) takes clusters of 16 blocks,
+each holding its sixteenth of W_hh in registers for the whole walk, and
+multiplies h as three bf16 terms (``split_bf16x3``); its rows a cluster
+(up to 16) follow from the clusters the card holds at once
+(``res_rows``).  The other walks above H = 256 (512 threads a block: the
+f32 forward, the backward, other H) stream their eighth every step, in
+the fragment order ``whh_pack_order`` gives, which one more launch
+writes into a scratch copy.  Rows of xs that are not whole 16-byte
+chunks (the Follower's 300-wide bf16 embeddings) are zero-padded by
+``pad_rows``, and d_xs and dW_ih cut back: exact.
 ``lstm_scan_fwd_plan`` and ``lstm_scan_bwd_plan`` give the launch
 geometry, ``valid_steps`` / ``split_bounds`` the order in which the GEMMs
 take the valid steps, and ``lstm_scan_fwd_emulated`` /
@@ -38,7 +43,7 @@ counts once, whatever its number of launches).
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -74,6 +79,10 @@ DW_TI, DW_TJ, DW_KC, DW_STAGES, DW_THREADS, DW_SPLITS = 64, 128, 32, 3, 256, 8
 # (forward) or WBQ k-steps of two (backward)
 WIDE_H, WT, WFQ, WBQ, WSTAGES = 256, 512, 4, 2, 4
 WW = WT // 32
+# The resident walk (bf16, H = 512): clusters of RES_CL blocks of RES_T
+# threads, warp w = (m-group w / RES_KG, k-group w % RES_KG)
+RES_CL, RES_T, RES_KG = 16, 512, 8
+RES_MG = RES_T // 32 // RES_KG
 MAX_H = 512
 MAX_SMEM = 232448  # shared memory a block can use on the H100
 
@@ -110,12 +119,14 @@ class FwdPlan(NamedTuple):
     block y takes step tiles y, y + Y, ... below the valid steps' count,
     which it computes on the device, so no host synchronisation reads the
     lengths) of GX_THREADS threads with ``gx_smem`` bytes; the
-    recurrence's ``rec_grid`` blocks (clusters of CL along x) of
-    ``rec_threads`` threads with ``rec_smem``, of whose warps the first
-    ``rec_warps`` (one a 16-column m-tile of the block's 4H / 8 gate
-    columns) hold ``w_regs`` registers a thread of W_hh fragments (up to
-    H = 256), or stream ``w_stream`` bytes of them a step from a packed
-    copy of ``w_pack`` elements (the wide walk)."""
+    recurrence's ``rec_grid`` blocks (clusters of ``cluster`` blocks along
+    x, each cluster ``rows`` batch rows) of ``rec_threads`` threads with
+    ``rec_smem``, of whose warps ``rec_warps`` hold ``w_regs`` registers
+    a thread of W_hh fragments for the whole walk (up to H = 256: one warp
+    a 16-column m-tile of the block's 4H / 8 gate columns; the resident
+    walk: every warp), or stream ``w_stream`` bytes of them a step from a
+    packed copy of ``w_pack`` elements (the other wide walks).
+    ``w_where`` says where W_hh sits during the walk."""
     gx_grid: Tuple[int, int]
     gx_smem: int
     rec_grid: int
@@ -125,28 +136,101 @@ class FwdPlan(NamedTuple):
     rec_threads: int
     w_stream: int
     w_pack: int
+    cluster: int
+    rows: int
+    w_where: str
+
+    @property
+    def clusters(self) -> int:
+        return self.rec_grid // self.cluster
 
 
-def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> FwdPlan:
+def resident(H: int, elem_size: int) -> bool:
+    """Whether the forward takes the resident walk: bf16 at H = 512, the
+    Self-Monitor's encoder (f32 and the other H above 256 stream W_hh)."""
+    return elem_size == 2 and H == 512
+
+
+def res_rows(B: int, clusters_at_once: int) -> int:
+    """The resident walk's batch rows a cluster: B spread over the clusters
+    the card holds at once, at most 16 (two n-tiles of 8), so that the
+    launch is one wave wherever 16 rows a cluster can make it one (the
+    H100's 7 clusters of 16 blocks take B = 64 as 7 clusters of 10 rows;
+    8 rows would leave one of 8 clusters for a second wave).  Fewer rows a
+    cluster send fewer bytes of h a step, which bound the step."""
+    return min(_ceil_div(B, max(clusters_at_once, 1)), 16)
+
+
+def res_geometry(H: int):
+    """The resident walk's (U units, G4 columns, MT m-tiles, KS 16-k steps
+    of a block; MPW m-tiles and KPW 16-k steps of a warp; the row strides
+    WS of the staged slice, in elements, HF of h as received and PS of a
+    partial tile, in floats)."""
+    U = H // RES_CL
+    G4, KS = 4 * U, H // 16
+    MT = G4 // 16
+    return U, G4, MT, KS, MT // RES_MG, KS // RES_KG, G4 + 8, H + 8, G4 + 4
+
+
+def res_smem(H: int, rows: int) -> int:
+    """Shared memory of a resident block of ``rows`` rows in NT groups (one
+    n-tile of 8 each: NT = 2 above 8 rows): the staged slice of W_hh [H][WS]
+    bf16 (the prologue's), and over it each group's h as received
+    [NT][2][8][HF] f32 and two buffers of partial tiles [2][RES_KG][8][PS]
+    f32 (a group step's buffer is its parity); an mbarrier for each group,
+    half of h and k-group."""
+    *_, WS, HF, PS = res_geometry(H)
+    nt = _ceil_div(rows, 8)
+    return (max(H * WS * 2, nt * 2 * 8 * HF * 4 + 2 * RES_KG * 8 * PS * 4)
+            + nt * 2 * RES_KG * 8)
+
+
+def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
+                       clusters_at_once: Optional[int] = None) -> FwdPlan:
+    """``clusters_at_once``: the resident walk's clusters that the card
+    holds at once, from which ``res_rows`` chooses (on a card, what
+    ``plan_query`` reads); the resident walk needs it, the others ignore it."""
     U = H // CL
     starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
     kc = 128 // elem_size  # elements of a stage's 128-byte rows
     x_stride, w_stride = kc + (4 if elem_size == 4 else 8), GX_TN + 8
     gx_smem = starts + GX_TM * 4 + GX_STAGES * (GX_TM * x_stride + kc * w_stride) * elem_size
     gx_grid = (4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX))
+    if resident(H, elem_size):
+        if clusters_at_once is None:
+            raise ValueError("the resident walk's rows follow from the clusters the card holds "
+                             "at once (plan_query)")
+        rows = res_rows(B, clusters_at_once)
+        _, _, _, _, mpw, kpw, *_ = res_geometry(H)
+        return FwdPlan(gx_grid, gx_smem, _ceil_div(B, rows) * RES_CL, res_smem(H, rows),
+                       RES_T // 32, 4 * mpw * kpw, RES_T, 0, 0, RES_CL, rows, "registers")
     if H > WIDE_H:
         # the warps' rings; h double-buffered; the gate tiles; the final
         # (h, c); two mbarriers.  A block streams its 4U columns of W_hh
         rec_smem = (WW * WSTAGES * WFQ * 32 * 4 * elem_size
                     + (2 * H * R + WW * R * GT_S + 2 * R * U) * 4 + 16)
         return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 0, WT,
-                       4 * U * H * elem_size, 4 * H * H)
+                       4 * U * H * elem_size, 4 * H * H, CL, R, "streamed from L2")
     # W_hh's columns as f32 fragments; h double-buffered; three steps' gx of
     # every warp; the warps' gate tiles; the final (h, c); two mbarriers
     rec_smem = (4 * U * H + 2 * H * R + 3 * WARPS * 4 * R * 4 + WARPS * R * GT_S
                 + 2 * R * U) * 4 + 16
     return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 4 * FKS_MAX,
-                   THREADS, 0, 0)
+                   THREADS, 0, 0, CL, R,
+                   "registers" if elem_size == 2 else
+                   "registers (TF32 high halves) and shared memory (low halves)")
+
+
+def plan_query(B: int, H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """(blocks a cluster, rows a cluster, clusters, threads, shared memory,
+    the clusters the card holds at once that the rows were chosen from, and
+    those of the launched walk) of the forward walk the C entry points
+    launch, read from the built library (a card is needed)."""
+    fn = build.kernel_function("lstm_scan", "lstm_scan_plan_query",
+                               [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 7)()
+    build.check_launch(fn(B, H, build.DTYPE_CODES[dtype], out), "lstm_scan_plan_query")
+    return tuple(out)
 
 
 def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPlan:
@@ -319,19 +403,51 @@ def _block_columns(H: int) -> List[torch.Tensor]:
             for r in range(CL)]
 
 
+def split_bf16x3(x: torch.Tensor) -> List[torch.Tensor]:
+    """x (f32) as three bf16 terms t1 + t2 + t3, as the resident walk splits
+    the h it receives: each the round-to-nearest-even of what the terms before leave
+    (x - t1 and x - t1 - t2 are exact in f32), so x - (t1 + t2 + t3) is
+    within 2^-24 |x|, or, where the last terms fall below bf16's normal
+    range (|x| < 2^-110), within half its subnormal spacing, 2^-134."""
+    terms = []
+    for _ in range(3):
+        t = x.to(torch.bfloat16)
+        terms.append(t)
+        x = x - t.float()
+    return terms
+
+
+def _res_product(h: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
+    """h . W_hh [B, 4H] as the resident walk sums it: each of the RES_KG
+    k-groups' partial, its three bf16 terms of h times the bf16 W_hh
+    (exact products, f32 sums), then the partials in k-group order.  The
+    blocks' column slices do not enter: a column's sum runs over k only."""
+    H = whh.shape[0]
+    terms = [t.float() for t in split_bf16x3(h)]
+    kw = H // RES_KG
+    out = None
+    for kg in range(RES_KG):
+        ks = slice(kg * kw, (kg + 1) * kw)
+        part = terms[0][:, ks] @ whh[ks] + terms[1][:, ks] @ whh[ks] + terms[2][:, ks] @ whh[ks]
+        out = part if out is None else out + part
+    return out
+
+
 def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
     """K3's and K1's arithmetic in plain torch on the CPU, as
     ``csrc/lstm_scan.cu`` cuts it: gx = x . W_ih + b in the kernel's
     precision (bf16: exact products of the bf16 operands summed in f32;
     f32: TF32 with both operands split); the step product h . W_hh per
     block of the cluster (its G4 gate columns) in TF32 with h split into
-    two halves and W_hh split in f32 only (bf16 is exact in TF32); the
-    cell update in f32.  Returns what ``lstm_scan_train_plain`` returns
-    (the pre-activations at every step; the kernel writes only the valid
-    ones)."""
+    two halves and W_hh split in f32 only (bf16 is exact in TF32), or, on
+    the resident walk, in bf16 with h as three terms (``_res_product``);
+    the cell update in f32.  Returns what ``lstm_scan_train_plain``
+    returns (the pre-activations at every step; the kernel writes only the
+    valid ones)."""
     B, L, D = xs.shape
     H = w_hh.shape[0]
     f32 = xs.dtype == torch.float32
+    res = resident(H, xs.element_size())
     x, wih, whh = xs.float().reshape(B * L, D), w_ih.float(), w_hh.float()
     gx = (_tf32_mm(x, wih, True, True) if f32 else x @ wih).reshape(B, L, 4 * H) + b.float()
     h = torch.zeros((B, H))
@@ -343,9 +459,12 @@ def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
     for l in range(L):
         t = L - 1 - l if reverse else l
         hprev[t], cprev[t] = h, c
-        hw = torch.zeros((B, 4 * H))
-        for col in cols:
-            hw[:, col] = _tf32_mm(h, whh[:, col], True, f32)
+        if res:
+            hw = _res_product(h, whh)
+        else:
+            hw = torch.zeros((B, 4 * H))
+            for col in cols:
+                hw[:, col] = _tf32_mm(h, whh[:, col], True, f32)
         gates[:, t] = hw + gx[:, t]
         h_new, c_new = _cell(gates[:, t], c, H)
         valid = (t < lengths)[:, None]
@@ -449,7 +568,9 @@ def _forward_cuda(name, symbol, argtypes, xs, lengths, w_ih, w_hh, b, reverse, t
     xs, w_ih = pad_rows(xs, w_ih)
     B, L, D = xs.shape
     H = w_hh.shape[0]
-    plan = lstm_scan_fwd_plan(B, L, D, H, xs.element_size())
+    # the resident walk's rows, as the C entry point chooses them on this card
+    at_once = plan_query(B, H, xs.dtype)[5] if resident(H, xs.element_size()) else None
+    plan = lstm_scan_fwd_plan(B, L, D, H, xs.element_size(), at_once)
     if max(plan.gx_smem, plan.rec_smem) > MAX_SMEM:
         raise ValueError(f"{name}: batch {B} needs more shared memory than a block has")
     f32 = dict(dtype=torch.float32, device=xs.device)

@@ -29,7 +29,9 @@ checkout's plain version (the tolerances of chip_smoke.py).
   packed ``nn.LSTM`` (forward without and with autograd recording, and
   ``autograd.grad`` through it) and each kernel's bound
   (``chip_smoke.lstm_bounds``), and K3 and K1 also at 0 and at 80 tokens in
-  every row (the forward's fixed cost, and its full walk of 80 valid steps).
+  every row (the forward's fixed cost, and its full walk of 80 valid steps);
+  then all three at the Self-Monitor's encoder shape, D = 256, H = 512, at
+  17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch).
 
 Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
 summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
@@ -96,24 +98,29 @@ def entry(lib, symbol, argtypes):
     return fn
 
 
-def lstm_entry(lib, symbol, argtypes):
+def lstm_entry(lib, symbol, argtypes, wpack):
     """An LSTM scan's entry point and the extra pointers it takes after the
-    tensors: the packed-W_hh scratch (null: H = 256 does not read it), or
-    nothing for a tree whose signature predates it."""
+    tensors: the packed-W_hh scratch ``wpack`` (its data pointer), or nothing
+    for a tree whose signature predates it (H = 256 only)."""
     if lib.takes_wpack:
-        return entry(lib, symbol, argtypes), [0]
+        return entry(lib, symbol, argtypes), [wpack.data_ptr()]
     return entry(lib, symbol, argtypes[:-8] + argtypes[-7:]), []
 
 
 def lstm_cases(dtype, dev, gen):
     full = torch.full((64,), 80, device=dev)
-    for label, lengths in (("11-20 tokens", torch.randint(11, 21, (64,), generator=gen,
-                                                          device=dev)),
-                           ("17-80 tokens", cs.long_lengths(64, gen, dev)),
-                           # K3 and K1 only: the forward's fixed cost (no step
-                           # valid) and its full walk (every step valid)
-                           ("0 tokens", torch.zeros_like(full)), ("80 tokens", full)):
-        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, 64)
+    cases = [(label, 256, lengths) for label, lengths in (
+        ("11-20 tokens", torch.randint(11, 21, (64,), generator=gen, device=dev)),
+        ("17-80 tokens", cs.long_lengths(64, gen, dev)),
+        # K3 and K1 only: the forward's fixed cost (no step valid) and its
+        # full walk (every step valid)
+        ("0 tokens", torch.zeros_like(full)), ("80 tokens", full))]
+    cases.append(("H=512 17-80 tokens", 512, None))  # the Self-Monitor's encoder
+    for label, H, lengths in cases:
+        if lengths is None:
+            lengths = cs.long_lengths(64, gen, dev)
+        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, 64, H=H)
+        wpack = torch.empty((4 * H * H,), dtype=dtype, device=dev)  # the wide walks' scratch
         B, L, D = xs.shape
         H = w_hh.shape[0]
         valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
@@ -133,8 +140,8 @@ def lstm_cases(dtype, dev, gen):
         carries = (torch.empty((L, B, H), **f32), torch.empty((L, B, H), **f32))
         for name, argtypes, train in (("lstm_scan", kl._ARGTYPES, False),
                                       ("lstm_scan_train", kl._TRAIN_ARGTYPES, True)):
-            def call(lib, name=name, argtypes=argtypes, train=train):
-                fn, extra = lstm_entry(lib, name, argtypes)
+            def call(lib, name=name, argtypes=argtypes, train=train, wpack=wpack):
+                fn, extra = lstm_entry(lib, name, argtypes, wpack)
                 ptrs = [t.data_ptr() for t in (xs, lengths, w_ih, w_hh, b, gx, *fouts,
                                                *(carries if train else ()))] + extra
 
@@ -167,8 +174,8 @@ def lstm_cases(dtype, dev, gen):
                 torch.empty((H, 4 * H), **f32), torch.empty((4 * H,), **f32))
         scratch = (torch.empty((B, L, 4 * H), **f32), torch.empty((-(-B // 8), 4 * H), **f32))
 
-        def call(lib):
-            fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES)
+        def call(lib, wpack=wpack):
+            fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES, wpack)
 
             def run(i):
                 err = fn(*(t.data_ptr() for t in (*res, *scratch, *outs)), *extra, B, L, D, H, 0,

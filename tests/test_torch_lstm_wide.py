@@ -2,26 +2,32 @@
 
 The Self-Monitor's encoder is one LSTM at H = 512 a direction, past the
 256 up to which a block keeps its eighth of W_hh in registers and shared
-memory: ``csrc/lstm_scan.cu``'s wide walks stream it every step from a
-copy that ``pack_whh_kernel`` lays out in fragment order
-(``lstm_scan.whh_pack_order``).  The Follower's first layer reads 300-wide
+memory: ``csrc/lstm_scan.cu``'s bf16 forward there keeps a sixteenth a
+block in registers (clusters of 16, the resident walk), its other wide
+walks stream it every step from a copy that ``pack_whh_kernel`` lays out
+in fragment order (``lstm_scan.whh_pack_order``).  The Follower's first layer reads 300-wide
 bf16 embeddings, 600-byte rows that the kernels' 16-byte loads cannot
 take: the wrappers zero-pad them (``lstm_scan.pad_rows``) and cut d_xs and
 dW_ih back.
 
 * ``lstm_scan_fwd_emulated`` and ``lstm_scan_bwd_emulated`` (the
-  kernels' arithmetic: per-block split-TF32 step products, the plans'
-  GEMM orders) at H = 512 and at D = 300 bf16, against the Pallas kernels
-  in interpret mode, from the same numpy-seeded inputs, at small B and L;
+  kernels' arithmetic: per-block split-TF32 step products, or the resident
+  walk's three bf16 terms of h summed by k-group, the plans' GEMM orders)
+  at H = 512, at H = 384 bf16 (the streaming forward) and at D = 300 bf16,
+  against the Pallas kernels in interpret mode, from the same numpy-seeded
+  inputs, at small B and L;
   the tolerances of ``tests/test_torch_lstm_fwd_plans.py`` (1e-4 x max(1,
   max |JAX|)) and ``tests/test_torch_kernel_plans.py`` (d_xs 1e-3 in
   bf16, 1e-4 in f32; dW and db 1e-4);
 * ``pad_rows`` is exact: the plain forward and backward of the padded
   inputs, cut back, equal those of the unpadded ones;
-* the wide plans: shared memory within the H100's, 512 threads, one warp
-  an m-tile in the forward and two m-tiles a warp in the backward, the
-  streamed bytes; and the pack order is a permutation of W_hh whose
-  fragments are those of the walks' tiles.
+* the wide plans: shared memory within the H100's, 512 threads; the bf16
+  forward at H = 512 keeps W_hh in registers (clusters of 16, nothing
+  streamed), the other wide walks stream it (one warp an m-tile in the
+  forward, two m-tiles a warp in the backward); and the pack order is a
+  permutation of W_hh whose fragments are those of the streaming walks'
+  tiles.  ``tests/test_torch_lstm_res.py`` holds the resident
+  walk's layout.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +46,7 @@ DTYPE = {"bf16": (torch.bfloat16, jnp.bfloat16), "f32": (torch.float32, jnp.floa
 L = 4
 LENGTHS = np.array([L, 1, 0], np.int64)  # a full row, a short one and an empty one
 # (prec, D, H): the Self-Monitor's H = 512 in both dtypes, the Follower's 300-wide bf16 rows
-SHAPES = [("f32", 32, 512), ("bf16", 32, 512), ("bf16", 300, 32)]
+SHAPES = [("f32", 32, 512), ("bf16", 32, 512), ("bf16", 300, 32), ("bf16", 32, 384)]
 
 
 def _inputs(D, H, seed):
@@ -110,34 +116,65 @@ def test_pad_rows_is_exact(prec):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
 
 
+MAX_REGS_512 = 128  # registers a thread at 512 threads (65,536 an SM)
+# cudaOccupancyMaxActiveClusters of the resident walk on an H100 80GB HBM3
+# (132 SMs, one block an SM; chip_smoke.py prints the card's own count)
+H100_RES_CLUSTERS = 7
+
+
 @pytest.mark.parametrize("B", [1, 61, 64, 512])
 @pytest.mark.parametrize("H", [288, 384, 512])
 def test_wide_plans_fit_the_h100(B, H):
     for elem in (2, 4):
-        f = t_lstm.lstm_scan_fwd_plan(B, 80, 256, H, elem)
+        f = t_lstm.lstm_scan_fwd_plan(B, 80, 256, H, elem, H100_RES_CLUSTERS)
         b = t_lstm.lstm_scan_bwd_plan(B, 80, 256, H, elem)
         assert max(f.gx_smem, f.rec_smem, b.rec_smem, b.dx_smem, b.dw_smem) <= MAX_SMEM
         assert f.rec_threads == b.rec_threads == t_lstm.WT == 512
-        # forward: one warp an m-tile of 16 gate columns of the block's 4H / 8
-        assert f.rec_warps * 16 == 4 * H // t_lstm.CL and f.rec_warps <= t_lstm.WW
-        assert f.w_regs == 0 and f.w_stream == b.w_stream == 4 * H * H // t_lstm.CL * elem
-        assert f.w_pack == b.w_pack == 4 * H * H
+        if t_lstm.resident(H, elem):
+            # clusters of 16, every warp holding its W_hh fragments for the
+            # whole walk: all of W_hh in the cluster's registers once, 64 a
+            # thread at most (the step's working set takes the rest of 128),
+            # nothing streamed
+            assert elem == 2 and H == 512 and f.w_where == "registers"
+            assert f.cluster == 16 and 1 <= f.rows <= 16 and f.rec_warps == 16
+            assert f.w_regs * 4 * f.rec_threads * f.cluster == H * 4 * H * elem
+            assert f.w_regs <= MAX_REGS_512 // 2 and f.w_stream == f.w_pack == 0
+            assert f.clusters == -(-B // f.rows)
+        else:
+            # forward: one warp an m-tile of 16 gate columns of the block's 4H / 8
+            assert f.cluster == t_lstm.CL and f.rows == t_lstm.R
+            assert f.rec_warps * 16 == 4 * H // t_lstm.CL and f.rec_warps <= t_lstm.WW
+            assert f.w_regs == 0 and f.w_stream == 4 * H * H // t_lstm.CL * elem
+            assert f.w_pack == 4 * H * H
+            assert (H // 8) % t_lstm.WFQ == 0
+        assert b.w_stream == 4 * H * H // t_lstm.CL * elem and b.w_pack == 4 * H * H
         # backward: a thread a (row, unit) cell, two m-tiles of the H units a warp
         assert t_lstm.R * H // t_lstm.CL <= t_lstm.WT and 2 * t_lstm.WW * 16 >= H
         # the step product's k-steps come in whole groups
-        assert (H // 8) % t_lstm.WFQ == 0 and (H // 16) % t_lstm.WBQ == 0
+        assert (H // 16) % t_lstm.WBQ == 0
 
 
 def test_wide_plans_at_the_monitor_shape():
-    """B = 64, L = 80, D = 256, H = 512: 8 clusters of 8 blocks of 512
-    threads; each block streams 512 KB of W_hh a step in f32 (256 KB in
-    bf16) through 128 KB (64 KB) of rings."""
-    for elem, fwd_smem, bwd_smem in ((4, 178192, 196624), (2, 112656, 131088)):
-        f = t_lstm.lstm_scan_fwd_plan(64, 80, 256, 512, elem)
+    """B = 64, L = 80, D = 256, H = 512.  bf16: the resident walk, W_hh in
+    registers (64 a thread), nothing streamed; on the H100's 7 clusters of
+    16 at once, 7 clusters of 10 rows (112 blocks) at B = 64, 7 of 9 at
+    B = 61, 1 of 1 row at B = 1; the 139,264 B staged slice (over which h
+    and the partials land) and the mbarriers of two row groups, 139,520 B
+    of shared memory a block, or of one, 139,392.  f32: 8 clusters of 8 blocks streaming 512 KB of
+    W_hh a step through 128 KB of rings.  The backward streams in both
+    (256 KB a step in bf16)."""
+    f = t_lstm.lstm_scan_fwd_plan(64, 80, 256, 512, 4)
+    assert (f.cluster, f.rows, f.rec_grid, f.rec_warps) == (8, 8, 64, 16)
+    assert f.rec_smem == 178192 and f.w_stream == 4 * 64 * 512 * 4
+    for B, rows, clusters, smem in ((64, 10, 7, 139520), (61, 9, 7, 139520),
+                                    (1, 1, 1, 139392)):
+        f = t_lstm.lstm_scan_fwd_plan(B, 80, 256, 512, 2, H100_RES_CLUSTERS)
+        assert (f.cluster, f.rows, f.clusters, f.rec_grid) == (16, rows, clusters, clusters * 16)
+        assert f.rec_smem == smem and f.w_stream == 0 and f.w_regs == 64
+    for elem, bwd_smem in ((4, 196624), (2, 131088)):
         b = t_lstm.lstm_scan_bwd_plan(64, 80, 256, 512, elem)
-        assert f.rec_grid == b.rec_grid == 64 and f.rec_warps == 16
-        assert (f.rec_smem, b.rec_smem) == (fwd_smem, bwd_smem)
-        assert f.w_stream == 4 * 64 * 512 * elem
+        assert b.rec_grid == 64 and b.rec_smem == bwd_smem
+        assert b.w_stream == 4 * 64 * 512 * elem
     # the padded Follower rows: D = 300 bf16 is planned as 304
     assert t_lstm.lstm_scan_bwd_plan(64, 80, 304, 128, 2).dx_grid[0] == 5
 
