@@ -97,9 +97,10 @@
 // the card's 132 SMs at B = 64.  Both walks keep W_hh in registers and
 // exchange by st.async; their input GEMMs visit the valid steps only.
 // Above H = 256 (the Self-Monitor's encoder, H = 512) a block's eighth no
-// longer fits.  The bf16 forward at H = 512 (the resident walk below) takes
-// clusters of 16 blocks, each holding its sixteenth in registers; the
-// other wide walks stream their eighth from L2 every step, so a step costs
+// longer fits.  Both bf16 walks at H = 512 (the resident walks below: the
+// forward's for K3 and K1, the backward's for K2) take clusters of 16
+// blocks, each holding its sixteenth in registers; the other wide walks
+// (f32, other H) stream their eighth from L2 every step, so a step costs
 // the time to bring 256 KB (bf16) or 512 KB (f32) into each of the 64
 // blocks, several times a step of the walks above.
 //
@@ -289,9 +290,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j]
-// is matrix j's fragment, lane l holding rows 2(l % 4), 2(l % 4) + 1 of
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j] is matrix
+// j's fragment, lane l holding columns 2(l % 4), 2(l % 4) + 1 of row l / 4
+// — from rows of A[m][k] a row-major mma A fragment, from rows of B^T[n][k]
+// a col-major B fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// The same, transposed: lane l holding rows 2(l % 4), 2(l % 4) + 1 of
 // column l / 4 — from rows of B[k][n], a col-major mma B fragment.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -719,7 +730,8 @@ recurrence_kernel(float* __restrict__ gx, const int64_t* __restrict__ lengths,
 }
 
 // ---------------------------------------------------------------------------
-// The wide walks, for 256 < H <= 512 (the Self-Monitor's encoder: H = 512).
+// The wide walks, for 256 < H <= 512 (the Self-Monitor's encoder: H = 512;
+//    in bf16 there the resident walks below take their place).
 //    A block's eighth of W_hh is then 256 gate columns x 512 rows: 512 KB in
 //    f32, 256 KB in bf16, more than its shared memory and, as fragments, far
 //    more than its registers.  So the wide walks keep the cluster-of-8
@@ -1053,6 +1065,22 @@ __host__ __device__ constexpr size_t res_smem(int NT) {
   return (stage > walk ? stage : walk) + (size_t)NT * 2 * RKG * 8;
 }
 
+// The block's slice of W_hh [H, 4H] (bf16) into shared memory, both
+// resident walks' prologue: w_s[k'][g U + u] = W_hh[k'][g H + rank U + u],
+// row stride WS, by 16-byte chunks (a chunk stays in one gate).
+template <int H>
+__device__ __forceinline__ void stage_res_slice(const __nv_bfloat16* __restrict__ w_hh,
+                                                __nv_bfloat16* w_s, int rank) {
+  using P = Res<H>;
+  constexpr int CPR = P::G4 / 8;
+  for (int i = threadIdx.x; i < H * CPR; i += RT) {
+    const int kk = i / CPR, c = (i % CPR) * 8, g = c / P::U, u = c % P::U;
+    *reinterpret_cast<uint4*>(w_s + kk * P::WS + c) =
+        *reinterpret_cast<const uint4*>(w_hh + (size_t)kk * 4 * H + g * H + rank * P::U + u);
+  }
+  __syncthreads();
+}
+
 // A pair of f32 as three pairs of bf16 terms (the low element in the low
 // half), each the rounding of what the terms before leave (x - t1 and
 // x - t1 - t2 are exact in f32).
@@ -1074,7 +1102,7 @@ recurrence_res_kernel(float* __restrict__ gx, const int64_t* __restrict__ length
                       float* __restrict__ hT, float* __restrict__ cT, float* __restrict__ hprev,
                       float* __restrict__ cprev, int B, int L, int RR, int reverse) {
   using P = Res<H>;
-  constexpr int U = P::U, G4 = P::G4, MPW = P::MPW, KPW = P::KPW;
+  constexpr int U = P::U, MPW = P::MPW, KPW = P::KPW;
   constexpr int WS = P::WS, HF = P::HF, PS = P::PS, H4 = 4 * H;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -1114,15 +1142,7 @@ recurrence_res_kernel(float* __restrict__ gx, const int64_t* __restrict__ length
     }
   };
 
-  // the block's slice of W_hh, w_s[k'][g U + u] = W_hh[k'][g H + rank U + u],
-  // by 16-byte chunks (a chunk stays in one gate)
-  constexpr int CPR = G4 / 8;
-  for (int i = tid; i < H * CPR; i += RT) {
-    const int kk = i / CPR, c = (i % CPR) * 8, g = c / U, u = c % U;
-    *reinterpret_cast<uint4*>(w_s + kk * WS + c) =
-        *reinterpret_cast<const uint4*>(w_hh + (size_t)kk * H4 + g * H + rank * U + u);
-  }
-  __syncthreads();
+  stage_res_slice<H>(w_hh, w_s, rank);
   // this warp's A fragments, in registers for the whole walk: matrices (k'
   // 0-7, c 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of each 16 x 16 tile
   uint32_t wa[MPW][KPW][4];
@@ -1277,13 +1297,11 @@ recurrence_res_kernel(float* __restrict__ gx, const int64_t* __restrict__ length
   }
 }
 
-// The resident walk's kernel and its launch configuration for clusters of
-// RCL blocks (grid: `clusters` of them).
-template <int H, int NT>
-cudaError_t res_config(int clusters, cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                       cudaLaunchAttribute* attr) {
-  const auto kern = recurrence_res_kernel<H, NT>;
-  const size_t smem = res_smem<H>(NT);
+// A resident walk's kernel `kern` (either direction) and its launch
+// configuration for clusters of RCL blocks of RT threads with `smem` bytes
+// (grid: `clusters` of them).
+inline cudaError_t res_config(const void* kern, size_t smem, int clusters, cudaStream_t stream,
+                              cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e == cudaSuccess)
@@ -1302,33 +1320,41 @@ cudaError_t res_config(int clusters, cudaStream_t stream, cudaLaunchConfig_t* cf
   return e;
 }
 
-// The clusters of the resident walk (NT n-tiles) that the card holds at
-// once (cudaOccupancyMaxActiveClusters), asked once a process.
-template <int H, int NT>
-cudaError_t res_clusters_at_once(int* n) {
-  static int cached = -1;
-  if (cached < 0) {
+// The clusters of a resident walk's kernel that the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once a process: *cached < 0
+// until then.
+inline cudaError_t res_at_once(const void* kern, size_t smem, int* cached, int* n) {
+  if (*cached < 0) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t e = res_config<H, NT>(1, nullptr, &cfg, &attr);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&cached, recurrence_res_kernel<H, NT>, &cfg);
+    cudaError_t e = res_config(kern, smem, 1, nullptr, &cfg, &attr);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(cached, kern, &cfg);
     if (e != cudaSuccess) {
-      cached = -1;
+      *cached = -1;
       return e;
     }
   }
-  *n = cached;
+  *n = *cached;
   return cudaSuccess;
 }
 
-// The resident walk's rows a cluster: B spread over the clusters the card
+// A resident walk's rows a cluster: B spread over the clusters the card
 // holds at once, at most 16 (ops/cuda/lstm_scan.py::res_rows).
+inline int res_rows_of(int B, int at_once) {
+  const int n = max(at_once, 1);
+  return min((B + n - 1) / n, 16);
+}
+
+// The forward's (NT n-tiles), and its rows from its count at NT = 1.
+template <int H, int NT>
+cudaError_t res_clusters_at_once(int* n) {
+  static int cached = -1;
+  return res_at_once((const void*)recurrence_res_kernel<H, NT>, res_smem<H>(NT), &cached, n);
+}
 template <int H>
 cudaError_t res_rows(int B, int* rows, int* at_once) {
   const cudaError_t e = res_clusters_at_once<H, 1>(at_once);
-  const int n = max(*at_once, 1);
-  *rows = min((B + n - 1) / n, 16);
+  *rows = res_rows_of(B, *at_once);
   return e;
 }
 
@@ -1338,7 +1364,8 @@ cudaError_t launch_res(float* gx, const int64_t* lengths, const __nv_bfloat16* w
                        int reverse, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = res_config<H, NT>((B + rows - 1) / rows, stream, &cfg, &attr);
+  cudaError_t e = res_config((const void*)recurrence_res_kernel<H, NT>, res_smem<H>(NT),
+                             (B + rows - 1) / rows, stream, &cfg, &attr);
   if (e != cudaSuccess) return e;
   return cudaLaunchKernelEx(&cfg, recurrence_res_kernel<H, NT>, gx, lengths, w_hh, outs, hT, cT,
                             hprev, cprev, B, L, rows, reverse);
@@ -2199,6 +2226,337 @@ bwd_recurrence_wide_kernel(const float* __restrict__ gates, const float* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2.1, resident: the backward walk in bf16 at H = 512 (the Self-Monitor's
+//    encoder), with no byte of W_hh read from L2 inside the step loop.  The
+//    streaming walk above brings each block's 256 KB eighth of W_hh from L2
+//    every step: 9.1 us a step at B = 64 on the H100.  Here, as in the
+//    forward's resident walk, a cluster has RCL = 16 blocks of RT = 512
+//    threads (non-portable, cudaLaunchKernelEx) and block `rank` owns the
+//    U = 32 units [rank U, rank U + U) and their G4 = 128 gate columns,
+//    gate-major (c = g U + u).  It stages its 128 KB slice of W_hh once
+//    through shared memory (stage_res_slice) and keeps it in registers as
+//    mma.sync m16n8k16 A fragments of A[k'][c] = W_hh[k'][column c]
+//    (ldmatrix without .trans): 64 registers a thread.
+//    The step's product, partial dh_prev[r][k'] = sum over the block's c of
+//    W_hh[k'][c] da[r][c]: M = the H units k' (32 m-tiles), K = G4 (8
+//    16-k steps), N = the rows of a group (one n-tile of 8).  Warp w takes
+//    m-tiles 2w, 2w + 1 over all 8 k-steps: its k' = 32 w .. 32 w + 31 are
+//    the units of block w, so no partial is reduced inside a block and
+//    each warp's 32 x 8 tile goes whole to block w.  da is f32 and is
+//    split once, by the cell that forms it, into three bf16 terms
+//    (split3_bf16x2: within 2^-24 |da|); the weights are exact in bf16 and
+//    the products exact in f32, summed in f32.
+//    Exchange: each warp sends its tile by st.async to block w, 16 bytes
+//    (4 rows of one unit) a store after one shuffle between lane pairs,
+//    counted on block w's mbarrier of (row group, step parity); rows 4-7
+//    of a group of at most 4 rows are not sent.  Block w's cells sum the
+//    16 tiles of their units in rank order (a wait that never completes
+//    traps after ~2 s).  Every block receives 16 x 32 x 8 x 4 = 16 KB a
+//    group a step, the forward's volume.
+//    Rows: R <= 16 rows a cluster, from this kernel's own count of the
+//    clusters the card holds at once (bwd_res_rows), in NT = ceil(R / 8)
+//    groups of RG = ceil(R / NT) rows that walk a step in turn: one
+//    group's partials travel while the other's cells and product run.
+//    Cells: thread tid < NT 8 U owns row tid % 8 of group tid / (8 U) and
+//    unit (tid / 8) % U (a warp: 4 units x 8 rows, so that the 16 loads of
+//    its partials are conflict-free); it carries (dh, dc) and its four
+//    columns' sums of da in registers, and loads the saved gates, c_prev
+//    and d_out a step ahead into registers.  The sigmoids and tanhs of da
+//    (bwd_recurrence_wide_kernel's arithmetic) do not depend on the
+//    carries: a cell reduces them to seven coefficients (coefs_of) while
+//    its group's partials travel and the other group's cells run, so that
+//    past the wait da is a few FMAs (a trace of the first design put 1,200
+//    to 1,400 of a group step's 3,500 to 4,200 cycles there).  A group
+//    step: the cells wait for and sum their partials of the step before
+//    (dh, at a step that was valid for the cell), form da, store its terms
+//    and write da to device memory (valid steps only); one block barrier;
+//    every warp multiplies and sends; the cells form the next step's
+//    coefficients.  The last step sends nothing (dh_prev of the first step
+//    is not an output).
+//    Shared memory: the staged slice w_s [H][WS] bf16 (prologue only), then
+//    in its place recv_s [NT][2][RCL][U][8] f32 (the partials a group
+//    receives, by the sending step's parity), da_s [2][3][8][WS] bf16 (the
+//    terms of a group step's da, [term][row][column]), and the mbarriers
+//    full [NT][2] at the end; after the walk db's row sums [G4][16] f32
+//    in recv_s's place.  The buffers, each read after a barrier by other
+//    warps or blocks than those that write it:
+//    - da_s: written by the cells at group step s = l NT + g, read by
+//      every warp's product after the barrier of s.  Two copies, s & 1:
+//      a warp writes copy s & 1 again at s + 2, after it has passed the
+//      barrier of s + 1, which every warp reaches only after its product
+//      of s.  One copy would race: the warps that are cells of s + 1 can
+//      write while other warps still multiply s.
+//    - recv_s[g][l & 1]: written by the other blocks' sends of step l,
+//      read by this block's cells of group g at step l + 1.  The sends of
+//      step l + 2 into it follow, in each sender, its cells of (l + 2, g),
+//      which wait for this block's sends of (l + 1, g), which follow this
+//      block's barrier of (l + 1, g), after its cells' reads.  Its barrier
+//      is armed for step l + 2 by the group's first cell thread after its
+//      wait at step l + 1, before that barrier.  One copy would race: the
+//      sends of step l + 1 follow only the barrier of step l.
+//    - db's row sums: after the walk every partial a block is sent has
+//      been awaited by it, so nothing lands in recv_s any more.
+//    What bounds a step: the product on the tensor cores (48 MMAs a warp a
+//    group step, at mma.sync's rate: ~1,440 of a group step's ~2,700
+//    cycles at two groups on the H100), then the partials' sum, the cells
+//    and the sends (PERF.md); wgmma is the lever not tried.
+// ---------------------------------------------------------------------------
+template <int H>
+__host__ __device__ constexpr size_t bwd_res_smem(int NT) {
+  using P = Res<H>;
+  const size_t stage = (size_t)H * P::WS * 2;
+  const size_t walk = (size_t)NT * 2 * RCL * P::U * 8 * 4 + (size_t)2 * 3 * 8 * P::WS * 2;
+  return (stage > walk ? stage : walk) + (size_t)NT * 2 * 8;
+}
+
+template <int H, int NT>
+__global__ void __launch_bounds__(RT, 1)
+bwd_recurrence_res_kernel(const float* __restrict__ gates, const float* __restrict__ cprev,
+                          const float* __restrict__ d_out, const float* __restrict__ dhT,
+                          const float* __restrict__ dcT, const int64_t* __restrict__ lengths,
+                          const __nv_bfloat16* __restrict__ w_hh, float* __restrict__ da,
+                          float* __restrict__ db_part, int B, int L, int RR, int reverse) {
+  using P = Res<H>;
+  constexpr int U = P::U, G4 = P::G4, WS = P::WS, H4 = 4 * H;
+  constexpr int KS = G4 / 16, MPW = U / 16;  // a warp's 16-k steps and m-tiles
+  static_assert(RW == RCL && MPW * 16 * RW == H && KS % 2 == 0, "warp w: block w's units");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / RCL, row0 = cid * RR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
+  // the rows' groups: RG rows each (the last may have fewer), one n-tile each
+  const int RG = (RR + NT - 1) / NT;
+  auto group_rows = [&](int g) { return max(0, min(RG, RR - g * RG)); };
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // the prologue's
+  float* recv_s = reinterpret_cast<float*>(smem_raw);               // [NT][2][RCL][U][8]
+  __nv_bfloat16* da_s = reinterpret_cast<__nv_bfloat16*>(recv_s + NT * 2 * RCL * U * 8);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + bwd_res_smem<H>(NT) -
+                                               (size_t)NT * 2 * 8);  // [NT][2]
+
+  auto row_len = [&](int row) {
+    const int64_t n = row < B ? lengths[row] : 0;
+    return n < 0 ? 0 : n > L ? L : (int)n;
+  };
+  int maxlen = 0;
+  for (int r = 0; r < RR; ++r) maxlen = max(maxlen, row_len(row0 + r));
+  // this thread's cell: row cr of group grp (row ri of the cluster), unit cu
+  const bool cell = tid < NT * 8 * U;
+  const int grp = tid / (8 * U), cr = tid & 7, cu = (tid >> 3) % U;
+  const int ri = grp * RG + cr, crow = row0 + ri, k = rank * U + cu;
+  const bool mine = cell && cr < group_rows(grp);  // a row of the cluster
+  const bool live = mine && crow < B;
+  const int clen = live ? row_len(crow) : 0;
+  float dh = 0.f, dc = 0.f, db[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    dh = dhT[(size_t)crow * H + k];
+    dc = dcT[(size_t)crow * H + k];
+  }
+  // the saved gates (4), c_prev and d_out of step l, in registers a step ahead
+  auto inputs_at = [&](int l, float (&v)[6]) {
+    const int t = reverse ? l : maxlen - 1 - l;
+    if (l < maxlen && t < clen) {
+      const float* gp = gates + ((size_t)crow * L + t) * H4 + k;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] = gp[g * H];
+      v[4] = cprev[((size_t)t * B + crow) * H + k];
+      v[5] = d_out[((size_t)crow * L + t) * H + k];
+    }
+  };
+  // what da needs of them, none of which depends on the carries: dct = dc
+  // + dh_eff c[0], da = (dct c[1], dct c[2], dct c[3], dh_eff c[4]), dc' =
+  // dct c[5], dh_eff = dh + c[6]
+  auto coefs_of = [&](const float (&v)[6], float (&c)[7]) {
+    const float ig = sigmoidf(v[0]), fg = sigmoidf(v[1]);
+    const float gg = tanhf(v[2]), og = sigmoidf(v[3]);
+    const float cp = v[4], tc = tanhf(fg * cp + ig * gg);
+    c[0] = og * (1.f - tc * tc);
+    c[1] = gg * ig * (1.f - ig);
+    c[2] = cp * fg * (1.f - fg);
+    c[3] = ig * (1.f - gg * gg);
+    c[4] = tc * og * (1.f - og);
+    c[5] = fg;
+    c[6] = v[5];
+  };
+
+  stage_res_slice<H>(w_hh, w_s, rank);
+  // this warp's A fragments, in registers for the whole walk: matrices (k'
+  // 0-7, c 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of each 16 x 16 tile
+  uint32_t wa[MPW][KS][4];
+#pragma unroll
+  for (int i = 0; i < MPW; ++i)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ldmatrix_x4(wa[i][ks], w_s + (warp * U + i * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * WS +
+                                 ks * 16 + (lane >> 4) * 8);
+  // the partials of group g's step l land in recv_s[g][l & 1], counted on
+  // full[g][l & 1]: the bytes of the rows that the 16 blocks send
+  auto group_bytes = [&](int g) {
+    return (uint32_t)RCL * U * (group_rows(g) > 4 ? 8 : 4) * 4;
+  };
+  if (tid == 0) {
+    for (int b = 0; b < NT * 2; ++b) mbar_init(smem_u32(&full[b]));
+    for (int g = 0; g < NT; ++g) {
+      if (1 < maxlen) mbar_expect_tx(smem_u32(&full[g * 2]), group_bytes(g));      // step 0's
+      if (2 < maxlen) mbar_expect_tx(smem_u32(&full[g * 2 + 1]), group_bytes(g));  // step 1's
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block of the cluster is running, initialised and done reading its
+  // staged slice, over which the partials and da's terms now land
+  cluster.sync();
+
+  float cf[7];  // this step's coefficients of da
+  {
+    float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    inputs_at(0, v);
+    coefs_of(v, cf);
+  }
+  bool was_valid = false;  // whether the cell's previous step was valid
+  for (int l = 0; l < maxlen; ++l) {
+    const int t = reverse ? l : maxlen - 1 - l;  // the forward's steps, backwards
+    float nn[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    inputs_at(l + 1, nn);  // the next step's, in flight during this one
+#pragma unroll
+    for (int g = 0; g < NT; ++g) {  // NT = ceil(RR / 8): no group is empty
+      __nv_bfloat16* dab = da_s + (size_t)((l * NT + g) & 1) * 3 * 8 * WS;
+      if (cell && grp == g) {
+        if (l > 0) {
+          // the 16 blocks' partials of the step before, summed in rank
+          // order; the group's first thread arms the barrier for step l + 1
+          const int half = g * 2 + ((l - 1) & 1);
+          const uint32_t bar = smem_u32(&full[half]);
+          mbar_wait_cluster(bar, ((l - 1) >> 1) & 1);
+          if (tid == g * 8 * U && l + 2 < maxlen) mbar_expect_tx(bar, group_bytes(g));
+          const float* rp = recv_s + ((size_t)half * RCL * U + cu) * 8 + cr;
+          float s = rp[0];
+#pragma unroll
+          for (int src = 1; src < RCL; ++src) s += rp[src * U * 8];
+          if (was_valid) dh = s;
+        }
+        float d4[4] = {0.f, 0.f, 0.f, 0.f};
+        const bool valid = t < clen;
+        if (valid) {  // a few FMAs past the wait: the coefficients are ready
+          const float dh_eff = dh + cf[6];
+          const float dct = dc + dh_eff * cf[0];
+          d4[0] = dct * cf[1];
+          d4[1] = dct * cf[2];
+          d4[2] = dct * cf[3];
+          d4[3] = dh_eff * cf[4];
+          dc = dct * cf[5];
+          float* dp = da + ((size_t)crow * L + t) * H4 + k;
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) dp[gt * H] = d4[gt];
+        }
+        was_valid = valid;
+        // da's three bf16 terms, B^T [row][column] (zeros at invalid steps)
+#pragma unroll
+        for (int gt = 0; gt < 4; gt += 2) {
+          uint32_t tt[3];
+          split3_bf16x2(d4[gt], d4[gt + 1], tt);
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            __nv_bfloat16* p = dab + (a * 8 + cr) * WS + cu;
+            p[gt * U] = __ushort_as_bfloat16((unsigned short)(tt[a] & 0xffffu));
+            p[(gt + 1) * U] = __ushort_as_bfloat16((unsigned short)(tt[a] >> 16));
+          }
+        }
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) db[gt] += d4[gt];
+      }
+      __syncthreads();  // the group's da terms are in dab
+
+      if (l + 1 < maxlen) {
+        // partial dh_prev^T[k'][r] over the block's columns: two chains an
+        // m-tile (even and odd k-steps), B fragments by ldmatrix, two
+        // k-steps of one term at a time
+        float acc[MPW][2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KS; ks += 2)
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            uint32_t b[4];
+            ldmatrix_x4(b, dab + (a * 8 + (lane & 7)) * WS + ks * 16 + (lane >> 3) * 8);
+#pragma unroll
+            for (int i = 0; i < MPW; ++i) {
+              mma_bf16(acc[i][0], wa[i][ks], b[0], b[1]);
+              mma_bf16(acc[i][1], wa[i][ks + 1], b[2], b[3]);
+            }
+          }
+        // D[k'][r]: (g8, 2 q4), (g8, 2 q4 + 1), (g8 + 8, 2 q4), (g8 + 8,
+        // 2 q4 + 1).  Lane pairs swap halves: the even lane sends rows
+        // 4 (q4 / 2) .. + 3 of unit g8, the odd one those of unit g8 + 8
+        const int half = g * 2 + (l & 1);
+        const uint32_t bar = cluster_addr(smem_u32(&full[half]), warp);
+        const bool odd = q4 & 1, send = q4 < 2 || group_rows(g) > 4;
+#pragma unroll
+        for (int i = 0; i < MPW; ++i) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] = acc[i][0][e] + acc[i][1][e];
+          const float y0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+          const float v[4] = {odd ? y0 : d[0], odd ? y1 : d[1], odd ? d[2] : y0,
+                              odd ? d[3] : y1};
+          const int unit = i * 16 + g8 + (odd ? 8 : 0);
+          const uint32_t dst =
+              smem_u32(recv_s + (((size_t)half * RCL + rank) * U + unit) * 8 + 4 * (q4 >> 1));
+          if (send) st_async4(cluster_addr(dst, warp), v, bar);
+        }
+      }
+      // the group's coefficients of the next step, while its partials
+      // travel and the other group's cells run
+      if (cell && grp == g) coefs_of(nn, cf);
+    }
+  }
+  // No cluster barrier at the end: every partial sent to a block is
+  // awaited by that block before it leaves the walk.
+
+  // this cluster's column sums of da over its rows, in order, for db
+  float* db_s = recv_s;  // [G4][16]
+  if (mine) {
+#pragma unroll
+    for (int gt = 0; gt < 4; ++gt) db_s[(gt * U + cu) * 16 + ri] = db[gt];
+  }
+  __syncthreads();
+  for (int c = tid; c < G4; c += RT) {
+    float s = 0.f;
+    for (int r = 0; r < RR; ++r) s += db_s[c * 16 + r];
+    db_part[(size_t)cid * H4 + (c / U) * H + rank * U + c % U] = s;
+  }
+}
+
+// The backward's clusters at once (NT n-tiles), and its rows from its
+// count at NT = 1: its shared memory is not the forward's.
+template <int H, int NT>
+cudaError_t bwd_res_clusters_at_once(int* n) {
+  static int cached = -1;
+  return res_at_once((const void*)bwd_recurrence_res_kernel<H, NT>, bwd_res_smem<H>(NT), &cached,
+                     n);
+}
+template <int H>
+cudaError_t bwd_res_rows(int B, int* rows, int* at_once) {
+  const cudaError_t e = bwd_res_clusters_at_once<H, 1>(at_once);
+  *rows = res_rows_of(B, *at_once);
+  return e;
+}
+
+template <int H, int NT>
+cudaError_t launch_bwd_res(const float* gates, const float* cprev, const float* d_out,
+                           const float* dhT, const float* dcT, const int64_t* lengths,
+                           const __nv_bfloat16* w_hh, float* da, float* db_part, int B, int L,
+                           int rows, int reverse, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = res_config((const void*)bwd_recurrence_res_kernel<H, NT>, bwd_res_smem<H>(NT),
+                             (B + rows - 1) / rows, stream, &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&cfg, bwd_recurrence_res_kernel<H, NT>, gates, cprev, d_out, dhT, dcT,
+                            lengths, w_hh, da, db_part, B, L, rows, reverse);
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                        const void* gates, const void* hprev, const void* cprev,
@@ -2207,9 +2565,20 @@ cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, co
                        void* wpack, int B, int L, int D, int H, int reverse,
                        cudaStream_t stream) {
   const int H4 = 4 * H;
-  const int clusters = (B + R - 1) / R;
+  int clusters = (B + R - 1) / R;  // the recurrence's, which db_part has rows for
   cudaError_t e;
-  if (H > 256) {
+  if (std::is_same<T, __nv_bfloat16>::value && H == 512) {  // W_hh resident
+    int rows, at_once;
+    if ((e = bwd_res_rows<512>(B, &rows, &at_once)) != cudaSuccess) return e;
+    clusters = (B + rows - 1) / rows;
+    e = (rows <= 8 ? launch_bwd_res<512, 1> : launch_bwd_res<512, 2>)(
+        static_cast<const float*>(gates), static_cast<const float*>(cprev),
+        static_cast<const float*>(d_out), static_cast<const float*>(dhT),
+        static_cast<const float*>(dcT), static_cast<const int64_t*>(lengths),
+        static_cast<const __nv_bfloat16*>(w_hh), static_cast<float*>(da),
+        static_cast<float*>(db_part), B, L, rows, reverse, stream);
+    if (e != cudaSuccess) return e;
+  } else if (H > 256) {
     if ((e = pack_whh<T>(w_hh, wpack, H, 1, stream)) != cudaSuccess) return e;
     const size_t wsm = wide_bwd_smem(H, sizeof(T));
     if ((e = cudaFuncSetAttribute(bwd_recurrence_wide_kernel<T>,
@@ -2304,7 +2673,9 @@ extern "C" int lstm_scan_train(const void* xs, const void* lengths, const void* 
 // K2.  From K1's residuals (gates = its gx, hprev, cprev) and the
 // cotangents d_out [B, L, H], dhT and dcT [B, H] (f32): d_xs [B, L, D] in
 // the dtype of xs, dw_ih [D, 4H], dw_hh [H, 4H] and db [4H] f32.  da
-// [B, L, 4H], db_part [ceil(B / 8), 4H] (f32) and wpack (as K3's) are
+// [B, L, 4H] and db_part [the walk's clusters, 4H] (f32: ceil(B / 8)
+// clusters, or the resident walk's ceil(B / rows), lstm_scan_bwd_plan_query)
+// and wpack (4H * H of the dtype for the streaming walk, else unused) are
 // scratch.
 extern "C" int lstm_scan_bwd(const void* xs, const void* lengths, const void* w_ih,
                              const void* w_hh, const void* gates, const void* hprev,
@@ -2323,36 +2694,43 @@ extern "C" int lstm_scan_bwd(const void* xs, const void* lengths, const void* w_
                            db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H, reverse, s);
 }
 
-// The forward walk's plan at (B, H, dtype), as launch_fwd takes it: out[0..6]
-// = blocks a cluster, batch rows a cluster, clusters, threads a block,
-// shared memory bytes a block, the clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters) that the plan chose the rows from (the
-// resident walk's at one row group), and those of the launched walk.
-extern "C" int lstm_scan_plan_query(int B, int H, int dtype, int* out) {
+// A walk's plan at (B, H, dtype), as launch_fwd (bwd = 0) or launch_bwd
+// (bwd = 1) takes it: out[0..6] = blocks a cluster, batch rows a cluster,
+// clusters, threads a block, shared memory bytes a block, the clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters) that the plan chose
+// the rows from (a resident walk's at one row group), and those of the
+// launched walk.
+static int plan_query(int B, int H, int dtype, int bwd, int* out) {
   if (H % 32 != 0 || H > 512) return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == DTYPE_BF16;
   cudaError_t e = cudaSuccess;
   int cl = CL, rows = R, threads = THREADS, planned = 0, at_once = 0;
-  size_t smem = fwd_rec_smem(H);
-  cudaLaunchConfig_t cfg = {};
-  if (dtype == DTYPE_BF16 && H == 512) {
-    e = res_rows<512>(B, &rows, &planned);
+  size_t smem;
+  if (bf16 && H == 512) {
+    e = bwd ? bwd_res_rows<512>(B, &rows, &planned) : res_rows<512>(B, &rows, &planned);
     const int nt = rows <= 8 ? 1 : 2;
     cl = RCL, threads = RT, at_once = planned;
-    smem = res_smem<512>(nt);
+    smem = bwd ? bwd_res_smem<512>(nt) : res_smem<512>(nt);
     if (e == cudaSuccess && nt == 2)  // the launched kernel's own count
-      e = res_clusters_at_once<512, 2>(&at_once);
+      e = bwd ? bwd_res_clusters_at_once<512, 2>(&at_once) : res_clusters_at_once<512, 2>(&at_once);
   } else {
     const void* kern;
     if (H > 256) {
       threads = WT;
-      smem = wide_fwd_smem(H, dtype == DTYPE_BF16 ? 2 : 4);
-      kern = dtype == DTYPE_BF16 ? (const void*)recurrence_wide_kernel<__nv_bfloat16>
-                                 : (const void*)recurrence_wide_kernel<float>;
+      smem = bwd ? wide_bwd_smem(H, bf16 ? 2 : 4) : wide_fwd_smem(H, bf16 ? 2 : 4);
+      kern = bwd ? (bf16 ? (const void*)bwd_recurrence_wide_kernel<__nv_bfloat16>
+                         : (const void*)bwd_recurrence_wide_kernel<float>)
+                 : (bf16 ? (const void*)recurrence_wide_kernel<__nv_bfloat16>
+                         : (const void*)recurrence_wide_kernel<float>);
     } else {
-      kern = dtype == DTYPE_BF16 ? (const void*)recurrence_kernel<__nv_bfloat16>
-                                 : (const void*)recurrence_kernel<float>;
+      smem = bwd ? rec_smem(H) : fwd_rec_smem(H);
+      kern = bwd ? (bf16 ? (const void*)bwd_recurrence_kernel<__nv_bfloat16>
+                         : (const void*)bwd_recurrence_kernel<float>)
+                 : (bf16 ? (const void*)recurrence_kernel<__nv_bfloat16>
+                         : (const void*)recurrence_kernel<float>);
     }
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CL);
     cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
@@ -2362,4 +2740,14 @@ extern "C" int lstm_scan_plan_query(int B, int H, int dtype, int* out) {
   const int vals[7] = {cl, rows, (B + rows - 1) / rows, threads, (int)smem, planned, at_once};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)e;
+}
+
+// The forward walk's plan (K3, K1).
+extern "C" int lstm_scan_plan_query(int B, int H, int dtype, int* out) {
+  return plan_query(B, H, dtype, 0, out);
+}
+
+// The backward walk's plan (K2); its clusters are db_part's rows.
+extern "C" int lstm_scan_bwd_plan_query(int B, int H, int dtype, int* out) {
+  return plan_query(B, H, dtype, 1, out);
 }

@@ -16,13 +16,14 @@ db over the valid steps only, in a fixed order (no atomics).  Every
 product with an f32 operand runs in TF32 with that operand split in two
 halves, which keeps f32 accuracy; bf16 operands are exact there.  Up
 to H = 256 both walks keep their block's eighth of W_hh in registers (and
-the f32 low halves in shared memory).  The bf16 forward at H = 512 (the
-Self-Monitor's encoder; the resident walk) takes clusters of 16 blocks,
+the f32 low halves in shared memory).  Both bf16 walks at H = 512 (the
+Self-Monitor's encoder; the resident walks) take clusters of 16 blocks,
 each holding its sixteenth of W_hh in registers for the whole walk, and
-multiplies h as three bf16 terms (``split_bf16x3``); its rows a cluster
+multiply the f32 operand that changes every step (h forward, da
+backward) as three bf16 terms (``split_bf16x3``); their rows a cluster
 (up to 16) follow from the clusters the card holds at once
-(``res_rows``).  The other walks above H = 256 (512 threads a block: the
-f32 forward, the backward, other H) stream their eighth every step, in
+(``res_rows``), each walk's own count.  The other walks above H = 256
+(512 threads a block: f32, other H) stream their eighth every step, in
 the fragment order ``whh_pack_order`` gives, which one more launch
 writes into a scratch copy.  Rows of xs that are not whole 16-byte
 chunks (the Follower's 300-wide bf16 embeddings) are zero-padded by
@@ -83,20 +84,27 @@ WW = WT // 32
 # threads, warp w = (m-group w / RES_KG, k-group w % RES_KG)
 RES_CL, RES_T, RES_KG = 16, 512, 8
 RES_MG = RES_T // 32 // RES_KG
+# cudaOccupancyMaxActiveClusters of the resident walks on an H100 80GB HBM3
+# (132 SMs, one block an SM): only the CPU emulation's default; a launch
+# takes its card's own count (plan_query, bwd_plan_query)
+H100_RES_CLUSTERS = 7
 MAX_H = 512
 MAX_SMEM = 232448  # shared memory a block can use on the H100
 
 
 class BwdPlan(NamedTuple):
     """K2's launches.  ``rec_grid`` blocks of the recurrence (clusters of
-    CL along x) of ``rec_threads`` threads with ``rec_smem`` bytes, which
-    stream ``w_stream`` bytes of W_hh a step (the wide walk; 0 when W_hh
-    sits in shared memory and registers) from a packed copy of
-    ``w_pack`` elements; dx_gemm's grid (D tiles, step tiles + 1: blocks
-    past the valid steps' tiles write the padded steps' zeros) with
-    ``dx_smem``; dw_gemm's grid (4H tiles, max(D, H) tiles, 2 matrices x
-    ``splits``, clusters of ``splits`` along z) with ``dw_smem``,
-    ``dw_blocks_per_sm`` of which fit an SM."""
+    ``cluster`` blocks along x, each cluster ``rows`` batch rows) of
+    ``rec_threads`` threads with ``rec_smem`` bytes, which stream
+    ``w_stream`` bytes of W_hh a step (the streaming wide walk; 0 when
+    W_hh sits in registers and shared memory) from a packed copy of
+    ``w_pack`` elements; ``w_where`` says where W_hh sits during the walk.
+    Each cluster writes one row of db's partial sums (``clusters`` rows).
+    dx_gemm's grid (D tiles, step tiles + 1: blocks past the valid steps'
+    tiles write the padded steps' zeros) with ``dx_smem``; dw_gemm's grid
+    (4H tiles, max(D, H) tiles, 2 matrices x ``splits``, clusters of
+    ``splits`` along z) with ``dw_smem``, ``dw_blocks_per_sm`` of which
+    fit an SM."""
     rec_grid: int
     rec_smem: int
     dx_grid: Tuple[int, int]
@@ -108,6 +116,13 @@ class BwdPlan(NamedTuple):
     rec_threads: int
     w_stream: int
     w_pack: int
+    cluster: int
+    rows: int
+    w_where: str
+
+    @property
+    def clusters(self) -> int:
+        return self.rec_grid // self.cluster
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -146,18 +161,20 @@ class FwdPlan(NamedTuple):
 
 
 def resident(H: int, elem_size: int) -> bool:
-    """Whether the forward takes the resident walk: bf16 at H = 512, the
-    Self-Monitor's encoder (f32 and the other H above 256 stream W_hh)."""
+    """Whether the walks take their resident versions, both directions:
+    bf16 at H = 512, the Self-Monitor's encoder (f32 and the other H above
+    256 stream W_hh)."""
     return elem_size == 2 and H == 512
 
 
 def res_rows(B: int, clusters_at_once: int) -> int:
-    """The resident walk's batch rows a cluster: B spread over the clusters
+    """A resident walk's batch rows a cluster: B spread over the clusters
     the card holds at once, at most 16 (two n-tiles of 8), so that the
     launch is one wave wherever 16 rows a cluster can make it one (the
     H100's 7 clusters of 16 blocks take B = 64 as 7 clusters of 10 rows;
     8 rows would leave one of 8 clusters for a second wave).  Fewer rows a
-    cluster send fewer bytes of h a step, which bound the step."""
+    cluster send fewer bytes a step (h forward, partials of dh backward),
+    which bound the step."""
     return min(_ceil_div(B, max(clusters_at_once, 1)), 16)
 
 
@@ -183,6 +200,18 @@ def res_smem(H: int, rows: int) -> int:
     nt = _ceil_div(rows, 8)
     return (max(H * WS * 2, nt * 2 * 8 * HF * 4 + 2 * RES_KG * 8 * PS * 4)
             + nt * 2 * RES_KG * 8)
+
+
+def bwd_res_smem(H: int, rows: int) -> int:
+    """Shared memory of a resident backward block of ``rows`` rows in NT
+    groups: the staged slice of W_hh [H][WS] bf16 (the prologue's), and
+    over it the partials each group receives [NT][2][RES_CL][U][8] f32
+    (by the sending step's parity) and two buffers of da's three bf16
+    terms [2][3][8][WS] (a group step's buffer is its parity); an
+    mbarrier for each group and parity."""
+    U, _, _, _, _, _, WS, _, _ = res_geometry(H)
+    nt = _ceil_div(rows, 8)
+    return max(H * WS * 2, nt * 2 * RES_CL * U * 8 * 4 + 2 * 3 * 8 * WS * 2) + nt * 2 * 8
 
 
 def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
@@ -226,34 +255,59 @@ def plan_query(B: int, H: int, dtype: torch.dtype) -> Tuple[int, ...]:
     the clusters the card holds at once that the rows were chosen from, and
     those of the launched walk) of the forward walk the C entry points
     launch, read from the built library (a card is needed)."""
-    fn = build.kernel_function("lstm_scan", "lstm_scan_plan_query",
+    return _plan_query("lstm_scan_plan_query", B, H, dtype)
+
+
+def bwd_plan_query(B: int, H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """``plan_query`` of the backward walk (K2's first launch)."""
+    return _plan_query("lstm_scan_bwd_plan_query", B, H, dtype)
+
+
+def _plan_query(symbol: str, B: int, H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    fn = build.kernel_function("lstm_scan", symbol,
                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 7)()
-    build.check_launch(fn(B, H, build.DTYPE_CODES[dtype], out), "lstm_scan_plan_query")
+    build.check_launch(fn(B, H, build.DTYPE_CODES[dtype], out), symbol)
     return tuple(out)
 
 
-def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int) -> BwdPlan:
+def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
+                       clusters_at_once: Optional[int] = None) -> BwdPlan:
+    """``clusters_at_once``: the resident backward walk's clusters that the
+    card holds at once (on a card, what ``bwd_plan_query`` reads; not the
+    forward's count), from which ``res_rows`` chooses; the resident walk
+    needs it, the others ignore it."""
     U = H // CL
     starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
-    if H > WIDE_H:  # the warps' rings (two m-tiles each); da's halves; the partials
-        rec_smem = (WW * WSTAGES * WBQ * 2 * 32 * 4 * elem_size
-                    + (4 * 4 * U * R + 2 * CL * R * U) * 4 + 16)
-        rec = (WT, 4 * U * H * elem_size, 4 * H * H)
+    if resident(H, elem_size):
+        if clusters_at_once is None:
+            raise ValueError("the resident walk's rows follow from the clusters the card holds "
+                             "at once (bwd_plan_query)")
+        rows = res_rows(B, clusters_at_once)
+        rec = (_ceil_div(B, rows) * RES_CL, bwd_res_smem(H, rows), RES_T, 0, 0, RES_CL, rows,
+               "registers")
+    elif H > WIDE_H:  # the warps' rings (two m-tiles each); da's halves; the partials
+        rec = (_ceil_div(B, R) * CL, WW * WSTAGES * WBQ * 2 * 32 * 4 * elem_size
+               + (4 * 4 * U * R + 2 * CL * R * U) * 4 + 16, WT, 4 * U * H * elem_size,
+               4 * H * H, CL, R, "streamed from L2")
     else:
         # W_hh's columns as f32 fragments; da's TF32 halves and the partials,
         # double-buffered; three steps' inputs; two mbarriers
-        rec_smem = 4 * U * H * 4 + (4 * 4 * U * R + 2 * CL * R * U + 3 * 6 * THREADS) * 4 + 16
-        rec = (THREADS, 0, 0)
+        rec = (_ceil_div(B, R) * CL,
+               4 * U * H * 4 + (4 * 4 * U * R + 2 * CL * R * U + 3 * 6 * THREADS) * 4 + 16,
+               THREADS, 0, 0, CL, R,
+               "registers" if elem_size == 2 else
+               "registers (TF32 high halves) and shared memory (low halves)")
+    rec_grid, rec_smem, *rest = rec
     w_stride = DX_KC + (4 if elem_size == 4 else 8)
     dx_smem = starts + DX_TM * 4 + DX_STAGES * (DX_TM * (DX_KC + 4) * 4
                                                 + DX_TN * w_stride * elem_size)
     dw_smem = starts + max(DW_STAGES * DW_KC * (DW_TI + 8 + DW_TJ + 8) * 4,
                            DW_TI * (DW_TJ + 4) * 4)
-    return BwdPlan(_ceil_div(B, R) * CL, rec_smem,
+    return BwdPlan(rec_grid, rec_smem,
                    (_ceil_div(D, DX_TN), _ceil_div(B * L, DX_TM) + 1), dx_smem,
                    (4 * H // DW_TJ, _ceil_div(max(D, H), DW_TI), 2 * DW_SPLITS), dw_smem,
-                   min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS, *rec)
+                   min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS, *rest)
 
 
 def whh_pack_order(H: int, bwd: bool) -> torch.Tensor:
@@ -395,12 +449,13 @@ def _tf32_mm(a: torch.Tensor, b: torch.Tensor, split_a: bool, split_b: bool) -> 
     return out
 
 
-def _block_columns(H: int) -> List[torch.Tensor]:
-    """The gate columns of W_hh that block ``rank`` of a cluster holds:
-    gate g of units [rank U, (rank + 1) U), U = H / CL, gate-major."""
-    U = H // CL
+def _block_columns(H: int, blocks: int = CL) -> List[torch.Tensor]:
+    """The gate columns of W_hh that block ``rank`` of a cluster of
+    ``blocks`` holds (CL, or the resident walks' RES_CL): gate g of units
+    [rank U, (rank + 1) U), U = H / blocks, gate-major."""
+    U = H // blocks
     return [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U) for g in range(4)])
-            for r in range(CL)]
+            for r in range(blocks)]
 
 
 def split_bf16x3(x: torch.Tensor) -> List[torch.Tensor]:
@@ -429,6 +484,22 @@ def _res_product(h: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
     for kg in range(RES_KG):
         ks = slice(kg * kw, (kg + 1) * kw)
         part = terms[0][:, ks] @ whh[ks] + terms[1][:, ks] @ whh[ks] + terms[2][:, ks] @ whh[ks]
+        out = part if out is None else out + part
+    return out
+
+
+def _res_bwd_product(da: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
+    """da . W_hh^T [B, H] as the resident backward walk sums it: per block
+    of the cluster (its 4H / RES_CL gate columns), the three bf16 terms of
+    da times the bf16 W_hh (exact products, f32 sums), then the RES_CL
+    partials in rank order."""
+    terms = [t.float() for t in split_bf16x3(da)]
+    out = None
+    for col in _block_columns(whh.shape[0], RES_CL):
+        wc = whh[:, col].t()
+        part = None
+        for t in terms:
+            part = t[:, col] @ wc if part is None else part + t[:, col] @ wc
         out = part if out is None else out + part
     return out
 
@@ -475,7 +546,8 @@ def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
 
 
 def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT,
-                           reverse: bool = False, split: bool = True):
+                           reverse: bool = False, split: bool = True,
+                           clusters_at_once: Optional[int] = None):
     """K2's arithmetic in plain torch on the CPU, as ``csrc/lstm_scan.cu``
     and its plan cut it: the recurrence's step product da . W_hh^T on the
     tensor cores per block of the cluster (its G4 columns) and summed over
@@ -484,11 +556,18 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
     order; db over the recurrence's clusters in order.  Every product is
     in TF32 with the operands the kernel splits split (``split=False``:
     none, plain TF32, for comparison): da always, as f32 operands are;
-    bf16 operands are exact in TF32 and never split.  Returns what
-    ``lstm_scan_bwd`` returns."""
+    bf16 operands are exact in TF32 and never split.  On the resident
+    walk (``resident``) the step product is ``_res_bwd_product`` (16
+    blocks, da as three bf16 terms, whatever ``split``) and db's clusters take
+    ``res_rows(B, clusters_at_once)`` rows each (default: the H100's
+    ``H100_RES_CLUSTERS``).  Returns what ``lstm_scan_bwd`` returns."""
     B, L, D = xs.shape
     H = w_hh.shape[0]
     f32 = xs.dtype == torch.float32
+    res = resident(H, xs.element_size())
+    if clusters_at_once is None:
+        clusters_at_once = H100_RES_CLUSTERS
+    rows = res_rows(B, clusters_at_once) if res else R  # db's rows a cluster
     whh = w_hh.float()
     dh, dc = dhT.float(), dcT.float()
     da = torch.zeros((B, L, 4 * H))
@@ -505,9 +584,12 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
         da_t = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
                           dct * i * (1.0 - g * g), dh_eff * tc * o * (1.0 - o)], dim=-1)
         da_t = torch.where(valid, da_t, 0.0)
-        dh_prev = torch.zeros_like(dh)
-        for c in cols:
-            dh_prev = dh_prev + _tf32_mm(da_t[:, c], whh[:, c].t(), split, split and f32)
+        if res:
+            dh_prev = _res_bwd_product(da_t, whh)
+        else:
+            dh_prev = torch.zeros_like(dh)
+            for c in cols:
+                dh_prev = dh_prev + _tf32_mm(da_t[:, c], whh[:, c].t(), split, split and f32)
         dh = torch.where(valid, dh_prev, dh)
         dc = torch.where(valid, dct * f, dc)
         da[:, t] = da_t
@@ -525,8 +607,8 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
             dw = part if dw is None else dw + part
         dws.append(dw)
     db = None
-    for q in range(_ceil_div(B, R)):
-        part = da[q * R:(q + 1) * R].sum(dim=(0, 1))
+    for q in range(_ceil_div(B, rows)):
+        part = da[q * rows:(q + 1) * rows].sum(dim=(0, 1))
         db = part if db is None else db + part
     return d_xs.to(xs.dtype), dws[0], dws[1], db
 
@@ -626,12 +708,14 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
         ("dhT", dhT, (B, H), f32), ("dcT", dcT, (B, H), f32)))
     xs, w_ih = pad_rows(xs, w_ih)
     D = xs.shape[2]
-    plan = lstm_scan_bwd_plan(B, L, D, H, xs.element_size())
+    # the resident walk's rows, as the C entry point chooses them on this card
+    at_once = bwd_plan_query(B, H, xs.dtype)[5] if resident(H, xs.element_size()) else None
+    plan = lstm_scan_bwd_plan(B, L, D, H, xs.element_size(), at_once)
     if max(plan.rec_smem, plan.dx_smem, plan.dw_smem) > MAX_SMEM:
         raise ValueError(f"lstm_scan_bwd: batch {B} needs more shared memory than a block has")
     dev = dict(dtype=f32, device=xs.device)
     da = torch.empty((B, L, 4 * H), **dev)
-    db_part = torch.empty((_ceil_div(B, R), 4 * H), **dev)
+    db_part = torch.empty((plan.clusters, 4 * H), **dev)  # a row each cluster of the walk
     d_xs = torch.empty((B, L, D), dtype=xs.dtype, device=xs.device)
     dw_ih, dw_hh = torch.empty((D, 4 * H), **dev), torch.empty((H, 4 * H), **dev)
     db = torch.empty((4 * H,), **dev)

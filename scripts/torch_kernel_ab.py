@@ -31,7 +31,9 @@ checkout's plain version (the tolerances of chip_smoke.py).
   (``chip_smoke.lstm_bounds``), and K3 and K1 also at 0 and at 80 tokens in
   every row (the forward's fixed cost, and its full walk of 80 valid steps);
   then all three at the Self-Monitor's encoder shape, D = 256, H = 512, at
-  17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch).
+  17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch,
+  or in bf16 the resident walks, whose backward may write more rows of db's
+  partial sums than clusters of 8 rows would: the scratch holds the larger).
 
 Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
 summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
@@ -172,7 +174,10 @@ def lstm_cases(dtype, dev, gen):
         want = kl.lstm_scan_bwd_plain(*res)
         outs = (torch.empty_like(xs), torch.empty((D, 4 * H), **f32),
                 torch.empty((H, 4 * H), **f32), torch.empty((4 * H,), **f32))
-        scratch = (torch.empty((B, L, 4 * H), **f32), torch.empty((-(-B // 8), 4 * H), **f32))
+        # db's partial sums: a row each cluster of the walk, clusters of 8
+        # rows or the resident walk's (this tree's plan); the larger serves both
+        db_rows = max(-(-B // 8), kl.bwd_plan_query(B, H, dtype)[2])
+        scratch = (torch.empty((B, L, 4 * H), **f32), torch.empty((db_rows, 4 * H), **f32))
 
         def call(lib, wpack=wpack):
             fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES, wpack)

@@ -2,17 +2,18 @@
 
 The Self-Monitor's encoder is one LSTM at H = 512 a direction, past the
 256 up to which a block keeps its eighth of W_hh in registers and shared
-memory: ``csrc/lstm_scan.cu``'s bf16 forward there keeps a sixteenth a
-block in registers (clusters of 16, the resident walk), its other wide
-walks stream it every step from a copy that ``pack_whh_kernel`` lays out
-in fragment order (``lstm_scan.whh_pack_order``).  The Follower's first layer reads 300-wide
+memory: ``csrc/lstm_scan.cu``'s bf16 walks there (forward and backward)
+keep a sixteenth a block in registers (clusters of 16, the resident
+walks), its other wide walks stream it every step from a copy that
+``pack_whh_kernel`` lays out in fragment order (``lstm_scan.whh_pack_order``).  The Follower's first layer reads 300-wide
 bf16 embeddings, 600-byte rows that the kernels' 16-byte loads cannot
 take: the wrappers zero-pad them (``lstm_scan.pad_rows``) and cut d_xs and
 dW_ih back.
 
 * ``lstm_scan_fwd_emulated`` and ``lstm_scan_bwd_emulated`` (the
   kernels' arithmetic: per-block split-TF32 step products, or the resident
-  walk's three bf16 terms of h summed by k-group, the plans' GEMM orders)
+  walks' three bf16 terms of h summed by k-group and of da summed by
+  block, the plans' GEMM orders)
   at H = 512, at H = 384 bf16 (the streaming forward) and at D = 300 bf16,
   against the Pallas kernels in interpret mode, from the same numpy-seeded
   inputs, at small B and L;
@@ -22,12 +23,12 @@ dW_ih back.
 * ``pad_rows`` is exact: the plain forward and backward of the padded
   inputs, cut back, equal those of the unpadded ones;
 * the wide plans: shared memory within the H100's, 512 threads; the bf16
-  forward at H = 512 keeps W_hh in registers (clusters of 16, nothing
+  walks at H = 512 keep W_hh in registers (clusters of 16, nothing
   streamed), the other wide walks stream it (one warp an m-tile in the
   forward, two m-tiles a warp in the backward); and the pack order is a
   permutation of W_hh whose fragments are those of the streaming walks'
-  tiles.  ``tests/test_torch_lstm_res.py`` holds the resident
-  walk's layout.
+  tiles.  ``tests/test_torch_lstm_res.py`` and
+  ``tests/test_torch_lstm_res_bwd.py`` hold the resident walks' plans.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -127,7 +128,7 @@ H100_RES_CLUSTERS = 7
 def test_wide_plans_fit_the_h100(B, H):
     for elem in (2, 4):
         f = t_lstm.lstm_scan_fwd_plan(B, 80, 256, H, elem, H100_RES_CLUSTERS)
-        b = t_lstm.lstm_scan_bwd_plan(B, 80, 256, H, elem)
+        b = t_lstm.lstm_scan_bwd_plan(B, 80, 256, H, elem, H100_RES_CLUSTERS)
         assert max(f.gx_smem, f.rec_smem, b.rec_smem, b.dx_smem, b.dw_smem) <= MAX_SMEM
         assert f.rec_threads == b.rec_threads == t_lstm.WT == 512
         if t_lstm.resident(H, elem):
@@ -147,7 +148,14 @@ def test_wide_plans_fit_the_h100(B, H):
             assert f.w_regs == 0 and f.w_stream == 4 * H * H // t_lstm.CL * elem
             assert f.w_pack == 4 * H * H
             assert (H // 8) % t_lstm.WFQ == 0
-        assert b.w_stream == 4 * H * H // t_lstm.CL * elem and b.w_pack == 4 * H * H
+        if t_lstm.resident(H, elem):
+            # backward: the same clusters of 16 rows' cells, W_hh in
+            # registers, nothing streamed or packed
+            assert (b.cluster, b.w_where, b.w_stream, b.w_pack) == (16, "registers", 0, 0)
+            assert b.clusters == -(-B // b.rows) and b.rec_grid == 16 * b.clusters
+        else:
+            assert b.w_stream == 4 * H * H // t_lstm.CL * elem and b.w_pack == 4 * H * H
+            assert b.cluster == t_lstm.CL and b.w_where == "streamed from L2"
         # backward: a thread a (row, unit) cell, two m-tiles of the H units a warp
         assert t_lstm.R * H // t_lstm.CL <= t_lstm.WT and 2 * t_lstm.WW * 16 >= H
         # the step product's k-steps come in whole groups
@@ -161,8 +169,10 @@ def test_wide_plans_at_the_monitor_shape():
     B = 61, 1 of 1 row at B = 1; the 139,264 B staged slice (over which h
     and the partials land) and the mbarriers of two row groups, 139,520 B
     of shared memory a block, or of one, 139,392.  f32: 8 clusters of 8 blocks streaming 512 KB of
-    W_hh a step through 128 KB of rings.  The backward streams in both
-    (256 KB a step in bf16)."""
+    W_hh a step through 128 KB of rings.  The backward: in bf16 the
+    resident walk on the same clusters, 139,296 B (two row groups) or
+    139,280 B (one) of shared memory a block, nothing streamed; in f32 8
+    clusters streaming 512 KB a step."""
     f = t_lstm.lstm_scan_fwd_plan(64, 80, 256, 512, 4)
     assert (f.cluster, f.rows, f.rec_grid, f.rec_warps) == (8, 8, 64, 16)
     assert f.rec_smem == 178192 and f.w_stream == 4 * 64 * 512 * 4
@@ -171,10 +181,13 @@ def test_wide_plans_at_the_monitor_shape():
         f = t_lstm.lstm_scan_fwd_plan(B, 80, 256, 512, 2, H100_RES_CLUSTERS)
         assert (f.cluster, f.rows, f.clusters, f.rec_grid) == (16, rows, clusters, clusters * 16)
         assert f.rec_smem == smem and f.w_stream == 0 and f.w_regs == 64
-    for elem, bwd_smem in ((4, 196624), (2, 131088)):
-        b = t_lstm.lstm_scan_bwd_plan(64, 80, 256, 512, elem)
-        assert b.rec_grid == 64 and b.rec_smem == bwd_smem
-        assert b.w_stream == 4 * 64 * 512 * elem
+    b = t_lstm.lstm_scan_bwd_plan(64, 80, 256, 512, 4)
+    assert b.rec_grid == 64 and b.rec_smem == 196624
+    assert b.w_stream == 4 * 64 * 512 * 4
+    for B, rows, clusters, smem in ((64, 10, 7, 139296), (61, 9, 7, 139296), (1, 1, 1, 139280)):
+        b = t_lstm.lstm_scan_bwd_plan(B, 80, 256, 512, 2, H100_RES_CLUSTERS)
+        assert (b.cluster, b.rows, b.clusters, b.rec_grid) == (16, rows, clusters, clusters * 16)
+        assert b.rec_smem == smem and b.w_stream == b.w_pack == 0
     # the padded Follower rows: D = 300 bf16 is planned as 304
     assert t_lstm.lstm_scan_bwd_plan(64, 80, 304, 128, 2).dx_grid[0] == 5
 
