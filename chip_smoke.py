@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's EnvDrop serving and training paths, the
-paper's curriculum recipe, and the Follower and Self-Monitor agents, on
-one GPU.
+paper's curriculum recipe, the Follower and Self-Monitor agents, and the
+speaker with back-translation, on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
@@ -15,7 +15,7 @@ one GPU.
    (``recurrence_res_kernel`` and ``bwd_recurrence_res_kernel``, which hold
    W_hh in registers), each instantiation printed by name, must show no
    spills and at most 128 registers a thread.
-3. Kernel phases (in a full run, after phase 7, so that their profiler
+3. Kernel phases (in a full run, after phase 8, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
@@ -50,7 +50,9 @@ one GPU.
    256 at H = 512, the resident walk in bf16) at lengths up to 80 and at
    B = 61 over ragged lengths (the Self-Monitor's also at B = 40 and 1: one
    row group; K2's bf16 d_xs differing from plain in under 1% there too),
-   each beside cuDNN's ``nn.LSTM`` and its bound.  The forward and the
+   each beside cuDNN's ``nn.LSTM`` and its bound, and the speaker
+   encoder's layers ((D, H) = (2176, 256) and (512, 256)) at L = 35 full
+   lengths and at B = 61 over ragged ones.  The forward and the
    backward walks' plans at the Self-Monitor's shape (B = 64, 61 and 1,
    bf16 and f32) are printed: blocks a cluster, rows a cluster, where W_hh
    sits, and the clusters against those the card holds at once
@@ -101,9 +103,25 @@ one GPU.
    ignored for these agents): its loss is dot(w, ml_vec) / sum(w)
    recomputed in numpy.  (e) ``check_the_code`` on the synthetic
    val_unseen split: SR 1.0.
-8. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
-   the Follower's and the Self-Monitor's paths), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+8. Speaker phase: the speaker at the default ``AIDE.SPEAKER`` (RNN_DIM
+   512, WEMB 256, MAX_DECODE 120) on the EnvDrop config's world, bf16, B =
+   64, T = 35, seeded random weights.  (a) One teacher-forcing step through
+   the kernels against the plain versions: the loss and every gradient
+   leaf (K1 = K2 = 4: two layers, two directions).  (b) Timed teacher-
+   forcing steps with exact launches and the device-busy share of one.
+   (c) Greedy and sampled decodes and ``back_translate`` with its shared
+   noise mask, each with K3 = 4 exactly, timed; the first step's logits
+   against the plain versions.  (d) ``engine.self_train`` (2 speaker
+   steps, 4 iterations), each call's launches exact: a real iteration as
+   the training phase's at T_il = T, ``back_translate`` K3 = 4, a back-
+   translated iteration K1 = K2 = 4 and K4-K7 = 0 (its decode is the
+   unfused one); finite losses, moved parameters.  (e) A speaker
+   checkpoint read back with its optimizer state, and ``main
+   --self-train`` on a synthetic world for one short epoch.
+9. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+   the Follower's, the Self-Monitor's and the speaker's paths), the card's
+   name and power limit, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device, or without the port beside it, it fails.
@@ -142,6 +160,11 @@ AGENT_CONFIGS = {"FOLLOWER": ("configs/follower/follower_config.yaml",
 AGENT_T = 10  # their configs' MAX_EPISODE_LEN
 # (D, H) of the Follower's and the Self-Monitor's encoder layers (K1-K3)
 AGENT_LSTM_SHAPES = {"monitor": (256, 512), "follower_l1": (300, 128), "follower_l2": (256, 128)}
+SPEAKER_ITERS = 4  # timed speaker teacher-forcing steps (after one warm-up)
+SPEAKER_T = 35     # envdrop_config.yaml's MAX_EPISODE_LEN: the speaker's steps, all full
+# (D, H) of the speaker encoder's layers (K1-K3): the BiLSTM over the chosen
+# candidates' 2048 + 128 features, and the post-LSTM over its 2 x 256 outputs
+SPEAKER_LSTM_SHAPES = {"speaker_l1": (FEAT_DIM + 128, 256), "speaker_post": (512, 256)}
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -402,13 +425,13 @@ def long_lengths(B, gen, device, lo=16, hi=80):
     return lengths
 
 
-def lstm_phases(dtype, device, gen, lengths, iters=20, D=256, H=256):
+def lstm_phases(dtype, device, gen, lengths, iters=20, D=256, H=256, L=80):
     """K3, K1 and K2 at an encoder layer's shapes (B = 64, L = 80; EnvDrop's
     D = H = 256 by default), both directions, over the token lengths
     ``lengths``."""
     k = modules()["lstm_scan"]
     B = lengths.shape[0]
-    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B, D=D, H=H)
+    xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, B, L, D, H)
     L, D, H = xs.shape[1], xs.shape[2], w_hh.shape[0]
     valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
     d_out = torch.randn(B, L, H, generator=gen, device=device)
@@ -854,7 +877,7 @@ def kernel_phases(world, lengths, device):
                              lstm_phases(dtype, device, gen, long)):
             r["long"] = r_long
             r["ragged"] = {"B": 61, "lengths": "0-80, a 0 and an 80", **ragged[r["name"]]}
-            r["agent_shapes"] = {}
+            r["agent_shapes"], r["speaker_shapes"] = {}, {}
             results[(r["name"], prec)] = r
         plans = lstm_walk_plans(dtype, *AGENT_LSTM_SHAPES["monitor"])
         for label, (D, H) in AGENT_LSTM_SHAPES.items():
@@ -870,6 +893,15 @@ def kernel_phases(world, lengths, device):
                 if label == "monitor":
                     r["plans"] = plans["bwd" if r["name"] == "lstm_scan_bwd" else "fwd"]
                 results[(r["name"], prec)]["agent_shapes"][label] = r
+        # the speaker encoder's layers at full lengths, and at B = 61 over ragged ones
+        full = torch.full((BATCH,), SPEAKER_T, dtype=torch.long, device=device)
+        for label, (D, H) in SPEAKER_LSTM_SHAPES.items():
+            ragged = lstm_ragged(dtype, device, gen, L=SPEAKER_T, D=D, H=H)
+            for r in lstm_phases(dtype, device, gen, full, D=D, H=H, L=SPEAKER_T):
+                r["ragged"] = {"B": 61, "lengths": f"0-{SPEAKER_T}, a 0 and a {SPEAKER_T}",
+                               **ragged[r["name"]]}
+                r["shape"] = {"D": D, "H": H}
+                results[(r["name"], prec)]["speaker_shapes"][label] = r
         by_mode = obs_phases(dtype, device, gen, features)
         for i, r in enumerate(by_mode["prng"]):
             r = dict(r)
@@ -912,7 +944,8 @@ def kernel_phases(world, lengths, device):
             f"{times_label(r)}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
         for name in ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"):
             base = results[(name, prec)]
-            for r in (base, base["long"], *base["agent_shapes"].values()):
+            for r in (base, base["long"], *base["agent_shapes"].values(),
+                      *base["speaker_shapes"].values()):
                 b_ms, b_by = r["bound"]
                 errs = ", ".join(f"{part} {c['max_abs_err']:.3g} (tol {c['tol']:.3g})"
                                  for part, c in r["checks"].items())
@@ -928,7 +961,8 @@ def kernel_phases(world, lengths, device):
                 for part, c in r["checks"].items():
                     check(c["max_abs_err"] <= c["tol"],
                           f"{name} {prec} {part} agrees with its plain version")
-            for label, r in (("EnvDrop", base), *base["agent_shapes"].items()):
+            for label, r in (("EnvDrop", base), *base["agent_shapes"].items(),
+                             *base["speaker_shapes"].items()):
                 rg = r["ragged"]
                 log(f"{name:16s} {prec:4s} {label} at B={rg['B']}, lengths {rg['lengths']}: "
                     "max|kernel-plain| " + ", ".join(
@@ -942,7 +976,8 @@ def kernel_phases(world, lengths, device):
                             for part, c in parts.items()))
         torch.cuda.synchronize()
     for r in results.values():
-        for x in (r, r.get("long", {}), *r.get("agent_shapes", {}).values()):
+        for x in (r, r.get("long", {}), *r.get("agent_shapes", {}).values(),
+                  *r.get("speaker_shapes", {}).values()):
             if "bound" in x:
                 x["bound_ms"], x["bound_by"] = x.pop("bound")
     return results
@@ -1099,7 +1134,8 @@ def profile(fn):
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # an annotation's span (Optimizer.step#...) covers its kernels and the gaps between
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -1772,6 +1808,294 @@ def agents_phase(world, data, requests, tok, device, card):
 
 
 # ---------------------------------------------------------------------------
+# Speaker phase: the speaker and back-translation
+# ---------------------------------------------------------------------------
+
+def launches_of(**counts):
+    """Every kernel's expected launches: the ones named, 0 for the rest."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def counted(kind, fn, record):
+    """``fn`` with each call's launches (by kernel) and ms (to a
+    synchronize) appended to ``record[kind]``."""
+    def run(*args, **kwargs):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        record[kind].append(({k: after[k] - before[k] for k in KERNELS},
+                             (time.perf_counter() - t0) * 1e3))
+        return out
+
+    return run
+
+
+def speaker_phase(world, data, tok, cfg, device, card):
+    """The speaker at the width of ``AIDE.SPEAKER`` (RNN_DIM 512, WEMB 256,
+    MAX_DECODE 120) and back-translation, on the EnvDrop config's world,
+    TPU.PRECISION (bf16) with f32 masters, B = 64, T = 35, seeded random
+    weights: (a) one teacher-forcing step through the kernels against the
+    plain versions, (b) timed teacher-forcing steps, (c) decoding, greedy,
+    sampled and back-translation's, (d) ``engine.self_train`` for a few
+    iterations, (e) a speaker checkpoint read back and ``main
+    --self-train``."""
+    import glob
+    import importlib
+
+    from curriculum_learning_for_vln_torch.agents.common import cast_compute_params
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.agents.speaker import (Speaker,
+                                                                  collect_shortest_path_features)
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.models.speaker_model import speaker_decoder_apply
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.utils.tokenizer import (BOS_IDX, EOS_IDX, PAD_IDX,
+                                                                   UNK_IDX)
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    st = importlib.import_module("curriculum_learning_for_vln_torch.engine.self_train")
+    precision, T, s = cfg.TPU.PRECISION, cfg.AGENT.MAX_EPISODE_LEN, cfg.AIDE.SPEAKER
+    check(T == SPEAKER_T, f"{CONFIG} ships T = {SPEAKER_T}")
+    dtype = PRECISIONS[precision]
+    speaker = Speaker(s, tok.vocab_size(), feat_dim=FEAT_DIM, episode_len=T, compute_dtype=dtype)
+    tables = world.device_tables(precision, device)
+    env = R2RBatchEnv(world, expand_r2r_items(data, tok), BATCH, tok, seed=SEED, device=device)
+    params, opt = speaker.init(torch.Generator().manual_seed(SEED), device)
+    leaves = tree.tree_leaves(params)
+    out = {"parameters": sum(p.numel() for p in leaves), "precision": precision}
+    log(f"speaker: RNN_DIM {s.RNN_DIM} (bidirectional {s.BI_DIRECTION}), WEMB {s.WEMB}, "
+        f"MAX_DECODE {s.MAX_DECODE}, DROPOUT {s.DROPOUT}, FEAT_DROPOUT {s.FEAT_DROPOUT}, "
+        f"{precision}, B={BATCH}, T={T}, F={speaker.feature_size}, vocab {tok.vocab_size()}, "
+        f"{out['parameters']} parameters")
+    want_train = launches_of(lstm_scan_train=4, lstm_scan_bwd=4)  # 2 layers x 2 directions
+    want_decode = launches_of(lstm_scan=4)
+
+    # (a) one teacher-forcing step, kernels vs plain, from the same parameters,
+    # batch and generator seed (dropout on, as configured)
+    batch = env.next_batch()
+    feats = collect_shortest_path_features(tables, batch, T, dtype)
+
+    def grads():
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        loss = speaker.teacher_forcing_loss(params, feats, batch.instr_tokens, True, gen)
+        for p in leaves:
+            p.grad = None
+        loss.backward()
+        # baseline_fc1 / fc2 are on no path of the speaker (speaker_model.py): no gradient
+        return loss.item(), [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                             for p in leaves]
+
+    reset_launch_counts()
+    loss_k, g_k = grads()
+    counts = launch_counts()
+    check(counts == want_train, f"speaker step launches {counts}, expected {want_train}")
+    with plain_kernels():
+        loss_p, g_p = grads()
+    loss_err = abs(loss_k - loss_p)
+    check(loss_err <= 1e-4 * max(1.0, abs(loss_p)), f"speaker loss kernels {loss_k} plain {loss_p}")
+    grad_err, worst = 0.0, ""
+    for path, gk, gp in zip(leaf_paths(params), g_k, g_p):
+        sc = max(float(gp.abs().max()), 1e-6)
+        e = float((gk - gp).abs().max())
+        if e / sc > grad_err:
+            grad_err, worst = e / sc, "/".join(map(str, path))
+        # the bf16 compute weights' gradients are bf16: one ulp of the leaf's
+        # largest element is up to 2^-7 of it
+        check(e <= 1e-2 * sc, f"speaker gradient leaf {'/'.join(map(str, path))}: |kernel - "
+                              f"plain| {e:.3g} > {1e-2 * sc:.3g}")
+    for p in leaves:
+        p.grad = None
+    out["check"] = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_err": loss_err,
+                    "grad_rel_err": grad_err, "worst_leaf": worst, "leaves": len(leaves),
+                    "launches": counts}
+    log(f"speaker (a): teacher-forcing loss kernels {loss_k:.6f} plain {loss_p:.6f} (|diff| "
+        f"{loss_err:.3g}); worst gradient leaf |kernel - plain| / max|plain| {grad_err:.3g} "
+        f"({worst}; tol 1e-2, one bf16 ulp is up to 2^-7) over {len(leaves)} leaves; launches "
+        f"exact {counts}")
+
+    # (b) timed teacher-forcing steps with exact launches
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    speaker.train_steps(params, opt, tables, env, gen, 1)  # warm-up
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in leaves]
+    times, losses = [], []
+    for _ in range(SPEAKER_ITERS):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses += speaker.train_steps(params, opt, tables, env, gen, 1)[2]  # ends in a sync
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check(counts == want_train, f"timed speaker step launches {counts}, expected {want_train}")
+    check(all(x == x and abs(x) < float("inf") for x in losses), f"finite losses {losses}")
+    moved = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, leaves))
+    check(moved >= len(leaves) - 4, f"{moved} of {len(leaves)} speaker leaves moved")
+    med = statistics.median(times)
+    wall, busy, rows = profile(lambda: speaker.train_steps(params, opt, tables, env, gen, 1))
+    out["train"] = {"ms": [t * 1e3 for t in times], "median_ms": med * 1e3, "busy": (wall, busy),
+                    "losses": losses, "leaves_moved": moved,
+                    "launches_per_step": want_train}
+    log(f"speaker (b): {SPEAKER_ITERS} timed teacher-forcing steps (ClippedAdam), ms per step "
+        f"median {med * 1e3:.2f} (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
+        f"launches a step exact {want_train}; losses {[round(x, 4) for x in losses]}; "
+        f"{moved}/{len(leaves)} leaves moved (baseline_fc* have no gradient); device busy "
+        f"{100 * busy / wall:.1f}% under the profiler | {card}")
+    print_profile("one speaker teacher-forcing step", wall, busy, rows)
+
+    # (c) decoding: greedy, sampled, and back-translation's through a shared mask
+    ep = env.next_batch()
+    speaker.infer_batch(params, tables, ep, gen)  # warm-up
+    dec = {}
+    for label, kw in (("greedy", {}), ("sampled", {"sampling": True})):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words = speaker.infer_batch(params, tables, ep, gen, **kw).cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        check(counts == want_decode, f"{label} decode launches {counts}, expected {want_decode}")
+        check(words.shape == (BATCH, s.MAX_DECODE) and not (words == UNK_IDX).any(),
+              f"{label} decode: {words.shape} words, no <UNK>")
+        for row in words:
+            eos = np.flatnonzero(row == EOS_IDX)
+            check(not len(eos) or (row[eos[0] + 1:] == PAD_IDX).all(), "<PAD> after <EOS>")
+        ended = int(sum((row == EOS_IDX).any() for row in words))
+        dec[label] = {"ms": ms, "launches": counts, "ended": ended}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_ep, noise = speaker.back_translate(params, tables, env, ep, int(ep.instr_tokens.shape[1]),
+                                           gen, FEAT_DIM)
+    toks, lens = new_ep.instr_tokens.cpu().numpy(), new_ep.instr_len.cpu().numpy()
+    bt_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    check(counts == want_decode, f"back_translate launches {counts}, expected {want_decode}")
+    keep = 1.0 - s.FEAT_DROPOUT
+    check(bool(((noise == 0) | ((noise - 1.0 / keep).abs() <= 1e-6)).all())
+          and noise.shape == (FEAT_DIM,), "the shared mask holds 0 and 1 / keep only")
+    check((toks[:, 0] == BOS_IDX).all() and (toks[np.arange(BATCH), lens - 1] == EOS_IDX).all(),
+          "back-translated instructions run <BOS> .. <EOS>")
+    check(torch.equal(new_ep.start_node, ep.start_node) and bool(new_ep.valid.all()),
+          "back-translation keeps the episodes")
+    dec["back_translate"] = {"ms": bt_ms, "launches": counts, "mean_len": float(lens.mean()),
+                             "mask_kept": float((noise > 0).float().mean())}
+
+    def first_logits():  # the greedy decode's first step
+        with torch.no_grad():
+            f = collect_shortest_path_features(tables, ep, T, dtype)
+            ctx, cmask = speaker._encode(params, f, False)
+            h0 = torch.zeros((BATCH, s.RNN_DIM), device=device)
+            bos = torch.full((BATCH, 1), BOS_IDX, dtype=torch.long, device=device)
+            lg, _, _ = speaker_decoder_apply(cast_compute_params(params["decoder"], dtype), bos,
+                                             ctx, cmask, h0, h0, False)
+        return lg[:, 0].float()
+
+    l_k = first_logits()
+    with plain_kernels():
+        l_p = first_logits()
+    scale, lerr = float(l_p.abs().max()), float((l_k - l_p).abs().max())
+    # f32 encoder outputs summed in another order, then bf16 weights downstream
+    check(lerr <= 1e-3 * max(scale, 1.0), f"speaker first-step logits |kernel - plain| {lerr:.3g} "
+                                          f"of scale {scale:.3g}")
+    dec["first_step_logit_err"], dec["logit_scale"] = lerr, scale
+    out["decode"] = dec
+    log(f"speaker (c): decode of {s.MAX_DECODE} steps at B={BATCH}: greedy "
+        f"{dec['greedy']['ms']:.2f} ms ({dec['greedy']['ended']} of {BATCH} ended), sampled "
+        f"{dec['sampled']['ms']:.2f} ms, back_translate {bt_ms:.2f} ms (feature walk, masked "
+        f"encoder, greedy decode, injection; mean length {lens.mean():.1f}, mask keeps "
+        f"{dec['back_translate']['mask_kept']:.3f}); launches a call exact {want_decode}; "
+        f"first-step logits |kernel - plain| {lerr:.3g} of scale {scale:.3g} | {card}")
+
+    # (d) engine.self_train: speaker_iters 2, iters_per_epoch 4, each call's launches exact
+    agent = EnvDropAgent(cfg.MODEL.ENVDROP, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                         compute_dtype=dtype, obs_masks=cfg.TPU.OBS_MASKS)
+    record = {"pretrain": [], "real": [], "bt": [], "back_translate": []}
+    st_speaker = Speaker(s, tok.vocab_size(), feat_dim=FEAT_DIM, episode_len=T,
+                         compute_dtype=dtype)
+    st_speaker.train_steps = counted("pretrain", st_speaker.train_steps, record)
+    st_speaker.back_translate = counted("back_translate", st_speaker.back_translate, record)
+    saved = st.one_iter, st.backtranslation_step
+    st.one_iter = counted("real", st.one_iter, record)
+    st.backtranslation_step = counted("bt", st.backtranslation_step, record)
+    t0 = time.perf_counter()
+    try:
+        reset_launch_counts()
+        st_params, _, (st_spk, _), st_losses = st.self_train(
+            cfg, agent, st_speaker, env, env, tables, seed=SEED, speaker_iters=2, epochs=1,
+            iters_per_epoch=4)
+    finally:
+        st.one_iter, st.backtranslation_step = saved
+    st_s = time.perf_counter() - t0
+    want = {"pretrain": launches_of(lstm_scan_train=8, lstm_scan_bwd=8),  # 2 steps
+            "real": launches_of(lstm_scan_train=4, lstm_scan_bwd=4, pano_attend=2 * T + 1,
+                                cand_score=2 * T + 1, pano_attend_bwd=2 * T,
+                                cand_score_bwd=2 * T),
+            "back_translate": want_decode,
+            "bt": launches_of(lstm_scan_train=4, lstm_scan_bwd=4)}
+    for kind, calls in record.items():
+        check(len(calls) == (1 if kind == "pretrain" else 2), f"self_train: {len(calls)} {kind}")
+        for counts, _ in calls:
+            check(counts == want[kind], f"self_train {kind} launches {counts}, expected "
+                                        f"{want[kind]}")
+    all_losses = st_losses["real"] + st_losses["bt"]
+    check(all(x == x and abs(x) < float("inf") for x in all_losses), f"finite {st_losses}")
+    p0 = tree.tree_leaves(agent.init(torch.Generator().manual_seed(SEED + 1)))
+    s0 = tree.tree_leaves(speaker.init(torch.Generator().manual_seed(SEED), device)[0])
+    moved = sum(int(not torch.equal(a.to(device), b.detach()))
+                for a, b in zip(p0, tree.tree_leaves(st_params)))
+    spk_moved = sum(int(not torch.equal(a.detach(), b.detach()))
+                    for a, b in zip(s0, tree.tree_leaves(st_spk)))
+    check(moved == len(p0) and spk_moved >= len(s0) - 4,
+          f"self_train moved {moved}/{len(p0)} EnvDrop and {spk_moved}/{len(s0)} speaker leaves")
+    out["self_train"] = {"s": st_s, "losses": st_losses, "envdrop_leaves_moved": moved,
+                         "speaker_leaves_moved": spk_moved,
+                         "ms": {k: [ms for _, ms in v] for k, v in record.items()},
+                         "launches": {k: want[k] for k in record}}
+    log(f"speaker (d): self_train (2 speaker steps, 4 iterations) in {st_s:.1f} s: real "
+        f"{[round(x, 4) for x in st_losses['real']]} bt {[round(x, 4) for x in st_losses['bt']]}; "
+        + "; ".join(f"{k} ms {[round(ms, 2) for _, ms in v]}" for k, v in record.items())
+        + f"; launches exact: real {want['real']}, back_translate {want['back_translate']}, "
+        f"bt {want['bt']}; {moved}/{len(p0)} EnvDrop and {spk_moved}/{len(s0)} speaker leaves "
+        f"moved | {card}")
+
+    # (e) a speaker checkpoint read back, optimizer state included; main --self-train
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "speaker.ckpt")
+        speaker.save(path, params, opt, epoch=1)
+        p2, opt2, epoch = speaker.load(path, load_optim=True, device=device)
+        check(epoch == 1 and all(torch.equal(a.detach(), b.detach()) for a, b in
+                                 zip(leaves, tree.tree_leaves(p2))), "speaker params read back")
+        st1, st2 = opt.state_dict()["state"], opt2.state_dict()["state"]
+        check(st1.keys() == st2.keys() and all(
+            torch.equal(st1[k][n].cpu(), st2[k][n].cpu())
+            for k in st1 for n in ("step", "exp_avg", "exp_avg_sq")),
+              "the speaker's optimizer state read back")
+        cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--self-train",
+               "--seed", str(SEED), "--config-file", CONFIG, "TPU.SYNTHETIC_WORLD", "True",
+               "TPU.SYNTHETIC_SCANS", "6", "TPU.SYNTHETIC_NODES", "48", "TRAIN.MAX_EPOCH", "1",
+               "TRAIN.ITER_PER_EPOCH", "2", "OUTPUT.LOG_DIR", d, "OUTPUT.TSBOARD_DIR", "",
+               "OUTPUT.CKPT_DIR", d]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        main_s = time.perf_counter() - t0
+        text = "".join(open(f).read() for f in glob.glob(os.path.join(d, "*.log")))
+    check(run.returncode == 0 and "Self-training finished" in text,
+          f"main --self-train: rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    lines = [ln.split(": ", 1)[-1] for ln in text.splitlines()
+             if "speaker pretrain" in ln or "self-train epoch" in ln]
+    out["main"] = {"s": main_s, "log": lines}
+    log(f"speaker (e): checkpoint read back with its optimizer state ({len(st1)} leaves); "
+        f"main --self-train (synthetic 6 x 48, 200 speaker steps, 1 epoch of 2) in "
+        f"{main_s:.1f} s: {' | '.join(lines)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1860,6 +2184,13 @@ def main() -> int:
             f"{100 * sb / sw:.1f}%), train {a['train']['median_ms']:.2f} ms an iteration (device "
             f"busy {100 * tb / tw:.1f}%) | {card}")
 
+    spk = speaker_phase(world, data, tok, cfg, device, card)
+    sw, sb = spk["train"]["busy"]
+    log(f"speaker: {spk['train']['median_ms']:.2f} ms a teacher-forcing step (device busy "
+        f"{100 * sb / sw:.1f}%), greedy decode of {cfg.AIDE.SPEAKER.MAX_DECODE} steps "
+        f"{spk['decode']['greedy']['ms']:.2f} ms, back_translate "
+        f"{spk['decode']['back_translate']['ms']:.2f} ms a batch of {BATCH} | {card}")
+
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
@@ -1890,6 +2221,11 @@ def main() -> int:
                 "train_iteration": agents[a]["train"]["launches_per_iteration"][name]}
                for a in AGENT_CONFIGS},
             "f32": {k: r32[k] for k in ("max_abs_err", *TIME_KEYS, "bound_ms", "bound_by")},
+            "speaker_launches": {
+                "train_step": spk["train"]["launches_per_step"][name],
+                "decode_call": spk["decode"]["greedy"]["launches"][name],
+                "back_translate": spk["decode"]["back_translate"]["launches"][name],
+                "self_train": {k: v[name] for k, v in spk["self_train"]["launches"].items()}},
         }
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
             keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "device_split", "bound_ms",
@@ -1899,13 +2235,15 @@ def main() -> int:
             entry["f32"].update(checks=r32["checks"], device_split=r32["device_split"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
-            # the Follower's and the Self-Monitor's encoder layers
-            entry["agent_shapes"] = {
-                label: {prec: {k: x["agent_shapes"][label][k]
-                               for k in ("shape", *keys, "max_abs_err", "ragged", "plans")
-                               if k in x["agent_shapes"][label]}
-                        for prec, x in ((precision, r), ("f32", r32))}
-                for label in AGENT_LSTM_SHAPES}
+            # the Follower's, the Self-Monitor's and the speaker's encoder layers
+            for group, labels in (("agent_shapes", AGENT_LSTM_SHAPES),
+                                  ("speaker_shapes", SPEAKER_LSTM_SHAPES)):
+                entry[group] = {
+                    label: {prec: {k: x[group][label][k]
+                                   for k in ("shape", *keys, "max_abs_err", "ragged", "plans")
+                                   if k in x[group][label]}
+                            for prec, x in ((precision, r), ("f32", r32))}
+                    for label in labels}
         else:
             entry["tol"] = r["tol"]
         if "ragged" in r:  # K4-K7 at a short prng_shared group, K8 at ragged edges

@@ -13,7 +13,11 @@ loop.py:68-71): "prng" (per-sample seeds drawn per step and per site,
 masks made in the kernels), "prng_shared" (the same seeds, one mask per
 group of 8 rows) or "ext" (keep-masks drawn here).  ``rollout_packed``
 (envdrop.py:124-183) is the sampled A2C rollout over an episode pool
-(agents/packed.py).
+(agents/packed.py).  ``rollout(feat_mask=...)`` is back-translation's
+rollout (envdrop.py:198-230): the shared noise mask on the image dims of
+the gathered features, the unfused decode, no observation kernel;
+``rollout_packed`` takes no mask (the back-translation step does not
+pack).
 
 The hand-written BPTT path (``FUSED_BPTT``) is not ported.
 """
@@ -96,14 +100,41 @@ class EnvDropAgent:
         return DropSpec("ext", mask=draw_keep_mask((B, rows, D_), keep, generator, device),
                         keep=keep)
 
+    def _apply_feat_mask(self, feat: torch.Tensor, feat_mask: torch.Tensor) -> torch.Tensor:
+        """The shared noise on the image dims (envdrop.py:83-87): the
+        features times the f32 mask, which promotes bf16 features to f32,
+        as jnp does; the angle dims follow."""
+        a = self.angle_feat_size
+        img = feat[..., :-a] * feat_mask
+        return torch.cat([img, feat[..., -a:].to(img.dtype)], dim=-1)
+
     def _decode(self, dec: dict, world: WorldTables, train: bool,
-                generator: Optional[torch.Generator]):
+                generator: Optional[torch.Generator], feat_mask: Optional[torch.Tensor] = None):
         """One decoder step with the text context passed in — shared by the
         per-batch rollout and the packed one, which gathers its context
         rows per step (envdrop.py:78-121): visual query, observation op
-        (K4), decoder, candidate scorer (K6)."""
+        (K4), decoder, candidate scorer (K6).  With ``feat_mask`` (the
+        shared noise of back-translation) the step is the unfused one over
+        the gathered features with the mask applied, as the JAX package
+        turns its fused path off then (envdrop.py:213-221): no kernel of
+        the observation path runs."""
         drop = self.cfg.DROP_RATE
         _, V, Dim = world.features.shape
+
+        if feat_mask is not None:
+            def decode_masked(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
+                _h, c, h_tilde = mc
+                a_t_angle = make_angle_feat(state.heading, state.elevation)
+                # the features in the dtype the metadata was made in
+                pano, cand = E.observe_feats(world, state, meta, meta.cand_angle.dtype)
+                logits, (h1, c1), h_tilde_new = D.envdrop_decoder_step(
+                    dec, a_t_angle, self._apply_feat_mask(pano, feat_mask),
+                    self._apply_feat_mask(cand, feat_mask), h_tilde, c, ctx, ctx_mask, train,
+                    drop, self.cfg.FEAT_DROP_RATE, self.angle_feat_size, already_dropfeat=True,
+                    generator=generator)
+                return logits, (h1, c1, h_tilde_new), h1
+
+            return decode_masked
 
         def decode(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
             B = ctx.shape[0]
@@ -163,13 +194,17 @@ class EnvDropAgent:
                 train: bool = False, train_ml: bool = True, train_rl: bool = False,
                 episode_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                model_state: Optional[dict] = None
+                model_state: Optional[dict] = None,
+                feat_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[EnvDropLosses, C.RolloutResult]:
         """One batched episode rollout.  Returns (losses, result); the A2C
         terms are computed with sample feedback and ``train_rl``.
         ``generator`` (on the device of the tables) draws the dropout masks
-        and the sampled actions.  EnvDrop has no model state: callers that
-        serve any agent may pass one, and it is not read."""
+        and the sampled actions.  ``feat_mask`` [D] f32 is back-
+        translation's shared noise (envdrop.py:198-230): it replaces the
+        env-dropout, and the decode is the unfused one.  EnvDrop has no
+        model state: callers that serve any agent may pass one, and it is
+        not read."""
         if feedback != C.FEEDBACK_SAMPLE:
             train_rl = False  # (ref: envdrop.py:100)
         C.check_dtype(world, self.compute_dtype)
@@ -179,7 +214,7 @@ class EnvDropAgent:
         ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
                                     drop, generator)
         B = ep.instr_tokens.shape[0]
-        decode = self._decode(params["decoder"], world, train, generator)
+        decode = self._decode(params["decoder"], world, train, generator, feat_mask)
 
         def model_step(mc, meta, state, t):
             return (*decode(mc, ctx, ctx_mask, meta, state), None)
@@ -195,7 +230,10 @@ class EnvDropAgent:
         if train_rl:
             with torch.no_grad():  # one extra decode step bootstraps the return
                 final = result.final_state
-                meta = E.observe_meta(world, final, self.compute_dtype)
+                # the JAX package observes this step in f32 (envdrop.py:226),
+                # which the unfused decode reads; the fused one reads the table
+                meta = E.observe_meta(world, final, torch.float32 if feat_mask is not None
+                                      else self.compute_dtype)
                 _, _, last_h = decode(result.model_carry, ctx, ctx_mask, meta, final)
                 last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
             # critic values of all steps, latest first, as one batched call

@@ -3,9 +3,12 @@
 The port keeps the JAX package's parameter names and layouts (dense
 ``w`` [in, out]; LSTM ``w_ih`` [D, 4H], ``w_hh`` [H, 4H], ``b_ih``,
 ``b_hh``, gate order i, f, g, o; the Self-Monitor's positional table
-``pe`` a leaf), so an EnvDrop, Follower or Self-Monitor parameter tree
-converts leaf for leaf and both packages compute the same function from
-it; so does a model state (the Self-Monitor's BN statistics: mean, var
+``pe`` a leaf), so an EnvDrop, Follower, Self-Monitor or speaker
+parameter tree (the speaker's: encoder ``lstm_fwd``, ``lstm_bwd``,
+``attn``, ``post_fwd``, ``post_bwd``; decoder ``embedding``, ``lstm``,
+``attn``, ``projection``, ``baseline_fc1``, ``baseline_fc2``) converts
+leaf for leaf and both packages compute the same function from it; so
+does a model state (the Self-Monitor's BN statistics: mean, var
 and count of each BatchNorm, under "decoder_bn").  Each tree is
 recognised by the key paths it holds.
 """
@@ -39,6 +42,13 @@ _TREE_KEYS = {
         ("decoder", "visual_attn", "linear_in_h", "w"), ("decoder", "lstm", "w_ih"),
         ("decoder", "action_linear", "w"), ("decoder", "monitor_linear", "w"),
         ("decoder", "critic", "w")),
+    "SPEAKER": (
+        ("encoder", "lstm_fwd", "w_ih"), ("encoder", "lstm_bwd"),
+        ("encoder", "attn", "linear_in", "w"), ("encoder", "attn", "linear_out", "w"),
+        ("encoder", "post_fwd", "w_ih"), ("encoder", "post_bwd"),
+        ("decoder", "embedding", "w"), ("decoder", "lstm", "w_ih"),
+        ("decoder", "attn", "linear_in", "w"), ("decoder", "projection", "w"),
+        ("decoder", "baseline_fc1", "w"), ("decoder", "baseline_fc2", "w")),
 }
 _STATE_KEYS = (("decoder_bn", "mlp", "bn_in", "mean"), ("decoder_bn", "mlp", "bns"))
 
@@ -53,12 +63,12 @@ def _has(tree, path) -> bool:
 
 
 def tree_kind(tree: dict) -> str:
-    """The agent whose parameter tree this is ("ENVDROP", "FOLLOWER" or
-    "SELF-MONITOR"); raises on a tree of none of them."""
+    """The model whose parameter tree this is ("ENVDROP", "FOLLOWER",
+    "SELF-MONITOR" or "SPEAKER"); raises on a tree of none of them."""
     for kind, paths in _TREE_KEYS.items():
         if all(_has(tree, p) for p in paths):
             return kind
-    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree")
+    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree, nor a speaker's")
 
 
 def _leaf_to_torch(x):
@@ -69,9 +79,9 @@ def _leaf_to_torch(x):
 
 
 def params_from_jax(tree: dict) -> dict:
-    """The port's parameters (CPU tensors, f32) from a JAX EnvDrop, Follower
-    or Self-Monitor parameter tree of numpy arrays.  Raises on a tree of
-    none of their structures."""
+    """The port's parameters (CPU tensors, f32) from a JAX EnvDrop, Follower,
+    Self-Monitor or speaker parameter tree of numpy arrays.  Raises on a
+    tree of none of their structures."""
     tree_kind(tree)
     return tree_map(_leaf_to_torch, tree)
 

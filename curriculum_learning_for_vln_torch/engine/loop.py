@@ -17,7 +17,9 @@ and the A2C arm over a pool of ``factor`` batches (agents/packed.py);
 weighted, its objective is dot(w_il, ml_vec) + dot(w_pool,
 rl_loss_per_episode).
 
-Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
+``ClippedAdam`` is the speaker's optimizer (a global-norm clip at 40 in
+optax's form, then Adam).  Parameters are nested dicts of leaf tensors
+(``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
 ported.
 """
@@ -55,6 +57,40 @@ class RMSprop(torch.optim.Optimizer):
                 nu = state["nu"]
                 nu.mul_(group["decay"]).addcmul_(g, g, value=1.0 - group["decay"])
                 p.sub_(group["lr"] * g * torch.rsqrt(nu + group["eps"]))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm(max_norm)`` on ``grads`` in place: left as
+    they are while their global L2 norm is below ``max_norm``, else each
+    becomes t / norm * max_norm, with no epsilon (``torch.nn.utils.
+    clip_grad_norm_`` adds 1e-6, and ``clip_submodule_grads`` clips a
+    submodule at a time).  Returns the norm; no host synchronisation."""
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    for g in grads:
+        g.copy_(torch.where(norm < max_norm, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
+class ClippedAdam(torch.optim.Adam):
+    """``optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr))``,
+    the speaker's optimizer (speaker.py:122-125): one global-norm clip over
+    every leaf's gradient, then Adam with optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8 outside the root).  A parameter without a gradient
+    counts as a zero gradient, as in optax."""
+
+    def __init__(self, params, lr: float, max_norm: float = 40.0):
+        super().__init__(params, lr, betas=(0.9, 0.999), eps=1e-8)
+        self.max_norm = max_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        leaves = [p for group in self.param_groups for p in group["params"]]
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_by_global_norm_([p.grad for p in leaves], self.max_norm)
+        return super().step(closure)
 
 
 def make_optimizer(name: str, lr: float, params: dict) -> torch.optim.Optimizer:

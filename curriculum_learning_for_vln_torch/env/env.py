@@ -10,7 +10,8 @@ dimension and static shapes (candidates padded to MC slots + 1 STOP slot):
 
 ``observe_meta`` is the non-feature part of ``observe``; the rollout uses
 it with the fused observation kernels (ops/fused_obs.py), which read the
-feature rows themselves.  The teacher is the reference's goal-directed
+feature rows themselves, and ``observe_feats`` the feature part, which
+the unfused decode of back-translation reads.  The teacher is the reference's goal-directed
 shortest-path teacher; the JAX package's gt-route waypoint teacher (R4R)
 is not ported yet.  Semantics parity notes are keyed to reference lines.
 """
@@ -127,6 +128,20 @@ def assemble_cand_feat(cand_img: torch.Tensor, angle: torch.Tensor,
     return torch.cat([core, core.new_zeros((B, 1, F))], dim=1)
 
 
+def observe_feats(world: WorldTables, state: EnvState, meta: ObsMeta,
+                  compute_dtype=torch.float32):
+    """(pano_feat [B, 36, D+128], cand_feat [B, MC+1, D+128]) of the current
+    states in ``compute_dtype``, the candidates' angle features taken from
+    ``meta``: the feature part of ``observe``."""
+    feats = world.features[state.node][:, :NUM_VIEWS].to(compute_dtype)   # [B, 36, D]
+    loc_emb = world.loc_embed[state.view_idx].to(compute_dtype)            # [B, 36, 128]
+    dtype = torch.promote_types(feats.dtype, loc_emb.dtype)
+    pano = torch.cat([feats.to(dtype), loc_emb.to(dtype)], dim=-1)
+    D = feats.shape[-1]
+    cand_img = feats.gather(1, meta.cand_view[:, :, None].expand(-1, -1, D))  # [B, MC, D]
+    return pano, assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
+
+
 def observe(world: WorldTables, state: EnvState, compute_dtype=torch.float32) -> Observation:
     """The full observation with plain gathers (the unfused reference for
     the observation kernel):
@@ -137,14 +152,8 @@ def observe(world: WorldTables, state: EnvState, compute_dtype=torch.float32) ->
       (normalized_heading - base_heading, loc_elevation)
                    (common_env.py:281-296)
     """
-    feats = world.features[state.node][:, :NUM_VIEWS].to(compute_dtype)   # [B, 36, D]
-    loc_emb = world.loc_embed[state.view_idx].to(compute_dtype)            # [B, 36, 128]
-    dtype = torch.promote_types(feats.dtype, loc_emb.dtype)
-    pano = torch.cat([feats.to(dtype), loc_emb.to(dtype)], dim=-1)
     meta = observe_meta(world, state, compute_dtype)
-    D = feats.shape[-1]
-    cand_img = feats.gather(1, meta.cand_view[:, :, None].expand(-1, -1, D))  # [B, MC, D]
-    cand_feat = assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
+    pano, cand_feat = observe_feats(world, state, meta, compute_dtype)
     return Observation(pano_feat=pano, cand_feat=cand_feat, meta=meta)
 
 

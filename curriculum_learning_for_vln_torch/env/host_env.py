@@ -19,8 +19,10 @@ Kept from the JAX package, number for number:
   difficulty ``a`` (the round of each item), capacity ``c = sum(a) *
   c_rate`` and the item -> global index map of the SPCL solver.
 
-Not ported yet: the gt-route ("path") teacher tables, the mesh sharding
-hooks and ``restart``/``inject_batch`` (back-translation).
+``inject_batch`` (host_env.py:236-253) rebuilds the current batch with
+instructions the speaker generated (back-translation).  Not ported yet:
+the gt-route ("path") teacher tables, the mesh sharding hooks and
+``restart``.
 """
 from __future__ import annotations
 
@@ -110,6 +112,21 @@ class R2RBatchEnv:
     def next_batch(self) -> EpisodeBatch:
         """The next training minibatch."""
         return self._make_batch(self._next_indices())
+
+    def inject_batch(self, idx: np.ndarray, instr_tokens: np.ndarray,
+                     instr_len: np.ndarray) -> EpisodeBatch:
+        """The episodes ``idx`` (in this order, every slot valid) with their
+        instructions replaced by ``instr_tokens`` [B, L] and ``instr_len``
+        [B] (the back-translation path, host_env.py:236-253; ref:
+        envdrop.py:105-121); they become the current batch."""
+        idx = np.asarray(idx, dtype=np.int64)
+        valid = np.ones(len(idx), dtype=bool)
+        self._cur_indices, self._cur_valid = idx, valid
+        ix = torch.from_numpy(idx).to(self.device)
+        fields = {k: v[ix] for k, v in self._dev.items()}
+        for name, value in (("instr_tokens", instr_tokens), ("instr_len", instr_len)):
+            fields[name] = torch.from_numpy(np.asarray(value, np.int64)).to(self.device)
+        return EpisodeBatch(**fields, item_idx=ix, valid=torch.from_numpy(valid).to(self.device))
 
     @property
     def cur_batch_index(self) -> np.ndarray:

@@ -13,12 +13,16 @@ on R2R or CLR2R (real or ``TPU.SYNTHETIC_WORLD``) with the trainer
 ``NaiveCurriculum`` (NAIVE) or ``SelfPacedCurriculum`` (SELF-PACE), with
 EnvDrop's packed RL where ``TPU.PACKED_RL`` >= 2; or, with
 ``--check-the-code``, runs the teacher-following sanity check on
-val_unseen and exits.  Not ported yet, and refused: the ``--beam`` and
-``--self-train`` modes, the AUTO (Exp3.S) curriculum, the per-round
-train-split evaluation (``TRAIN.EVAL_TRAIN``), the rollout early exit
-(``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT (``TPU.FUSED_BPTT``),
-frozen GloVe embeddings (``MODEL.FOLLOWER.GLOVE_PATH``) and the other
-agents.
+val_unseen and exits; or, with ``--self-train`` (EnvDrop only), the
+back-translation stage (main.py:78-98): a speaker of ``AIDE.SPEAKER`` in
+``TPU.PRECISION``, pretrained, then EnvDrop trained on real and speaker-
+generated instructions (``engine.self_train``, on CLR2R over round_5),
+for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations.  Not
+ported yet, and refused: the ``--beam`` mode, the AUTO (Exp3.S)
+curriculum, the per-round train-split evaluation (``TRAIN.EVAL_TRAIN``),
+the rollout early exit (``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT
+(``TPU.FUSED_BPTT``), frozen GloVe embeddings
+(``MODEL.FOLLOWER.GLOVE_PATH``) and the other agents.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ import numpy as np
 
 from . import pipeline
 from .agents import build_agent
+from .agents.speaker import Speaker
 from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
+from .engine.self_train import self_train
 from .engine.trainer import ClassicTrainer, check_the_code
 from .utils import logging_utils
 from .utils.config import get_cfg_defaults
-from .world.compiler import resolve_device
+from .world.compiler import PRECISIONS, resolve_device
 
 PORTED_AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR")
 
@@ -43,9 +49,10 @@ PORTED_AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR")
 def check_ported(args, cfg) -> None:
     """Raise on every mode and option of the JAX CLI that the port does
     not run yet, before any data is loaded."""
-    for flag, name in ((args.beam > 0, "--beam"), (args.self_train, "--self-train")):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if args.beam > 0:
+        raise NotImplementedError("--beam is not ported yet")
+    if args.self_train and cfg.MODEL.NAME != "ENVDROP":  # (main.py:84)
+        raise ValueError("--self-train: back-translation is an EnvDrop stage")
     if cfg.MODEL.NAME not in PORTED_AGENTS:
         raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet "
                                   f"({', '.join(PORTED_AGENTS)})")
@@ -97,6 +104,19 @@ def main(args, cfg) -> None:
         check_the_code(cfg, world.device_tables(cfg.TPU.PRECISION, device), valid_env)
         return
 
+    if args.self_train:
+        # the speaker-augmented back-translation stage (main.py:78-98)
+        agent = build_agent(cfg, tok.vocab_size(), feat_dim)
+        speaker = Speaker(cfg.AIDE.SPEAKER, tok.vocab_size(), feat_dim=feat_dim,
+                          episode_len=cfg.AGENT.MAX_EPISODE_LEN,
+                          compute_dtype=PRECISIONS[cfg.TPU.PRECISION])
+        aug_env = train_env["round_5"] if isinstance(train_env, dict) else train_env
+        self_train(cfg, agent, speaker, aug_env, aug_env,
+                   world.device_tables(cfg.TPU.PRECISION, device), seed=args.seed,
+                   epochs=cfg.TRAIN.MAX_EPOCH, iters_per_epoch=cfg.TRAIN.ITER_PER_EPOCH)
+        logger.info("[4] Self-training finished")
+        return
+
     agent = build_agent(cfg, tok.vocab_size(), feat_dim)
     try:
         trainer = build_trainer(cfg, train_env, logger)
@@ -120,7 +140,7 @@ def parse_args(argv=None):
     parser.add_argument("--check-the-code", action="store_true",
                         help="run the teacher-following sanity check and exit")
     parser.add_argument("--self-train", action="store_true",
-                        help="speaker-augmented back-translation stage (not ported yet)")
+                        help="speaker-augmented back-translation stage (EnvDrop)")
     parser.add_argument("--beam", default=0, type=int, metavar="N",
                         help="beam-search inference with beam size N (not ported yet)")
     parser.add_argument("opts", help="config overrides: KEY VALUE [KEY VALUE ...]",

@@ -85,6 +85,15 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return apply_keep_mask(x, mask, rate)
 
 
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """A standalone inverted-dropout mask, keep-indicators over the keep
+    probability in f32 (EnvDrop's shared feature-noise mask; core.py:104-109,
+    ref: envdrop.py:106)."""
+    keep = 1.0 - rate
+    return (torch.rand(shape, generator=generator, device=device) < keep).float() / keep
+
+
 # ---------------------------------------------------------------------------
 # LSTM
 # ---------------------------------------------------------------------------

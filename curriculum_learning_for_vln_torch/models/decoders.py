@@ -17,13 +17,17 @@ and BN statistics:
   training paths run: ``envdrop_visual_query`` gives the query of the
   observation op, and ``envdrop_decoder_from_vis`` takes its output
   through the action embedding, the LSTM cell, text attention and the
-  candidate scorer (K6, K7); and the critic (:249-267).
+  candidate scorer (K6, K7); ``envdrop_decoder_step`` (JAX
+  decoders.py:255-288) is the unfused step over gathered features that
+  back-translation runs, with ``drop_feat_img``; and the critic
+  (:249-267).
 
 At train=True each dropout site draws its mask from ``generator``, in the
 order the step runs them: the JAX package's fold_in indices in ascending
 order (EnvDrop: 3, 0, 4, 5, with 1 and 2 the observation ops'
-env-dropout; Follower: 0, 1; Self-Monitor: 0 and 1 the BN-MLP's layers in
-order, 2 the positional encoding, 3, 4).
+env-dropout, which the unfused step draws first; Follower: 0, 1;
+Self-Monitor: 0 and 1 the BN-MLP's layers in order, 2 the positional
+encoding, 3, 4).
 """
 from __future__ import annotations
 
@@ -211,6 +215,51 @@ def envdrop_decoder_from_vis(
     h_tilde, _alpha = soft_dot(p["text_attn"], h1_drop, ctx, ctx_mask)
     q = dense(p["cand_attn"], dropout(h_tilde, drop_rate, train, generator))
     return cand_scorer(q), (h1, c1), h_tilde
+
+
+def drop_feat_img(feat: torch.Tensor, rate: float, train: bool, angle_feat_size: int = 128,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Environmental dropout on the image dims only (decoders.py:247-252,
+    ref: policy.py:226-232)."""
+    img, ang = feat[..., :-angle_feat_size], feat[..., -angle_feat_size:]
+    return torch.cat([dropout(img, rate, train, generator), ang], dim=-1)
+
+
+def envdrop_decoder_step(
+    p: dict,
+    a_t_angle: torch.Tensor,      # [B, 128]
+    pano_feat: torch.Tensor,      # [B, 36, F]
+    cand_feat: torch.Tensor,      # [B, MC+1, F]
+    h_tilde_prev: torch.Tensor,   # [B, H]
+    c: torch.Tensor,              # [B, H]
+    ctx: torch.Tensor,            # [B, L, H]
+    ctx_mask: Optional[torch.Tensor],
+    train: bool = False,
+    drop_rate: float = 0.5,
+    feat_drop_rate: float = 0.3,
+    angle_feat_size: int = 128,
+    already_dropfeat: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """EnvDrop's unfused step over gathered features (decoders.py:255-288),
+    the one back-translation runs (its shared noise already applied:
+    ``already_dropfeat``): env-dropout of the panorama's and the
+    candidates' image dims unless already applied, visual attention of
+    dropout(h_tilde_prev) over the panorama in the panorama's dtype, then
+    ``envdrop_decoder_from_vis`` with the candidate logits cand_feat . q in
+    the promoted dtype.  Returns what ``envdrop_decoder_from_vis`` returns."""
+    if not already_dropfeat:
+        pano_feat = drop_feat_img(pano_feat, feat_drop_rate, train, angle_feat_size, generator)
+        cand_feat = drop_feat_img(cand_feat, feat_drop_rate, train, angle_feat_size, generator)
+    prev_drop = dropout(h_tilde_prev, drop_rate, train, generator)
+    visual_feat, _alpha = soft_dot(p["visual_attn"], prev_drop, pano_feat)
+
+    def scorer(q):
+        dtype = torch.promote_types(cand_feat.dtype, q.dtype)
+        return torch.einsum("bkf,bf->bk", cand_feat.to(dtype), q.to(dtype))
+
+    return envdrop_decoder_from_vis(p, a_t_angle, visual_feat, h_tilde_prev, c, ctx, ctx_mask,
+                                    scorer, train, drop_rate, generator)
 
 
 def critic_init(gen: torch.Generator, hidden_size: int, device=None) -> dict:

@@ -104,7 +104,12 @@ def test_check_ported_accepts_the_agents_and_refuses_the_rest():
         args, cfg = t_main.parse_args(["--device", "cpu", "--check-the-code", "--config-file",
                                        os.path.join(REPO, "configs", config)])
         t_main.check_ported(args, cfg)
-    for extra, what in ((["--beam", "3"], "--beam"), (["--self-train"], "--self-train"),
+    for config in CONFIGS:  # back-translation is EnvDrop's alone
+        args, cfg = t_main.parse_args(["--device", "cpu", "--self-train", "--config-file",
+                                       os.path.join(REPO, "configs", config)])
+        with pytest.raises(ValueError, match="--self-train"):
+            t_main.check_ported(args, cfg)
+    for extra, what in ((["--beam", "3"], "--beam"),
                         (["MODEL.NAME", "SPEAKER"], "SPEAKER"),
                         (["MODEL.FOLLOWER.GLOVE_PATH", "glove.npy"], "GLOVE"),
                         (["TRAIN.CLMODE", "AUTO"], "curriculum"),

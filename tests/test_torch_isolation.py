@@ -61,6 +61,22 @@ def test_agent_modules_are_scanned_and_import_without_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+# the speaker and back-translation slice's modules
+SPEAKER_MODULES = ("agents/speaker.py", "models/speaker_model.py", "engine/self_train.py",
+                   "engine/__init__.py", "env/host_env.py", "agents/envdrop.py", "main.py")
+
+
+def test_speaker_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(SPEAKER_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in SPEAKER_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
 def test_package_import_leaves_jax_out():
     code = ("import sys, curriculum_learning_for_vln_torch.serve, chip_smoke;"
             f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"

@@ -144,7 +144,8 @@ def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
                "configs/envdrop/envdrop_config.yaml", "TPU.PACKED_RL", "0"]
         run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
         assert run.returncode != 0 and "CUDA is not available" in run.stderr
-    for extra, what in ((["--beam", "3"], "--beam"), (["--self-train"], "--self-train"),
+    t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--self-train"]))  # ported
+    for extra, what in ((["--beam", "3"], "--beam"),
                         (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], "curriculum"),
                         (["TRAIN.EVAL_TRAIN", "True"], "EVAL_TRAIN"),
                         (["TPU.SCAN_EARLY_EXIT", "True"], "SCAN_EARLY_EXIT"),
