@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's EnvDrop serving and training paths, the
-paper's curriculum recipe, the Follower and Self-Monitor agents, and the
-speaker with back-translation, on one GPU.
+paper's curriculum recipe, the Follower and Self-Monitor agents, the
+speaker with back-translation, beam search with speaker rescoring, and
+the ViLBERT scorer with the CLR2R construction, on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
@@ -15,7 +16,7 @@ speaker with back-translation, on one GPU.
    (``recurrence_res_kernel`` and ``bwd_recurrence_res_kernel``, which hold
    W_hh in registers), each instantiation printed by name, must show no
    spills and at most 128 registers a thread.
-3. Kernel phases (in a full run, after phase 8, so that their profiler
+3. Kernel phases (in a full run, after phase 10, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
@@ -52,7 +53,9 @@ speaker with back-translation, on one GPU.
    row group; K2's bf16 d_xs differing from plain in under 1% there too),
    each beside cuDNN's ``nn.LSTM`` and its bound, and the speaker
    encoder's layers ((D, H) = (2176, 256) and (512, 256)) at L = 35 full
-   lengths and at B = 61 over ragged ones.  The forward and the
+   lengths and at B = 61 over ragged ones; K3 also at the beam's
+   rescoring shapes (bf16 (2176, 256) and f32 (512, 256), B = 30, ragged
+   lengths up to 16) beside cuDNN and its bound.  The forward and the
    backward walks' plans at the Self-Monitor's shape (B = 64, 61 and 1,
    bf16 and f32) are printed: blocks a cluster, rows a cluster, where W_hh
    sits, and the clusters against those the card holds at once
@@ -118,10 +121,27 @@ speaker with back-translation, on one GPU.
    unfused one); finite losses, moved parameters.  (e) A speaker
    checkpoint read back with its optimizer state, and ``main
    --self-train`` on a synthetic world for one short epoch.
-9. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
-   the Follower's, the Self-Monitor's and the speaker's paths), the card's
-   name and power limit, and as the last line ``{"ok": true, "device":
-   {...}}``.
+9. Beam phase (``main --beam``): EnvDrop at full width (random weights
+   from a seed; the beam decodes in f32 on the bf16 tables, as the JAX
+   package does), the default ``AIDE.SPEAKER`` in bf16, one batch of 64
+   instructions, beam 30, max_iters 500.  (a) The listener's encoder and
+   one rescoring call through K3 against the plain versions.  (b)
+   ``beam_rollout`` timed: iterations, ms a decode step, host ms an
+   iteration, ms a rescoring call, with exact launches (K3 = 2 for the
+   listener + 4 for each episode with a path, nothing else).  (c) Every
+   episode has a path, every score is a log-probability, every dijk path
+   a connected walk.  (d) ``main --beam 5`` on a synthetic 6 x 48 world.
+10. ViLBERT phase: ``VilBertConfig``'s default widths (hidden 768, 12 + 3
+   layers, bi 1024 x 16 heads) with the shipped vocabulary and 2048-d
+   features, about 1.4e8 parameters with Adam in f32.  (a) ``score_paths``
+   on the card against the same parameters on the CPU.  (b) Timed
+   pretraining steps (B = 32) and the scoring of 1,000 items, each with
+   its device-busy share; no kernel of the port launches.  (c) The loss
+   falls over 20 steps.  (d) ``build_clr2r`` writes five rounds.
+11. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+   the Follower's, the Self-Monitor's, the speaker's, the beam's and the
+   ViLBERT paths), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device, or without the port beside it, it fails.
@@ -165,6 +185,18 @@ SPEAKER_T = 35     # envdrop_config.yaml's MAX_EPISODE_LEN: the speaker's steps,
 # (D, H) of the speaker encoder's layers (K1-K3): the BiLSTM over the chosen
 # candidates' 2048 + 128 features, and the post-LSTM over its 2 x 256 outputs
 SPEAKER_LSTM_SHAPES = {"speaker_l1": (FEAT_DIM + 128, 256), "speaker_post": (512, 256)}
+BEAM_SIZE = 30        # the default of BeamSearch.beam_rollout / beam_search (JAX beam.py:315-316)
+BEAM_MAX_ITERS = 500  # BeamSearch's default expansion budget
+# K3 at the beam's rescoring shapes: the speaker encoder's first layer (bf16,
+# the compute dtype) and its post-LSTM (f32, after the f32 attention) over
+# up to BEAM_SIZE paths of up to 16 steps
+RESCORE_B, RESCORE_L = BEAM_SIZE, 16
+RESCORE_SHAPES = {"rescore_l1": (FEAT_DIM + 128, 256, torch.bfloat16),
+                  "rescore_post": (512, 256, torch.float32)}
+VIL_BATCH = 32        # ViLBERT pretraining batch
+VIL_STEPS = 20        # timed pretraining steps (after one warm-up)
+VIL_ITEMS = 1000      # items scored by score_difficulty
+VIL_PATH = 8          # max_path_len of the scorer's inputs (R2R paths have at most 7 nodes)
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -649,6 +681,43 @@ def lstm_library_infer(xs, lengths, w_ih, w_hh, b, iters):
         packed = torch.nn.utils.rnn.pack_padded_sequence(xs, lengths.cpu(), batch_first=True,
                                                          enforce_sorted=False)
         return library_times(lambda i: lstm(packed), iters, f"torch.nn.LSTM in {xs.dtype}")
+
+
+def lstm_rescore_phase(device, gen, iters=20):
+    """K3 at the beam's rescoring shapes (RESCORE_SHAPES, B = 30, L = 16,
+    ragged lengths 1..16 with a 16), both directions against its plain
+    version (outs, hT, cT within 1e-4 x max(1, |plain|)), and timed beside
+    cuDNN's forward and the bound.  Returns {label: result}."""
+    k = modules()["lstm_scan"]
+    out = {}
+    for label, (D, H, dtype) in RESCORE_SHAPES.items():
+        lengths = torch.randint(1, RESCORE_L + 1, (RESCORE_B,), generator=gen, device=device)
+        lengths[0] = RESCORE_L
+        xs, w_ih, w_hh, b = lstm_inputs(dtype, device, gen, RESCORE_B, RESCORE_L, D, H)
+        errs = []
+        for reverse in (False, True):
+            out_k, (h_k, c_k) = k.lstm_scan(xs, lengths, w_ih, w_hh, b, reverse=reverse)
+            out_p, (h_p, c_p) = k.lstm_scan_plain(xs, lengths, w_ih, w_hh, b, reverse=reverse)
+            e = compare((out_k, h_k, c_k), (out_p, h_p, c_p), 1e-4)
+            check(e[0] <= e[1], f"lstm_scan {dtype} D={D} H={H} at B = {RESCORE_B}, reverse="
+                                f"{reverse}: |kernel - plain| {e[0]:.3g} > {e[1]:.3g}")
+            errs.append(e)
+        err = max(errs, key=lambda x: x[0] - x[1])  # the one nearest its tolerance
+        t = kernel_times(lambda i: k.lstm_scan(xs, lengths, w_ih, w_hh, b, reverse=bool(i & 1)),
+                         iters)
+        plain_ms = cuda_time_ms(lambda i: k.lstm_scan_plain(xs, lengths, w_ih, w_hh, b), 3, 1)
+        lib = lstm_library_infer(xs, lengths, w_ih, w_hh, b, iters)
+        bounds = lstm_bounds(xs, lengths, w_ih, w_hh, b)
+        b_ms, b_by = bounds["lstm_scan"]
+        r = {"shape": {"B": RESCORE_B, "L": RESCORE_L, "D": D, "H": H}, "dtype": str(dtype),
+             "lengths": lengths_label(lengths), "valid_steps": bounds["valid_steps"],
+             "max_abs_err": err[0], "tol": err[1], **t, "plain_ms": plain_ms, **lib,
+             "bound_ms": b_ms, "bound_by": b_by}
+        out[label] = r
+        log(f"lstm_scan        {str(dtype):14s} beam rescoring D={D} H={H} B={RESCORE_B} lengths "
+            f"{r['lengths']}: max|kernel-plain| {err[0]:.3g} (tol {err[1]:.3g}) | "
+            f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by})")
+    return out
 
 
 def obs_phases(dtype, device, gen, features, B=BATCH, MC=16, iters=100):
@@ -2095,6 +2164,283 @@ def speaker_phase(world, data, tok, cfg, device, card):
     return out
 
 
+def beam_phase(world, data, tok, cfg, m, params, device, card):
+    """Beam search with speaker rescoring (``main --beam``) for EnvDrop at
+    the full width of its config, TPU.PRECISION tables, the default
+    ``AIDE.SPEAKER`` (RNN_DIM 512), seeded random weights, one batch of 64
+    instructions, beam 30, max_iters 500: (a) the listener's encoder and
+    one rescoring call through K3 against the plain versions, (b)
+    ``beam_rollout`` timed (iterations, decode ms, host ms an iteration,
+    rescoring ms) with exact launches, (c) the paths' checks, (d) ``main
+    --beam 5`` on a synthetic 6 x 48 world."""
+    import glob
+
+    from curriculum_learning_for_vln_torch.agents import beam as beam_mod
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.agents.speaker import Speaker
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.models.encoder import encoder_apply
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    precision, T, s = cfg.TPU.PRECISION, cfg.AGENT.MAX_EPISODE_LEN, cfg.AIDE.SPEAKER
+    dtype = PRECISIONS[precision]
+    tables = world.device_tables(precision, device)
+    agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                         compute_dtype=dtype)
+    p = tree.tree_map(lambda t: t.to(device), params)
+    speaker = Speaker(s, tok.vocab_size(), feat_dim=FEAT_DIM, episode_len=T, compute_dtype=dtype)
+    spk_params, _ = speaker.init(torch.Generator().manual_seed(SEED + 1), device)
+    items = expand_r2r_items(data, tok)
+    env = R2RBatchEnv(world, items, BATCH, tok, seed=SEED, name="val_unseen", device=device)
+    ep = next(env.eval_batches())
+    out = {"precision": precision, "beam_size": BEAM_SIZE, "max_iters": BEAM_MAX_ITERS}
+    log(f"beam: EnvDrop H={m.HIDDEN_SIZE} (decoding in f32 on {precision} tables), speaker "
+        f"RNN_DIM {s.RNN_DIM} in {precision}, B={BATCH}, beam {BEAM_SIZE}, max_iters "
+        f"{BEAM_MAX_ITERS}, speaker weight {cfg.TPU.BEAM_SPEAKER_WEIGHT}")
+
+    # (a) the listener's encoder through K3 against the plain versions
+    def encode():
+        with torch.inference_mode():
+            return encoder_apply(p["encoder"], ep.instr_tokens, ep.instr_len, False, m.DROP_RATE)
+
+    reset_launch_counts()
+    enc_k = encode()
+    counts = launch_counts()
+    check(counts == launches_of(lstm_scan=2), f"listener encoder launches {counts}")
+    with plain_kernels():
+        enc_p = encode()
+    enc_err, enc_tol = compare(enc_k, enc_p, 1e-4)
+    check(enc_err <= enc_tol, f"listener encoder |kernel - plain| {enc_err:.3g} > {enc_tol:.3g}")
+
+    # (b) dijkstra + rescoring, each decode step and rescoring call timed
+    search = beam_mod.BeamSearch(agent, world, tables, max_iters=BEAM_MAX_ITERS)
+    rec = {"decode": [], "rescore": [], "first_rescore": None}
+    make, rescore = beam_mod.make_beam_decoder, search.rescore
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*args)
+            torch.cuda.synchronize()
+            rec[kind].append((time.perf_counter() - t0) * 1e3)
+            if kind == "rescore" and rec["first_rescore"] is None:
+                rec["first_rescore"] = args
+            return r
+        return run
+
+    beam_mod.make_beam_decoder = lambda a, st: timed("decode", make(a, st))
+    search.rescore = timed("rescore", rescore)
+    try:
+        # warm-up: a short search (the first launches of every op; its
+        # truncation warning muted), then the timed one
+        warm = beam_mod.BeamSearch(agent, world, tables, max_iters=3)
+        warm.rescore = search.rescore
+        beam_mod.logger.disabled = True
+        try:
+            warm.beam_rollout(p, {}, ep, items, speaker, spk_params, BEAM_SIZE)
+        finally:
+            beam_mod.logger.disabled = False
+        for k in ("decode", "rescore"):
+            rec[k].clear()
+        rec["first_rescore"] = None
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = search.beam_rollout(p, {}, ep, items, speaker, spk_params, BEAM_SIZE)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+    finally:
+        beam_mod.make_beam_decoder = make
+    with_paths = sum(1 for r in results if r["paths"])
+    want = launches_of(lstm_scan=2 + 4 * with_paths)  # listener 1 x 2 directions; speaker 2 x 2
+    check(counts == want, f"beam launches {counts}, expected {want}")
+    iters = search.iterations
+    dec_ms, res_ms = sum(rec["decode"]), sum(rec["rescore"])
+    check(len(rec["decode"]) == iters and len(rec["rescore"]) == with_paths,
+          f"{len(rec['decode'])} decode steps in {iters} iterations, {len(rec['rescore'])} "
+          f"rescoring calls for {with_paths} episodes")
+    host_ms = (total_ms - dec_ms - res_ms) / iters
+
+    # (a) one rescoring call (the first episode's paths) through K3 against plain
+    args = rec["first_rescore"]
+    reset_launch_counts()
+    pw_k = rescore(*args)
+    check(launch_counts() == launches_of(lstm_scan=4), "one rescoring call: K3 = 4")
+    with plain_kernels():
+        pw_p = rescore(*args)
+    scale = float(np.abs(pw_p).max())
+    res_err = float(np.abs(pw_k - pw_p).max())
+    # f32 encoder states summed in another order, then bf16 weights downstream
+    check(res_err <= 1e-3 * max(scale, 1.0), f"rescoring |kernel - plain| {res_err:.3g} of "
+                                             f"scale {scale:.3g}")
+
+    # (c) the paths
+    n_paths, full = 0, 0
+    for r in results:
+        check(len(r["paths"]) >= 1, f"{r['instr_id']}: a finished path")
+        full += int(len(r["paths"]) == BEAM_SIZE)
+        for path in r["paths"]:
+            n_paths += 1
+            check("visual_feature" not in path and len(path["trajectory"]) == len(path["action"]) + 1,
+                  "a rescored path")
+            check(all(x <= 1e-6 for x in path["listener_scores"])
+                  and bool(np.all(np.asarray(path["speaker_scores"]) <= 1e-6)),
+                  "listener and speaker scores are log-probabilities")
+        for a, b in zip(r["dijk_path"][:-1], r["dijk_path"][1:]):
+            ga, gb = world.global_id(r["scan"], a), world.global_id(r["scan"], b)
+            check(ga == gb or gb in world.cand_next[ga][world.cand_valid[ga]],
+                  "dijk_path is a connected walk")
+    out.update(iterations=iters, total_ms=total_ms, decode_ms=rec["decode"],
+               decode_ms_median=statistics.median(rec["decode"]), host_ms_per_iteration=host_ms,
+               rescore_ms=rec["rescore"], rescore_ms_median=statistics.median(rec["rescore"]),
+               episodes_with_paths=with_paths, episodes_full_beam=full, paths=n_paths,
+               launches=counts, encoder_err=(enc_err, enc_tol), rescore_err=res_err,
+               rescore_scale=scale)
+    log(f"beam (a): listener encoder |kernel - plain| {enc_err:.3g} (tol {enc_tol:.3g}); one "
+        f"rescoring call ({len(args[2])} paths, T = {args[4]}) |kernel - plain| {res_err:.3g} "
+        f"of scale {scale:.3g} (tol 1e-3 of it)")
+    log(f"beam (b): beam_rollout of {BATCH} episodes in {total_ms:.2f} ms: {iters} iterations, "
+        f"decode step median {out['decode_ms_median']:.3f} ms ({dec_ms:.2f} in all), host "
+        f"{host_ms:.3f} ms an iteration, rescoring median {out['rescore_ms_median']:.2f} ms an "
+        f"episode ({res_ms:.2f} in all); launches exact {counts} | {card}")
+    log(f"beam (c): {with_paths} of {BATCH} episodes with paths, {full} with the full beam of "
+        f"{BEAM_SIZE}, {n_paths} paths; scores are log-probabilities; dijk paths connected")
+
+    # (d) main --beam 5 on a synthetic world
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--beam", "5",
+               "--seed", str(SEED), "--config-file", CONFIG, "TPU.SYNTHETIC_WORLD", "True",
+               "TPU.SYNTHETIC_SCANS", "6", "TPU.SYNTHETIC_NODES", "48", "OUTPUT.LOG_DIR", d,
+               "OUTPUT.TSBOARD_DIR", "", "OUTPUT.CKPT_DIR", os.path.join(d, "ckpt"),
+               "OUTPUT.RESULT_DIR", os.path.join(d, "results")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        main_s = time.perf_counter() - t0
+        files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(d, "results", "*")))
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("beam(5)")]
+    check(run.returncode == 0 and len(lines) == 2 and len(files) == 4,
+          f"main --beam 5: rc {run.returncode}, {lines}, {files}\n{run.stdout[-2000:]}\n"
+          f"{run.stderr[-4000:]}")
+    out["main"] = {"s": main_s, "lines": lines, "files": files}
+    log(f"beam (d): main --beam 5 (synthetic 6 x 48, val_seen and val_unseen) in {main_s:.1f} s: "
+        + " | ".join(lines))
+    return out
+
+
+def vilbert_phase(world, data, tok, device, card):
+    """The ViLBERT scorer at ``VilBertConfig``'s default widths (hidden 768,
+    12 text and 3 vision layers, bi 1024 with 16 heads) with the shipped
+    vocabulary and 2048-d features, seeded random weights: (a)
+    ``score_paths`` on the card against the same parameters on the CPU in
+    f32, (b) timed pretraining steps (B = 32) and the scoring of 1,000
+    items, each with its device-busy share, (c) the loss falls over 20
+    steps, (d) ``build_clr2r`` (the JAX script's small config) writes five
+    rounds.  No kernel of the port runs on this path."""
+    from curriculum_learning_for_vln_torch.agents.vln_bert import VLNBertScorer
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine.pretrain import (VLNBertPretrainer,
+                                                                   pretrain_arrays,
+                                                                   pretrain_batches,
+                                                                   score_difficulty)
+    from curriculum_learning_for_vln_torch.models.vilbert import VilBertConfig
+    from curriculum_learning_for_vln_torch.utils import tree
+
+    cfg = VilBertConfig(vocab_size=tok.vocab_size(), v_feature_size=FEAT_DIM)
+    items = expand_r2r_items(data, tok)
+    trainer = VLNBertPretrainer(cfg, mask_idx=1)
+    reset_launch_counts()
+    params, opt = trainer.init(torch.Generator().manual_seed(SEED), device)
+    n_params = sum(t.numel() for t in tree.tree_leaves(params))
+    out = {"parameters": n_params, "config": cfg.to_dict()}
+    log(f"vilbert: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} text + "
+        f"{cfg.v_num_hidden_layers} vision layers, bi {cfg.bi_hidden_size} x "
+        f"{cfg.bi_num_attention_heads} heads, vocab {cfg.vocab_size}, features "
+        f"{cfg.v_feature_size}, {n_params} parameters (f32, Adam)")
+
+    # (a) score_paths on the card against the CPU, same parameters, f32
+    scorer = VLNBertScorer(cfg)
+    toks, feats, locs, rmask, _ = pretrain_arrays(world, items[:8], tok, VIL_PATH, FEAT_DIM)
+    am = (toks != 0).astype(np.float32)
+    host = [torch.from_numpy(a) for a in (toks, feats, locs, am, rmask)]
+    s_gpu = scorer.score_paths(params, *(t.to(device) for t in host)).float().cpu()
+    s_cpu = scorer.score_paths(tree.tree_map(lambda t: t.detach().cpu(), params), *host)
+    scale = float(s_cpu.abs().max())
+    err = float((s_gpu - s_cpu).abs().max())
+    # f32 products summed in another order over 15 layers; TF32 is off
+    check(err <= 1e-3 * scale, f"score_paths card vs CPU |diff| {err:.3g} of scale {scale:.3g}")
+    out["score_check"] = {"err": err, "scale": scale}
+    log(f"vilbert (a): score_paths of 8 items on the card vs the CPU (f32): |diff| {err:.3g} of "
+        f"scale {scale:.3g} (tol 1e-3 of it)")
+
+    # (b) + (c) pretraining steps, each timed; the loss falls over them
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    batches = pretrain_batches(world, items, tok, VIL_BATCH, VIL_PATH, FEAT_DIM,
+                               n_region_classes=cfg.v_target_size, epochs=2, seed=SEED,
+                               device=device)
+    trainer.step(params, opt, next(batches), gen)  # warm-up
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for _ in range(VIL_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        logs = trainer.step(params, opt, batch, gen)
+        losses.append(float(logs["loss"]))  # a sync
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(tail < head, f"the pretraining loss falls: first five {head:.4f}, last five {tail:.4f}")
+    batch = next(batches)
+    wall, busy, rows = profile(lambda: trainer.step(params, opt, batch, gen))
+    out["train"] = {"ms": times, "median_ms": statistics.median(times), "losses": losses,
+                    "busy": (wall, busy)}
+    log(f"vilbert (b, c): {VIL_STEPS} pretraining steps at B={VIL_BATCH}, ms a step median "
+        f"{out['train']['median_ms']:.2f} (min {min(times):.2f}, max {max(times):.2f}); device "
+        f"busy {100 * busy / wall:.1f}% under the profiler; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the first five {head:.4f}, of the last five {tail:.4f}) "
+        f"| {card}")
+    print_profile("one ViLBERT pretraining step", wall, busy, rows)
+
+    # (b) scoring 1,000 items (their inputs built on the host, then 32 a batch)
+    many = (items * (VIL_ITEMS // len(items) + 1))[:VIL_ITEMS]
+    score_difficulty(scorer, params, world, many[:64], tok, VIL_PATH, FEAT_DIM)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = score_difficulty(scorer, params, world, many, tok, VIL_PATH, FEAT_DIM)
+    score_s = time.perf_counter() - t0
+    check(scores.shape == (VIL_ITEMS,) and bool(np.isfinite(scores).all()), "finite scores")
+    s_wall, s_busy, s_rows = profile(
+        lambda: score_difficulty(scorer, params, world, many, tok, VIL_PATH, FEAT_DIM))
+    out["score"] = {"items": VIL_ITEMS, "s": score_s, "items_per_s": VIL_ITEMS / score_s,
+                    "busy": (s_wall, s_busy)}
+    log(f"vilbert (b): score_difficulty of {VIL_ITEMS} items in {score_s * 1e3:.1f} ms, "
+        f"{VIL_ITEMS / score_s:.1f} items/s; device busy {100 * s_busy / s_wall:.1f}% under the "
+        f"profiler | {card}")
+    print_profile(f"score_difficulty of {VIL_ITEMS} items", s_wall, s_busy, s_rows)
+    counts = launch_counts()
+    check(counts == launches_of(), f"no kernel of the port on the ViLBERT path: {counts}")
+    out["launches"] = counts
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # (d) the CLR2R construction end to end
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "curriculum_learning_for_vln_torch.build_clr2r",
+                              "--out", d], capture_output=True, text=True, timeout=600)
+        build_s = time.perf_counter() - t0
+        rounds = sorted(f for f in os.listdir(d) if f.endswith("_v3.json"))
+    check(run.returncode == 0 and len(rounds) == 5,
+          f"build_clr2r: rc {run.returncode}, {rounds}\n{run.stderr[-4000:]}")
+    last = json.loads(run.stdout.strip().splitlines()[-1])
+    out["build_clr2r"] = {"s": build_s, "last": last}
+    log(f"vilbert (d): build_clr2r (120 steps of the small config) in {build_s:.1f} s: {last}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2191,13 +2537,27 @@ def main() -> int:
         f"{spk['decode']['greedy']['ms']:.2f} ms, back_translate "
         f"{spk['decode']['back_translate']['ms']:.2f} ms a batch of {BATCH} | {card}")
 
+    beam = beam_phase(world, data, tok, cfg, m, params, device, card)
+    log(f"beam: {beam['total_ms']:.2f} ms a beam batch of {BATCH} at beam {BEAM_SIZE} "
+        f"({beam['iterations']} iterations; decode {beam['decode_ms_median']:.3f} ms and host "
+        f"{beam['host_ms_per_iteration']:.3f} ms an iteration; rescoring "
+        f"{beam['rescore_ms_median']:.2f} ms an episode) | {card}")
+
+    vil = vilbert_phase(world, data, tok, device, card)
+    vw, vb = vil["train"]["busy"]
+    log(f"vilbert: {vil['train']['median_ms']:.2f} ms a pretraining step of {VIL_BATCH} (device "
+        f"busy {100 * vb / vw:.1f}%), {vil['score']['items_per_s']:.1f} items scored a second "
+        f"| {card}")
+
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
     results = kernel_phases(world, lengths, device)
+    rescore_shapes = lstm_rescore_phase(device, torch.Generator(device=device).manual_seed(SEED + 7))
 
-    # each kernel's launches on its main path: the serve run for K3, this
-    # slice's SPCL packed training run for the others; K8 is on no path
+    # each kernel's launches on its main path: the serve run for K3, the
+    # SPCL packed training run for the others; K8 is on no path.  The
+    # other paths' launches (agents, speaker, beam, ViLBERT) beside them
     kernels = []
     for name, (src, tpu, _, _) in KERNELS.items():
         r, r32 = results[(name, precision)], results[(name, "f32")]
@@ -2208,6 +2568,7 @@ def main() -> int:
         else:
             launches, path = pk["launches"][name], "SPCL packed training (curriculum phase)"
         check(launches > 0 or name in OFF_PATH, f"{name} launched on its main path")
+        check(name != "lstm_scan" or beam["launches"][name] > 0, "K3 launched on the beam path")
         entry = {
             "name": name, "route": "cuda", "source": f"curriculum_learning_for_vln_torch/{src}",
             "replaces": f"curriculum_learning_for_vln_tpu/{tpu}",
@@ -2226,6 +2587,7 @@ def main() -> int:
                 "decode_call": spk["decode"]["greedy"]["launches"][name],
                 "back_translate": spk["decode"]["back_translate"]["launches"][name],
                 "self_train": {k: v[name] for k, v in spk["self_train"]["launches"].items()}},
+            "beam_launches": beam["launches"][name], "vilbert_launches": vil["launches"][name],
         }
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
             keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "device_split", "bound_ms",
@@ -2250,6 +2612,8 @@ def main() -> int:
             entry["ragged"] = {precision: r["ragged"], "f32": r32["ragged"]}
         if "plans" in r:  # K4, K5: the launch plans at B = 64, 61 and 1
             entry["plans"] = {precision: r["plans"], "f32": r32["plans"]}
+        if name == "lstm_scan":  # the beam's rescoring shapes
+            entry["beam_rescore_shapes"] = rescore_shapes
         if name in OFF_PATH:
             entry.update(shape=r["shape"], kernel_phase_launches=r["kernel_phase_launches"])
         if "modes" in r:

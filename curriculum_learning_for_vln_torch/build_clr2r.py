@@ -1,0 +1,116 @@
+"""CLR2R construction: pretrain the ViLBERT scorer, score every training
+item's path-instruction compatibility, and write the round files.
+
+The port of the JAX package's ``scripts/build_clr2r.py``, with the same
+arguments, files and last line.  The reference consumes CLR2R round files
+(data/CLR2R/*_v3.json, ref: curriculum_env.py:44-62) but ships no way to
+make them; this is the difficulty-scoring pipeline of the paper (§3.1),
+end to end on a synthetic grounded world.  Runs on CUDA unless
+``--device`` names another device, and raises without a GPU:
+
+    python -m curriculum_learning_for_vln_torch.build_clr2r --out DIR \\
+        [--steps 120] [--device cpu]
+
+Writes DIR/R2R_round_{1..5}_v3.json in the reference's round-file format
+and prints {"rounds": {...}, "final_loss": x} as its last line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Build CLR2R round files with a ViLBERT scorer")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--steps", type=int, default=120, help="pretraining batches")
+    ap.add_argument("--scans", type=int, default=4)
+    ap.add_argument("--nodes", type=int, default=32)
+    ap.add_argument("--paths", type=int, default=120)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: cuda; raises without a GPU)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from .agents.vln_bert import VLNBertScorer
+    from .data.datasets import expand_r2r_items
+    from .engine.pretrain import (VLNBertPretrainer, make_clr2r_rounds, pretrain_batches,
+                                  score_difficulty)
+    from .models.vilbert import VilBertConfig
+    from .utils.tokenizer import Tokenizer, build_vocab
+    from .world import compiler, synthetic
+
+    device = compiler.resolve_device(args.device)
+    feat = 128
+    max_path = 8
+    graphs = synthetic.make_world_graphs(args.scans, args.nodes, seed=args.seed)
+    world = compiler.compile_world(graphs, max_candidates=16)
+    rooms = synthetic.assign_rooms(world, seed=args.seed)
+    synthetic.attach_grounded_features(world, rooms, feature_dim=feat, seed=args.seed)
+    items = synthetic.make_grounded_dataset(graphs, world, rooms, num_paths=args.paths,
+                                            seed=args.seed + 1)
+    tok = Tokenizer(build_vocab(items, min_count=1), encoding_length=24)
+    data = expand_r2r_items(items, tok)
+
+    cfg = VilBertConfig(
+        vocab_size=tok.vocab_size(), hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128, max_position_embeddings=32,
+        v_feature_size=feat, v_target_size=len(synthetic.ROOM_TYPES),
+        v_hidden_size=64, v_num_hidden_layers=2, v_num_attention_heads=4,
+        v_intermediate_size=128, bi_hidden_size=64, bi_num_attention_heads=4,
+        v_biattention_id=(0, 1), t_biattention_id=(0, 1))
+    trainer = VLNBertPretrainer(cfg, mask_idx=1, lr=3e-4)
+    params, optimizer = trainer.init(torch.Generator().manual_seed(args.seed), device)
+
+    def batches():
+        n = 0
+        while n < args.steps:
+            for b in pretrain_batches(world, data, tok, batch_size=16, max_path_len=max_path,
+                                      feat_dim=feat, region_classes=rooms,
+                                      n_region_classes=len(synthetic.ROOM_TYPES), epochs=1,
+                                      seed=args.seed + n, device=device):
+                yield b
+                n += 1
+                if n >= args.steps:
+                    return
+
+    generator = torch.Generator(device=device).manual_seed(args.seed + 9)
+    params, optimizer, logs = trainer.train(params, optimizer, batches(), generator)
+    print(f"pretrained {args.steps} steps, final loss {float(logs['loss']):.4f} (lm "
+          f"{float(logs['lm_loss']):.3f} region {float(logs['region_loss']):.3f} align "
+          f"{float(logs['align_loss']):.3f})", file=sys.stderr)
+
+    scorer = VLNBertScorer(cfg)
+    scores = score_difficulty(scorer, params, world, data, tok, max_path_len=max_path,
+                              feat_dim=feat)
+    # one score a path (3 instructions each): the mean; the rounds are
+    # path-level partitions of the train split
+    by_path = {}
+    for it, s in zip(data, scores):
+        by_path.setdefault(it["path_id"], []).append(float(s))
+    path_scores = np.array([np.mean(by_path[it["path_id"]]) for it in items])
+    rounds = make_clr2r_rounds(items, path_scores, n_rounds=5)
+
+    os.makedirs(args.out, exist_ok=True)
+    for name, round_items in rounds.items():
+        path = os.path.join(args.out, f"R2R_{name}_v3.json")
+        with open(path, "w") as f:
+            json.dump(round_items, f)
+        print(f"wrote {path}: {len(round_items)} paths", file=sys.stderr)
+    result = {"rounds": {k: len(v) for k, v in rounds.items()},
+              "final_loss": float(logs["loss"])}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,9 @@ The port keeps the JAX package's parameter names and layouts (dense
 ``pe`` a leaf), so an EnvDrop, Follower, Self-Monitor or speaker
 parameter tree (the speaker's: encoder ``lstm_fwd``, ``lstm_bwd``,
 ``attn``, ``post_fwd``, ``post_bwd``; decoder ``embedding``, ``lstm``,
-``attn``, ``projection``, ``baseline_fc1``, ``baseline_fc2``) converts
+``attn``, ``projection``, ``baseline_fc1``, ``baseline_fc2``) or a
+VLN-BERT scorer's (``bert`` with its embeddings, ``t_layers``,
+``v_layers``, ``c_layers`` and poolers; ``cls``; ``vil_logit``) converts
 leaf for leaf and both packages compute the same function from it; so
 does a model state (the Self-Monitor's BN statistics: mean, var
 and count of each BatchNorm, under "decoder_bn").  Each tree is
@@ -49,6 +51,14 @@ _TREE_KEYS = {
         ("decoder", "embedding", "w"), ("decoder", "lstm", "w_ih"),
         ("decoder", "attn", "linear_in", "w"), ("decoder", "projection", "w"),
         ("decoder", "baseline_fc1", "w"), ("decoder", "baseline_fc2", "w")),
+    # the VLN-BERT scorer (models/vilbert.py: vlnbert_init)
+    "VILBERT": (
+        ("bert", "embeddings", "word"), ("bert", "embeddings", "ln", "scale"),
+        ("bert", "v_embeddings", "image", "w"), ("bert", "v_embeddings", "sequence"),
+        ("bert", "t_layers"), ("bert", "v_layers"), ("bert", "c_layers"),
+        ("bert", "t_pooler", "w"), ("bert", "v_pooler", "w"),
+        ("cls", "transform", "w"), ("cls", "decoder_bias"), ("cls", "v_decoder", "w"),
+        ("vil_logit", "w")),
 }
 _STATE_KEYS = (("decoder_bn", "mlp", "bn_in", "mean"), ("decoder_bn", "mlp", "bns"))
 
@@ -64,11 +74,13 @@ def _has(tree, path) -> bool:
 
 def tree_kind(tree: dict) -> str:
     """The model whose parameter tree this is ("ENVDROP", "FOLLOWER",
-    "SELF-MONITOR" or "SPEAKER"); raises on a tree of none of them."""
+    "SELF-MONITOR", "SPEAKER" or "VILBERT"); raises on a tree of none of
+    them."""
     for kind, paths in _TREE_KEYS.items():
         if all(_has(tree, p) for p in paths):
             return kind
-    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree, nor a speaker's")
+    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree, nor a speaker's "
+                     "or a VLN-BERT scorer's")
 
 
 def _leaf_to_torch(x):
@@ -80,8 +92,8 @@ def _leaf_to_torch(x):
 
 def params_from_jax(tree: dict) -> dict:
     """The port's parameters (CPU tensors, f32) from a JAX EnvDrop, Follower,
-    Self-Monitor or speaker parameter tree of numpy arrays.  Raises on a
-    tree of none of their structures."""
+    Self-Monitor, speaker or VLN-BERT parameter tree of numpy arrays.
+    Raises on a tree of none of their structures."""
     tree_kind(tree)
     return tree_map(_leaf_to_torch, tree)
 

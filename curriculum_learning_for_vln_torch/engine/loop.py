@@ -18,8 +18,8 @@ weighted, its objective is dot(w_il, ml_vec) + dot(w_pool,
 rl_loss_per_episode).
 
 ``ClippedAdam`` is the speaker's optimizer (a global-norm clip at 40 in
-optax's form, then Adam).  Parameters are nested dicts of leaf tensors
-(``utils/tree.py``).  The
+optax's form, then Adam) and, unclipped, the ViLBERT pretrainer's.
+Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
 ported.
 """
@@ -76,10 +76,12 @@ class ClippedAdam(torch.optim.Adam):
     """``optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr))``,
     the speaker's optimizer (speaker.py:122-125): one global-norm clip over
     every leaf's gradient, then Adam with optax's defaults (b1 0.9, b2
-    0.999, eps 1e-8 outside the root).  A parameter without a gradient
-    counts as a zero gradient, as in optax."""
+    0.999, eps 1e-8 outside the root); with ``max_norm=None`` no clip, which
+    is ``optax.adam(lr)`` alone (the ViLBERT pretrainer's, pretrain.py:
+    126).  A parameter without a gradient counts as a zero gradient, as in
+    optax."""
 
-    def __init__(self, params, lr: float, max_norm: float = 40.0):
+    def __init__(self, params, lr: float, max_norm: Optional[float] = 40.0):
         super().__init__(params, lr, betas=(0.9, 0.999), eps=1e-8)
         self.max_norm = max_norm
 
@@ -89,7 +91,8 @@ class ClippedAdam(torch.optim.Adam):
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in leaves], self.max_norm)
+        if self.max_norm is not None:
+            clip_by_global_norm_([p.grad for p in leaves], self.max_norm)
         return super().step(closure)
 
 

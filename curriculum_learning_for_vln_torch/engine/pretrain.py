@@ -1,0 +1,308 @@
+"""ViLBERT multi-modal pretraining and CLR2R difficulty scoring.
+
+The port of ``curriculum_learning_for_vln_tpu/engine/pretrain.py``.  The
+reference ships the pretraining heads (``BertForMultiModalPreTraining``,
+ref: tasks/R2R-judy/src/model/vilbert.py:1431-1513) and the path-selection
+scorer (vln_bert.py:24-75) but no program that runs them: the CLR2R
+rounds were made offline.  This module has
+
+* BERT-style masking (masked LM, masked vision regions) drawn on the
+  device from an explicit ``torch.Generator`` (``draw_pretrain_masks``),
+  and the loss given those masks (``pretrain_loss``: masked LM, masked
+  regions, path-instruction alignment and the vil_logit BCE), so a test
+  can feed in masks the JAX package drew;
+* ``VLNBertPretrainer``: Adam in optax's form (``engine.loop.ClippedAdam``
+  without a clip) over (tokens, regions, locations, alignment label)
+  batches;
+* ``score_difficulty`` / ``make_clr2r_rounds``: the paper's CLR2R
+  construction, ranking items by the scorer's compatibility logit
+  (higher = easier) and cutting them into rounds (ref:
+  curriculum_env.py:44-62 consumes the round files).
+
+The masks are torch draws, so only their distribution matches the JAX
+package's ``jax.random`` draws.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.vilbert import VilBertConfig, vlnbert_apply, vlnbert_init
+from ..utils.tokenizer import PAD_IDX
+from ..utils.tree import tree_leaves, tree_map
+from .loop import ClippedAdam
+
+logger = logging.getLogger("main.pretrain")
+
+N_SPECIAL_TOKENS = 4  # <PAD>, <UNK>, <EOS>, <BOS>: never masked
+
+
+def mask_lm_tokens(generator: Optional[torch.Generator], tokens: torch.Tensor, vocab_size: int,
+                   mask_idx: int, p: float = 0.15) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BERT masking on the device of ``tokens``: select p of the non-special
+    tokens; of those 80% become [MASK], 10% a random word, 10% stay.
+    Returns (masked_tokens, labels), the label -1 where no prediction is
+    asked."""
+    dev = tokens.device
+    maskable = tokens >= N_SPECIAL_TOKENS
+    sel = (torch.rand(tokens.shape, generator=generator, device=dev) < p) & maskable
+    kind = torch.rand(tokens.shape, generator=generator, device=dev)
+    rand_words = torch.randint(N_SPECIAL_TOKENS, vocab_size, tokens.shape, generator=generator,
+                               device=dev, dtype=tokens.dtype)
+    replaced = torch.where(kind < 0.8, torch.full_like(tokens, mask_idx),
+                           torch.where(kind < 0.9, rand_words, tokens))
+    masked = torch.where(sel, replaced, tokens)
+    labels = torch.where(sel, tokens, torch.full_like(tokens, -1))
+    return masked, labels
+
+
+def mask_regions(generator: Optional[torch.Generator], feats: torch.Tensor,
+                 region_mask: torch.Tensor, p: float = 0.15) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask p of the valid regions by zeroing their features (the reference
+    keeps 10% unchanged; the always-zero variant is the JAX package's
+    documented deviation).  Returns (masked_feats, predict_mask)."""
+    sel = ((torch.rand(feats.shape[:-1], generator=generator, device=feats.device) < p)
+           & (region_mask > 0))
+    return torch.where(sel[..., None], 0.0, feats), sel
+
+
+class PretrainMasks(NamedTuple):
+    masked_tokens: torch.Tensor  # [B, Lt]
+    lm_labels: torch.Tensor      # [B, Lt], -1 = no prediction
+    masked_feats: torch.Tensor   # [B, R, F]
+    region_sel: torch.Tensor     # [B, R] bool, the regions to predict
+
+
+def draw_pretrain_masks(generator: Optional[torch.Generator], tokens, feats, region_mask,
+                        vocab_size: int, mask_idx: int, mask_p: float = 0.15,
+                        region_p: float = 0.15) -> PretrainMasks:
+    """The token masks, then the region masks, from ``generator``."""
+    masked_tokens, lm_labels = mask_lm_tokens(generator, tokens, vocab_size, mask_idx, mask_p)
+    masked_feats, region_sel = mask_regions(generator, feats, region_mask, region_p)
+    return PretrainMasks(masked_tokens, lm_labels, masked_feats, region_sel)
+
+
+def pretrain_loss(params: dict, cfg: VilBertConfig, tokens, locs, region_mask, region_targets,
+                  align_labels, masks: PretrainMasks, train: bool = True,
+                  generator: Optional[torch.Generator] = None):
+    """(loss, logs) given the masks (pretrain.py:70-115): masked-LM CE,
+    masked-region KL(target || prediction) against ``region_targets`` [B,
+    R, v_target] (uniform rows make it a constant), the alignment CE and
+    the vil_logit alignment BCE, summed."""
+    vil_logit, vision_pred, linguistic_pred, seq_rel = vlnbert_apply(
+        params, cfg, masks.masked_tokens, masks.masked_feats, locs,
+        attention_mask=(tokens != PAD_IDX).float(), image_attention_mask=region_mask.float(),
+        train=train, generator=generator)
+
+    # masked LM CE, the mean over the predicted positions (ref ignore_index = -1)
+    logp = torch.log_softmax(linguistic_pred, dim=-1)
+    tgt = masks.lm_labels.clamp(0, cfg.vocab_size - 1)
+    ce = -logp.gather(-1, tgt[..., None])[..., 0]
+    lm_mask = (masks.lm_labels >= 0).float()
+    lm_loss = (ce * lm_mask).sum() / lm_mask.sum().clamp_min(1.0)
+
+    # masked-region KL(target || prediction) over the masked regions
+    vlogp = torch.log_softmax(vision_pred, dim=-1)
+    kl = (region_targets * (torch.log(region_targets + 1e-9) - vlogp)).sum(-1)
+    rg_mask = masks.region_sel.float()
+    region_loss = (kl * rg_mask).sum() / rg_mask.sum().clamp_min(1.0)
+
+    # alignment CE: is this instruction this path's?
+    alogp = torch.log_softmax(seq_rel, dim=-1)
+    align_loss = -alogp.gather(-1, align_labels[:, None].long()).mean()
+
+    # the vil_logit alignment BCE: score_difficulty ranks by this head, which
+    # no other term reaches
+    vil = vil_logit[:, 0]
+    lab = align_labels.float()
+    vil_loss = (torch.clamp_min(vil, 0.0) - vil * lab + torch.log1p(torch.exp(-vil.abs()))).mean()
+
+    total = lm_loss + region_loss + align_loss + vil_loss
+    logs = {"loss": total, "lm_loss": lm_loss, "region_loss": region_loss,
+            "align_loss": align_loss, "vil_loss": vil_loss}
+    return total, logs
+
+
+def build_pretrain_loss(cfg: VilBertConfig, mask_idx: int, mask_p: float = 0.15,
+                        region_p: float = 0.15):
+    """(params, tokens, feats, locs, region_mask, region_targets,
+    align_labels, generator, train) -> (loss, logs): the masks drawn from
+    ``generator``, then ``pretrain_loss``."""
+
+    def loss_fn(params, tokens, feats, locs, region_mask, region_targets, align_labels,
+                generator: Optional[torch.Generator], train: bool = True):
+        masks = draw_pretrain_masks(generator, tokens, feats, region_mask, cfg.vocab_size,
+                                    mask_idx, mask_p, region_p)
+        return pretrain_loss(params, cfg, tokens, locs, region_mask, region_targets,
+                             align_labels, masks, train, generator)
+
+    return loss_fn
+
+
+class VLNBertPretrainer:
+    """The multi-modal pretraining loop: Adam in optax's form, no clip."""
+
+    def __init__(self, cfg: VilBertConfig, mask_idx: int, lr: float = 1e-4,
+                 mask_p: float = 0.15, region_p: float = 0.15):
+        self.cfg = cfg
+        self.lr = lr
+        self.loss_fn = build_pretrain_loss(cfg, mask_idx, mask_p, region_p)
+
+    def init(self, generator: torch.Generator, device=None) -> Tuple[dict, ClippedAdam]:
+        """Seeded f32 parameters on ``device`` as trainable leaves, and the
+        optimizer over them."""
+        params = tree_map(lambda t: t.to(device).requires_grad_(True),
+                          vlnbert_init(generator, self.cfg))
+        return params, ClippedAdam(tree_leaves(params), self.lr, max_norm=None)
+
+    def step(self, params: dict, optimizer: ClippedAdam, batch: dict,
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """One update, ``params`` changed in place; the logs stay on the
+        device."""
+        loss, logs = self.loss_fn(params, batch["tokens"], batch["feats"], batch["locs"],
+                                  batch["region_mask"], batch["region_targets"],
+                                  batch["align_labels"], generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in logs.items()}
+
+    def train(self, params: dict, optimizer: ClippedAdam, batches,
+              generator: Optional[torch.Generator], log_every: int = 20):
+        """Run through an iterable of batches, one generator drawing every
+        step's masks and dropout; returns (params, optimizer, last logs)."""
+        logs = None
+        for i, batch in enumerate(batches):
+            logs = self.step(params, optimizer, batch, generator)
+            if log_every and (i + 1) % log_every == 0:
+                logger.info("pretrain iter %d: %s", i + 1, {k: float(v) for k, v in logs.items()})
+        return params, optimizer, logs
+
+
+# ---------------------------------------------------------------------------
+# Pretraining batches and CLR2R difficulty scoring over a compiled world
+# ---------------------------------------------------------------------------
+
+def views_along_path(world, global_nodes: Sequence[int]) -> List[int]:
+    """The view index at each path node: the view toward the next node (the
+    candidate table); the final node keeps the previous view."""
+    views: List[int] = []
+    for t in range(len(global_nodes) - 1):
+        g, nxt = int(global_nodes[t]), int(global_nodes[t + 1])
+        view = 12  # level default
+        for j in range(int(world.n_cands[g])):
+            if int(world.cand_next[g, j]) == nxt:
+                view = int(world.cand_view[g, j])
+                break
+        views.append(view)
+    views.append(views[-1] if views else 12)
+    return views
+
+
+def pretrain_arrays(world, items: Sequence[dict], tok, max_path_len: int, feat_dim: int,
+                    region_classes: Optional[np.ndarray] = None,
+                    n_region_classes: Optional[int] = None):
+    """(tokens, feats, locs, region_mask, region_targets) numpy arrays of a
+    list of expanded instruction items.  ``region_classes`` ([num_nodes]
+    int, e.g. grounded room types) become one-hot region targets; without
+    them the targets are uniform (the region loss inert, as the reference
+    without region labels)."""
+    from ..agents.vln_bert import path_scorer_inputs
+
+    n = len(items)
+    L = len(items[0]["instr_encoding"])
+    tokens = np.zeros((n, L), np.int64)
+    feats = np.zeros((n, max_path_len, feat_dim), np.float32)
+    locs = np.zeros((n, max_path_len, 12), np.float32)
+    region_mask = np.zeros((n, max_path_len), np.float32)
+    k = n_region_classes or (int(region_classes.max()) + 1 if region_classes is not None else 2)
+    targets = np.full((n, max_path_len, k), 1.0 / k, np.float32)
+    for i, item in enumerate(items):
+        tokens[i] = item["instr_encoding"]
+        nodes = [world.global_id(item["scan"], vp) for vp in item["path"]][:max_path_len]
+        views = views_along_path(world, nodes)
+        f, l, m = path_scorer_inputs(world, item["scan"], nodes, views, max_path_len, feat_dim)
+        feats[i], locs[i], region_mask[i] = f, l, m
+        if region_classes is not None:
+            for t, g in enumerate(nodes):
+                one = np.zeros(k, np.float32)
+                one[int(region_classes[g])] = 1.0
+                targets[i, t] = one
+    return tokens, feats, locs, region_mask, targets
+
+
+def pretrain_batches(world, items: Sequence[dict], tok, batch_size: int, max_path_len: int,
+                     feat_dim: int, region_classes=None, n_region_classes=None, epochs: int = 1,
+                     seed: int = 0, mismatch_p: float = 0.5, device=None):
+    """Pretraining batch dicts of tensors on ``device`` (default CUDA;
+    raises without it), in the JAX package's order (a numpy generator of
+    ``seed``); ``mismatch_p`` of the rows get another item's instruction
+    (alignment label 0)."""
+    from ..world.compiler import resolve_device
+
+    device = resolve_device(device)
+    tokens, feats, locs, region_mask, targets = pretrain_arrays(
+        world, items, tok, max_path_len, feat_dim, region_classes, n_region_classes)
+    n = len(items)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for s in range(0, n - batch_size + 1, batch_size):
+            idx = order[s: s + batch_size]
+            toks = tokens[idx].copy()
+            labels = np.ones(batch_size, np.int64)
+            swap = rng.random(batch_size) < mismatch_p
+            for b in np.where(swap)[0]:
+                j = int(rng.integers(n - 1))
+                j = j + (j >= idx[b])  # any other item
+                toks[b] = tokens[j]
+                labels[b] = 0
+            yield {"tokens": t(toks), "feats": t(feats[idx]), "locs": t(locs[idx]),
+                   "region_mask": t(region_mask[idx]), "region_targets": t(targets[idx]),
+                   "align_labels": t(labels)}
+
+
+def score_difficulty(scorer, params, world, items: Sequence[dict], tok, max_path_len: int,
+                     feat_dim: int, batch_size: int = 32) -> np.ndarray:
+    """The path-instruction compatibility logit of each item (higher =
+    easier; the paper's CLR2R difficulty signal), in batches of
+    ``batch_size`` (the last one padded) on the device of ``params``."""
+    tokens, feats, locs, region_mask, _ = pretrain_arrays(world, items, tok, max_path_len,
+                                                          feat_dim)
+    device = tree_leaves(params)[0].device
+    out = np.zeros(len(items), np.float32)
+    for s in range(0, len(items), batch_size):
+        e = min(s + batch_size, len(items))
+        pad = batch_size - (e - s)
+        sl = slice(s, e)
+        t = np.pad(tokens[sl], ((0, pad), (0, 0)))
+        f = np.pad(feats[sl], ((0, pad), (0, 0), (0, 0)))
+        l = np.pad(locs[sl], ((0, pad), (0, 0), (0, 0)))
+        m = np.pad(region_mask[sl], ((0, pad), (0, 0)))
+        am = (t != PAD_IDX).astype(np.float32)
+        vals = scorer.score_paths(params, *(torch.from_numpy(a).to(device) for a in (t, f, l)),
+                                  torch.from_numpy(am).to(device), torch.from_numpy(m).to(device))
+        out[sl] = vals.float().cpu().numpy()[: e - s]
+    return out
+
+
+def make_clr2r_rounds(items: Sequence[dict], scores: np.ndarray,
+                      n_rounds: int = 5) -> Dict[str, List[dict]]:
+    """Cut the items into difficulty rounds, the easiest (highest score)
+    first: the CLR2R round files the reference consumes (ref:
+    curriculum_env.py:44-62)."""
+    order = np.argsort(-scores, kind="stable")
+    rounds: Dict[str, List[dict]] = {}
+    per = max(1, len(items) // n_rounds)
+    for k in range(1, n_rounds + 1):
+        lo = (k - 1) * per
+        hi = k * per if k < n_rounds else len(items)
+        rounds[f"round_{k}"] = [items[int(i)] for i in order[lo:hi]]
+    return rounds

@@ -17,12 +17,15 @@ val_unseen and exits; or, with ``--self-train`` (EnvDrop only), the
 back-translation stage (main.py:78-98): a speaker of ``AIDE.SPEAKER`` in
 ``TPU.PRECISION``, pretrained, then EnvDrop trained on real and speaker-
 generated instructions (``engine.self_train``, on CLR2R over round_5),
-for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations.  Not
-ported yet, and refused: the ``--beam`` mode, the AUTO (Exp3.S)
-curriculum, the per-round train-split evaluation (``TRAIN.EVAL_TRAIN``),
-the rollout early exit (``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT
-(``TPU.FUSED_BPTT``), frozen GloVe embeddings
-(``MODEL.FOLLOWER.GLOVE_PATH``) and the other agents.
+for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations; or, with
+``--beam N`` (main.py:67-76), beam-search inference with speaker
+rescoring over the validation splits (``engine.beam_eval``; the agent
+from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  Not ported
+yet, and refused: the AUTO (Exp3.S) curriculum, the per-round
+train-split evaluation (``TRAIN.EVAL_TRAIN``), the rollout early exit
+(``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT (``TPU.FUSED_BPTT``),
+frozen GloVe embeddings (``MODEL.FOLLOWER.GLOVE_PATH``) and the other
+agents.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 from . import pipeline
 from .agents import build_agent
 from .agents.speaker import Speaker
+from .engine.beam_eval import run_beam_eval
 from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
 from .engine.self_train import self_train
 from .engine.trainer import ClassicTrainer, check_the_code
@@ -49,8 +53,6 @@ PORTED_AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR")
 def check_ported(args, cfg) -> None:
     """Raise on every mode and option of the JAX CLI that the port does
     not run yet, before any data is loaded."""
-    if args.beam > 0:
-        raise NotImplementedError("--beam is not ported yet")
     if args.self_train and cfg.MODEL.NAME != "ENVDROP":  # (main.py:84)
         raise ValueError("--self-train: back-translation is an EnvDrop stage")
     if cfg.MODEL.NAME not in PORTED_AGENTS:
@@ -104,6 +106,13 @@ def main(args, cfg) -> None:
         check_the_code(cfg, world.device_tables(cfg.TPU.PRECISION, device), valid_env)
         return
 
+    if args.beam > 0:  # beam search with speaker rescoring (main.py:67-76)
+        agent = build_agent(cfg, tok.vocab_size(), feat_dim)
+        run_beam_eval(cfg, agent, world, valid_env, tok, beam_size=args.beam, seed=args.seed,
+                      device=device)
+        logger.info("[4] Beam-search evaluation finished")
+        return
+
     if args.self_train:
         # the speaker-augmented back-translation stage (main.py:78-98)
         agent = build_agent(cfg, tok.vocab_size(), feat_dim)
@@ -142,7 +151,7 @@ def parse_args(argv=None):
     parser.add_argument("--self-train", action="store_true",
                         help="speaker-augmented back-translation stage (EnvDrop)")
     parser.add_argument("--beam", default=0, type=int, metavar="N",
-                        help="beam-search inference with beam size N (not ported yet)")
+                        help="beam-search inference with speaker rescoring, beam size N")
     parser.add_argument("opts", help="config overrides: KEY VALUE [KEY VALUE ...]",
                         default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)

@@ -103,3 +103,52 @@ def test_navigator_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Navigator(world, agent, params, tok)
+
+
+# the beam search and ViLBERT slices' modules
+BEAM_VILBERT_MODULES = ("utils/floyd.py", "agents/beam.py", "engine/beam_eval.py",
+                        "models/vilbert.py", "models/file_utils.py", "agents/vln_bert.py",
+                        "engine/pretrain.py", "build_clr2r.py", "convert.py", "main.py")
+
+
+def test_beam_and_vilbert_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(BEAM_VILBERT_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     for m in BEAM_VILBERT_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_build_clr2r_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():  # on a GPU host it would build the rounds there
+        pytest.skip("needs a host without CUDA to see the refusal")
+    run = subprocess.run([sys.executable, "-m", "curriculum_learning_for_vln_torch.build_clr2r",
+                          "--out", str(tmp_path / "out"), "--steps", "1"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "CUDA is not available" in run.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def test_run_beam_eval_defaults_to_cuda(tmp_path):
+    from curriculum_learning_for_vln_torch.agents.follower import FollowerAgent
+    from curriculum_learning_for_vln_torch.engine.beam_eval import run_beam_eval
+    from curriculum_learning_for_vln_torch.utils.config import get_cfg_defaults
+    from curriculum_learning_for_vln_torch.utils.tokenizer import Tokenizer
+    from curriculum_learning_for_vln_torch.world import compiler, synthetic
+
+    if torch.cuda.is_available():  # on a GPU host it would search there
+        pytest.skip("needs a host without CUDA to see the refusal")
+    world = compiler.compile_world(synthetic.make_world_graphs(1, 8, seed=0), 16)
+    compiler.attach_synthetic_features(world, feature_dim=16)
+    cfg = get_cfg_defaults()
+    cfg.OUTPUT.RESULT_DIR = str(tmp_path / "results")
+    m = cfg.MODEL.FOLLOWER
+    m.WORD_EMB_SIZE, m.HIDDEN_SIZE = 8, 16
+    tok = Tokenizer(["<PAD>", "<UNK>", "<EOS>", "<BOS>", "go"], encoding_length=6)
+    agent = FollowerAgent(m, tok.vocab_size(), 16, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_beam_eval(cfg, agent, world, {}, tok, beam_size=2)
+    assert not (tmp_path / "results").exists()

@@ -15,7 +15,8 @@
   1e-4 (a run of f32 updates whose sums run in another order).
 * ``main --self-train --device cpu`` on a tiny synthetic universe runs to
   its end (200 speaker iterations, as the JAX main gives), through the
-  speaker, real and back-translated iterations; ``--beam`` still raises.
+  speaker, real and back-translated iterations; ``--beam`` with a mode
+  the port does not run yet still raises.
 """
 import importlib
 import os
@@ -198,6 +199,10 @@ def test_main_self_train_runs(config, tmp_path, monkeypatch):
 
 
 def test_main_beam_is_still_refused():
+    """--beam is ported; with a mode the port does not run yet it is still
+    refused, before any data is loaded."""
     args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3"])
-    with pytest.raises(NotImplementedError, match="--beam"):
+    t_main.check_ported(args, cfg)
+    args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3", "TRAIN.EVAL_TRAIN", "True"])
+    with pytest.raises(NotImplementedError, match="EVAL_TRAIN"):
         t_main.main(args, cfg)

@@ -145,8 +145,8 @@ def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
         run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
         assert run.returncode != 0 and "CUDA is not available" in run.stderr
     t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--self-train"]))  # ported
-    for extra, what in ((["--beam", "3"], "--beam"),
-                        (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], "curriculum"),
+    t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--beam", "3"]))  # ported
+    for extra, what in ((["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], "curriculum"),
                         (["TRAIN.EVAL_TRAIN", "True"], "EVAL_TRAIN"),
                         (["TPU.SCAN_EARLY_EXIT", "True"], "SCAN_EARLY_EXIT"),
                         (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")):
