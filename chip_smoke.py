@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's EnvDrop serving and training paths, the
-paper's curriculum recipe, the Follower and Self-Monitor agents, the
-speaker with back-translation, beam search with speaker rescoring, and
-the ViLBERT scorer with the CLR2R construction, on one GPU.
+paper's curriculum recipe, the Exp3.S curriculum with the per-round
+train evaluation, R4R with the gt-route teacher, the rollout early exit,
+the Follower and Self-Monitor agents (the Follower also with frozen
+GloVe embeddings), the speaker with back-translation, beam search with
+speaker rescoring, and the ViLBERT scorer with the CLR2R construction,
+on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
@@ -16,7 +19,7 @@ the ViLBERT scorer with the CLR2R construction, on one GPU.
    (``recurrence_res_kernel`` and ``bwd_recurrence_res_kernel``, which hold
    W_hh in registers), each instantiation printed by name, must show no
    spills and at most 128 registers a thread.
-3. Kernel phases (in a full run, after phase 10, so that their profiler
+3. Kernel phases (in a full run, after phase 11, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
@@ -89,7 +92,33 @@ the ViLBERT scorer with the CLR2R construction, on one GPU.
    episodes done, completed episodes/s, and the device-busy share of one
    under the profiler.  (e) The SPCL update at the epoch's end (BURN_IN 0,
    INTERVAL 1) against a numpy recomputation.
-7. Agents phase: the Follower (``configs/follower/follower_config.yaml``)
+7. Curriculum-and-data phase, on the port's own synthetic world at
+   EnvDrop's full width (``pipeline.build_environments`` with
+   ``TPU.SYNTHETIC_WORLD``, 6 scans of 160 nodes: 2048-d features), bf16,
+   B = 64, T = 35: (a) ``TRAIN.CLMODE AUTO`` on ``envdrop_cl_config.yaml``
+   (its PACKED_RL 3 turned off by AUTO), the five rounds as the bandit's
+   arms: one iteration through the kernels against the plain versions
+   (loss and every gradient leaf), then one epoch of the trainer
+   ``main.build_trainer`` returns (8 iterations, each with exact
+   launches), its arms and ``log_w`` after the epoch's rewards against a
+   numpy recomputation of Exp3.S; (b) ``TRAIN.EVAL_TRAIN`` in that epoch:
+   each round's train split scored at B = 128 (K3 twice and K4 = K6 = T a
+   batch, exactly) before the validation splits, and one batch of 128
+   evaluated again with every K3, K4 and K6 call held against its plain
+   version on the same inputs; (c) ``DATA.NAME R4R`` with ``AGENT.TEACHER
+   path`` (the pipeline's R4R branch): one iteration kernels vs plain;
+   (d) ``TPU.SCAN_EARLY_EXIT`` on and off (``loop.configure_runtime``)
+   from the same seed, with the IL rollout bucketed and at the full T: the
+   same loss and gradients, the generator left in the same state, K4 / K6
+   launches, and the wall and device-busy ms of each, timed in turns
+   (off, on, on, off); (e) the Follower of ``follower_config.yaml`` with
+   a GloVe table it writes as ``.npy``: kernels vs plain, one Adam step
+   with exact launches, the table unchanged bit for bit; (f) ``main`` as a
+   user runs it, each in a process of its own that prints its launches:
+   AUTO with the early exit, EnvDrop on R4R with the path teacher, and
+   the Follower with the GloVe table on R4R (the table read back from its
+   checkpoint unchanged).  Every kernel K1-K7 must launch on these paths.
+8. Agents phase: the Follower (``configs/follower/follower_config.yaml``)
    and the Self-Monitor (``configs/monitor/selfmonitor_config.yaml``) at
    full width, bf16, B = 64, T = 10, seeded random weights, on the same
    world.  (a) ``Navigator.navigate_batch`` on 64-request micro-batches:
@@ -106,7 +135,7 @@ the ViLBERT scorer with the CLR2R construction, on one GPU.
    ignored for these agents): its loss is dot(w, ml_vec) / sum(w)
    recomputed in numpy.  (e) ``check_the_code`` on the synthetic
    val_unseen split: SR 1.0.
-8. Speaker phase: the speaker at the default ``AIDE.SPEAKER`` (RNN_DIM
+9. Speaker phase: the speaker at the default ``AIDE.SPEAKER`` (RNN_DIM
    512, WEMB 256, MAX_DECODE 120) on the EnvDrop config's world, bf16, B =
    64, T = 35, seeded random weights.  (a) One teacher-forcing step through
    the kernels against the plain versions: the loss and every gradient
@@ -121,7 +150,7 @@ the ViLBERT scorer with the CLR2R construction, on one GPU.
    unfused one); finite losses, moved parameters.  (e) A speaker
    checkpoint read back with its optimizer state, and ``main
    --self-train`` on a synthetic world for one short epoch.
-9. Beam phase (``main --beam``): EnvDrop at full width (random weights
+10. Beam phase (``main --beam``): EnvDrop at full width (random weights
    from a seed; the beam decodes in f32 on the bf16 tables, as the JAX
    package does), the default ``AIDE.SPEAKER`` in bf16, one batch of 64
    instructions, beam 30, max_iters 500.  (a) The listener's encoder and
@@ -131,16 +160,16 @@ the ViLBERT scorer with the CLR2R construction, on one GPU.
    listener + 4 for each episode with a path, nothing else).  (c) Every
    episode has a path, every score is a log-probability, every dijk path
    a connected walk.  (d) ``main --beam 5`` on a synthetic 6 x 48 world.
-10. ViLBERT phase: ``VilBertConfig``'s default widths (hidden 768, 12 + 3
+11. ViLBERT phase: ``VilBertConfig``'s default widths (hidden 768, 12 + 3
    layers, bi 1024 x 16 heads) with the shipped vocabulary and 2048-d
    features, about 1.4e8 parameters with Adam in f32.  (a) ``score_paths``
    on the card against the same parameters on the CPU.  (b) Timed
    pretraining steps (B = 32) and the scoring of 1,000 items, each with
    its device-busy share; no kernel of the port launches.  (c) The loss
    falls over 20 steps.  (d) ``build_clr2r`` writes five rounds.
-11. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
-   the Follower's, the Self-Monitor's, the speaker's, the beam's and the
-   ViLBERT paths), the card's name and power limit, and as the last line
+12. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+   the curriculum-and-data phase's, the Follower's, the Self-Monitor's,
+   the speaker's, the beam's and the ViLBERT paths), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -148,6 +177,7 @@ line.  Without a CUDA device, or without the port beside it, it fails.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -193,6 +223,13 @@ BEAM_MAX_ITERS = 500  # BeamSearch's default expansion budget
 RESCORE_B, RESCORE_L = BEAM_SIZE, 16
 RESCORE_SHAPES = {"rescore_l1": (FEAT_DIM + 128, 256, torch.bfloat16),
                   "rescore_post": (512, 256, torch.float32)}
+AUTO_ITERS = 8        # AUTO iterations in one epoch: 8 draws of 5 arms repeat some, so
+                      # the epoch's end rewards the bandit
+R4R_JOINS = 1         # DATA.R4R_JOINS as the config ships it
+EXIT_ROUNDS = 5       # rounds of (off, on, on, off) timed iterations of the early exit
+MAIN_ITERS = 3        # iterations an epoch of each ``main`` run of the curriculum-and-data phase
+# the pipeline's synthetic world at full width (over 128 nodes a scan: 2048-d features)
+SYN_SCANS, SYN_NODES = 6, 160
 VIL_BATCH = 32        # ViLBERT pretraining batch
 VIL_STEPS = 20        # timed pretraining steps (after one warm-up)
 VIL_ITEMS = 1000      # items scored by score_difficulty
@@ -1595,6 +1632,520 @@ def curriculum_phase(world, data, tok, params0, device):
 
 
 # ---------------------------------------------------------------------------
+# Curriculum-and-data phase: Exp3.S, EVAL_TRAIN, R4R, the early exit, GloVe
+# ---------------------------------------------------------------------------
+
+def exp3s_reference(n, kw, losses):
+    """Exp3.S (fixed-share exponential weights, the loss decrease of an
+    arm as its reward, rescaled against the quantiles of the recent
+    rewards) recomputed in numpy over one epoch's losses: (the arms drawn,
+    log_w after the epoch's rewards)."""
+    rng = np.random.default_rng(kw["seed"])
+    log_w, window, last, arms = np.zeros(n), [], {}, []
+
+    def pi():
+        w = np.exp(log_w - log_w.max())
+        return (1.0 - kw["eps"]) * w / w.sum() + kw["eps"] / n
+
+    for _ in losses:
+        arms.append(int(rng.choice(n, p=pi())))
+    for arm, loss in zip(arms, losses):
+        if arm in last:
+            r = last[arm] - loss
+            window = (window + [r])[-max(2, kw["rrsize"]):]
+            lo, hi = np.quantile(window, kw["beta"]), np.quantile(window, 1.0 - kw["beta"])
+            r = 0.0 if hi <= lo else float(np.clip(2.0 * (r - lo) / (hi - lo) - 1.0, -1.0, 1.0))
+            p = pi()
+            v = log_w.copy()
+            v[arm] += kw["eta"] * (r / max(p[arm], 1e-8))
+            ew = np.exp(v - v.max())
+            mixed = (1.0 - kw["alpha"]) * ew + kw["alpha"] / max(n - 1, 1) * (ew.sum() - ew)
+            log_w = v.max() + np.log(np.maximum(mixed, 1e-300))
+        last[arm] = loss
+    return arms, log_w
+
+
+def kernel_vs_plain(what, grads_fn, tol=1e-2, names=None):
+    """``grads_fn()`` -> (loss, gradient leaves) through the kernels and
+    through their plain versions: the loss within 1e-4 of its scale, each
+    leaf within ``tol`` of its largest plain element (``names``: the
+    leaves' key paths, to name the worst).  Returns (loss err, worst
+    relative leaf err, the kernel run's launches)."""
+    reset_launch_counts()
+    loss_k, g_k = grads_fn()
+    counts = launch_counts()
+    with plain_kernels():
+        loss_p, g_p = grads_fn()
+    loss_err = abs(loss_k - loss_p)
+    check(loss_err <= 1e-4 * max(1.0, abs(loss_p)), f"{what}: loss kernels {loss_k} plain {loss_p}")
+    worst, worst_at = 0.0, ""
+    for i, (gk, gp) in enumerate(zip(g_k, g_p, strict=True)):
+        sc = max(float(gp.abs().max()), 1e-6)
+        e = float((gk - gp).abs().max())
+        if i == 0 or e / sc > worst:
+            worst = e / sc
+            worst_at = (f" ({'.'.join(map(str, names[i]))}: {e:.3g} of max {sc:.3g})"
+                        if names else "")
+        check(e <= tol * sc, f"{what}: a gradient leaf of shape {tuple(gk.shape)}: "
+                             f"|kernel - plain| {e:.3g} > {tol * sc:.3g}")
+    log(f"{what}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (|diff| {loss_err:.3g}); worst "
+        f"gradient leaf |kernel - plain| / max|plain| {worst:.3g}{worst_at} (tol {tol}) over "
+        f"{len(g_k)} leaves; launches {counts}")
+    return loss_err, worst, counts
+
+
+def iteration_launches(t_il, T):
+    """One EnvDrop iteration's launches: the encoder's 2 directions (K1, K2)
+    in the IL and the A2C rollouts, K4 and K6 a step of each and one more
+    for the bootstrap step, K5 and K7 a step of each."""
+    return launches_of(lstm_scan_train=4, lstm_scan_bwd=4, pano_attend=t_il + T + 1,
+                       cand_score=t_il + T + 1, pano_attend_bwd=t_il + T, cand_score_bwd=t_il + T)
+
+
+@contextmanager
+def checked_calls():
+    """Hold every call of K3, K4 and K6 against its plain version on the
+    same inputs, as the calls are made (the tolerances of the kernel
+    phases: 1e-4 of each output's scale, K4's candidate rows exact).
+    Yields {name: [(max |kernel - plain|, tol), ...]}."""
+    mods = modules()
+    where = {"lstm_scan": "lstm_scan", "pano_attend": "pano_fused", "cand_score": "cand_score"}
+    saved = {n: getattr(mods[m], n) for n, m in where.items()}
+    calls = {n: [] for n in where}
+
+    def flat(out):  # the output tensors, nested tuples opened
+        if not isinstance(out, tuple):
+            return [out]
+        return [t for x in out for t in flat(x)]
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            got = fn(*args, **kwargs)
+            want = getattr(mods[where[name]], name + "_plain")(*args, **kwargs)
+            g, w = flat(got), flat(want)
+            if name == "pano_attend":  # (visual, alpha, candidate rows)
+                check(torch.equal(g[2], w[2]), "K4's candidate rows are exact copies")
+                g, w = g[:2], w[:2]
+            calls[name].append(compare(g, w, 1e-4))
+            return got
+
+        return call
+
+    for name, fn in saved.items():
+        setattr(mods[where[name]], name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(mods[where[name]], name, fn)
+
+
+MAIN_WRAPPER = """\
+import json, sys
+import chip_smoke
+from curriculum_learning_for_vln_torch import main
+main.main(*main.parse_args(sys.argv[1:]))
+print("launches " + json.dumps(chip_smoke.launch_counts()))
+"""
+
+
+def run_main(what, args, d):
+    """``main`` with ``args`` in a process of its own, as a user runs it,
+    logging under ``d``; (its launches, its log's lines, seconds)."""
+    cmd = [sys.executable, "-c", MAIN_WRAPPER, "--seed", str(SEED), *map(str, args),
+           "TPU.SYNTHETIC_WORLD", "True", "TPU.SYNTHETIC_SCANS", SYN_SCANS,
+           "TPU.SYNTHETIC_NODES", SYN_NODES, "OUTPUT.LOG_DIR", d, "OUTPUT.TSBOARD_DIR", "",
+           "OUTPUT.CKPT_DIR", os.path.join(d, "ckpt")]
+    t0 = time.perf_counter()
+    run = subprocess.run([str(c) for c in cmd], capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    text = "".join(open(f).read() for f in glob.glob(os.path.join(d, "*.log")))
+    counts = [json.loads(ln.split(" ", 1)[1]) for ln in run.stdout.splitlines()
+              if ln.startswith("launches ")]
+    check(run.returncode == 0 and "Training finished" in text and len(counts) == 1,
+          f"main {what}: rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    lines = [ln.split(": ", 1)[-1] for ln in text.splitlines() if "Epoch [" in ln or "Using" in ln]
+    return counts[0], lines, secs
+
+
+def curriculum_data_phase(device, card):
+    """Slice 9 on the pipeline's synthetic world at EnvDrop's full width,
+    bf16, B = 64, T = 35: (a) AUTO on ``envdrop_cl_config.yaml`` (PACKED_RL
+    3 as shipped, which AUTO turns off): one iteration through the kernels
+    against the plain versions, then one epoch of the trainer with exact
+    launches, its arms and log_w against a numpy recomputation; (b)
+    EVAL_TRAIN: each round's train split scored in that epoch (K3), and
+    one batch of 128 with each K3, K4 and K6 call against its plain
+    version; (c) R4R with the path teacher: one iteration kernels vs
+    plain; (d) the early exit on and off from the same seed: the same
+    loss and gradients, the generator left in the same state, K4 / K6
+    launches and times of each; (e) the Follower with a frozen GloVe table
+    written as .npy: kernels vs plain, one Adam step, the table unchanged;
+    (f) ``main`` with AUTO and the early exit, with R4R and the path
+    teacher, and with the Follower's GloVe table."""
+    import logging
+
+    from curriculum_learning_for_vln_torch import main as main_mod
+    from curriculum_learning_for_vln_torch import pipeline
+    from curriculum_learning_for_vln_torch.agents import build_agent, init_agent
+    from curriculum_learning_for_vln_torch.convert import params_from_jax
+    from curriculum_learning_for_vln_torch.engine import auto_curriculum, loop
+    from curriculum_learning_for_vln_torch.engine import trainer as trainer_mod
+    from curriculum_learning_for_vln_torch.engine.checkpoint import load_checkpoint
+    from curriculum_learning_for_vln_torch.engine.trainer import il_bucket_fn, packed_factor
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.utils.config import get_cfg_defaults
+
+    def config(path, *opts):
+        c = get_cfg_defaults()
+        c.merge_from_file(path)
+        c.merge_from_list(["TPU.SYNTHETIC_WORLD", True, "TPU.SYNTHETIC_SCANS", SYN_SCANS,
+                           "TPU.SYNTHETIC_NODES", SYN_NODES, *opts])
+        return c
+
+    cfg = config(CL_CONFIG, "TRAIN.CLMODE", "AUTO")
+    T, prec = cfg.AGENT.MAX_EPISODE_LEN, cfg.TPU.PRECISION
+    tok = pipeline.build_tokenizer(cfg)
+    world, arms_env, valid, feat_dim = pipeline.build_environments(cfg, tok, seed=SEED,
+                                                                   device=device)
+    check(feat_dim == FEAT_DIM and isinstance(arms_env, dict) and len(arms_env) == 5,
+          f"AUTO's arms on a {feat_dim}-d world: {sorted(arms_env)}")
+    agent = build_agent(cfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
+    params0, _ = init_agent(agent, torch.Generator().manual_seed(SEED))
+    tables = world.device_tables(prec, device)
+    il_bucket = il_bucket_fn(cfg, agent)
+    out, tmp = {}, tempfile.mkdtemp(prefix="chip_smoke_data_")
+    launches = {}
+    log(f"curriculum-data: {SYN_SCANS} x {SYN_NODES} synthetic world ({world.num_nodes} nodes x "
+        f"36 views x {feat_dim}), rounds {[e.size() for e in arms_env.values()]} episodes, "
+        f"{prec}, T = {T}")
+
+    def fresh():
+        return tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0)
+
+    def envdrop_grads(agent_, tables_, params, batch, il_len, seed=SEED + 7):
+        leaves = tree.tree_leaves(params)
+
+        def run():
+            gen = torch.Generator(device=device).manual_seed(seed)
+            total, _ = loop.iteration_loss(agent_, "sample", tables_, params, batch, gen,
+                                           il_len=il_len)
+            for p in leaves:
+                p.grad = None
+            total.backward()
+            loop.clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
+            run.gen_state = gen.get_state()
+            return total.item(), [p.grad.clone() for p in leaves]
+
+        return run
+
+    # (a) AUTO: the arms are the individual rounds (pipeline.build_environments);
+    # then the same iteration in f32, where the kernels' summation order
+    # alone sets the difference (a bf16 gradient leaf is one bf16 rounding
+    # of the compute copy's gradient: an ulp there is up to 2^-7 of its max)
+    batch = arms_env["round_3"].next_batch()
+    il_len = il_bucket(arms_env["round_3"])
+    params = fresh()
+    names = leaf_paths(params)
+    _, out["auto_vs_plain"], counts = kernel_vs_plain(
+        f"curriculum-data (a): one AUTO iteration (round_3, {prec})",
+        envdrop_grads(agent, tables, params, batch, il_len), names=names)
+    check(counts == iteration_launches(il_len or T, T), f"AUTO iteration launches {counts}")
+    c32 = cfg.clone()
+    c32.merge_from_list(["TPU.PRECISION", "f32"])
+    _, out["auto_vs_plain_f32"], _ = kernel_vs_plain(
+        "curriculum-data (a): the same iteration in f32",
+        envdrop_grads(build_agent(c32, tok.vocab_size(), feat_dim, vocab=tok.vocab),
+                      world.device_tables("f32", device), fresh(), batch, il_len), names=names)
+    del params
+    # TRAIN.EVAL_TRAIN's envs as main.eval_train_envs builds them, over the arms' items
+    eval_env = {k: R2RBatchEnv(world, e.data, 2 * BATCH, tok, SEED + 100 + int(k[-1]), "train",
+                               device=device) for k, e in arms_env.items()}
+
+    c = cfg.clone()
+    c.merge_from_list(["TRAIN.MAX_EPOCH", 1, "TRAIN.ITER_PER_EPOCH", AUTO_ITERS,
+                       "TRAIN.EVAL_INTERVAL", 1, "TRAIN.EVAL_TRAIN", True,
+                       "OUTPUT.CKPT_DIR", tmp, "OUTPUT.TSBOARD_DIR", "", "OUTPUT.LOG_DIR", ""])
+    trainer = main_mod.build_trainer(c, arms_env, logging.getLogger("chip_smoke"), seed=SEED)
+    check(isinstance(trainer, auto_curriculum.AutoCurriculum), f"AUTO builds {type(trainer)}")
+    check(packed_factor(c, agent, trainer) == 0, "AUTO turns packed RL off")
+    record, epoch_losses = {}, trainer.on_epoch_losses
+
+    def recording(losses):
+        record["drawn"], record["losses"] = list(trainer._arms), list(losses)
+        epoch_losses(losses)
+
+    trainer.on_epoch_losses = recording
+    per_iter, evals, summaries, times = [], {}, [], []
+    one_iter, run_eval, prettyprint = (trainer_mod.one_iter, trainer_mod.run_eval,
+                                       trainer_mod.prettyprint)
+
+    def counted_iter(*args, **kwargs):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        logs = one_iter(*args, **kwargs)
+        float(logs["loss"])  # a sync: the iteration has finished
+        times.append(time.perf_counter() - t0)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in KERNELS}
+        t_il = kwargs.get("il_len") or T
+        check(got == iteration_launches(t_il, T), f"AUTO trainer iteration launches {got} "
+                                                  f"(T_il {t_il})")
+        per_iter.append((t_il, got))
+        return logs
+
+    def counted_eval(agent_, params_, tables_, env, *args):
+        before = launch_counts()
+        results = run_eval(agent_, params_, tables_, env, *args)
+        after = launch_counts()
+        key = next((k for k, e in eval_env.items() if e is env), env.name)
+        evals[key] = {k: after[k] - before[k] for k in KERNELS}
+        return results
+
+    trainer_mod.one_iter, trainer_mod.run_eval = counted_iter, counted_eval
+    trainer_mod.prettyprint = summaries.append
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, _ = trainer.train(c, agent, "", arms_env, valid, seed=SEED, device=device,
+                                  eval_train=True, eval_train_env=eval_env)
+        total_s = time.perf_counter() - t0
+        launches["auto"] = launch_counts()
+    finally:
+        trainer_mod.one_iter, trainer_mod.run_eval = one_iter, run_eval
+        trainer_mod.prettyprint = prettyprint
+    keys = sorted(arms_env)
+    drawn, losses = record["drawn"], record["losses"]
+    ref_arms, ref_log_w = exp3s_reference(len(keys), trainer._cfg, losses)
+    log_w_err = float(np.abs(trainer.bandit.log_w - ref_log_w).max())
+    check(len(losses) == AUTO_ITERS and drawn == ref_arms, f"AUTO arms {drawn} vs numpy {ref_arms}")
+    check(log_w_err <= 1e-12 and bool(np.any(ref_log_w != 0)),
+          f"AUTO log_w {trainer.bandit.log_w} vs numpy {ref_log_w}")
+    check(all(np.isfinite(losses)), f"finite AUTO losses {losses}")
+    med = statistics.median(times[1:])
+    out["auto"] = {"arms": [keys[a] for a in drawn], "losses": losses,
+                   "log_w": trainer.bandit.log_w.tolist(), "log_w_err": log_w_err,
+                   "ms": [t * 1e3 for t in times], "median_ms": med * 1e3,
+                   "per_iteration": per_iter, "epoch_s": total_s}
+    log(f"curriculum-data (a): AUTO, {AUTO_ITERS} iterations of one epoch: arms "
+        f"{out['auto']['arms']}; losses {[round(x, 4) for x in losses]}; log_w "
+        f"{[round(float(x), 6) for x in trainer.bandit.log_w]} (numpy recomputation: the same "
+        f"arms, |log_w - numpy| {log_w_err:.3g}); ms per iteration median {med * 1e3:.2f} (all "
+        f"{[round(t * 1e3, 2) for t in times]}); launches per iteration exact "
+        f"{[(t_il, g['lstm_scan_train'], g['pano_attend']) for t_il, g in per_iter]} "
+        f"(T_il, K1, K4) | {card}")
+
+    # (b) EVAL_TRAIN in that epoch: every round scored, before the validation splits
+    check(len(summaries) == 2 and list(summaries[0]) == keys
+          and list(summaries[1]) == list(valid), f"EVAL_TRAIN summaries {summaries}")
+    for k, env in eval_env.items():
+        n = -(-env.size() // env.batch_size)  # eval batches
+        want = launches_of(lstm_scan=2 * n, pano_attend=T * n, cand_score=T * n)
+        check(evals.get(k) == want, f"EVAL_TRAIN {k} launches {evals.get(k)}, expected {want}")
+        check(all(np.isfinite(summaries[0][k][mk]) for mk in ("success_rate", "spl")),
+              f"EVAL_TRAIN {k} scores")
+    launches["eval_train"] = {k: sum(evals[r][k] for r in keys) for k in KERNELS}
+    out["eval_train"] = {r: {mk: summaries[0][r][mk] for mk in ("success_rate", "spl", "ndtw")}
+                         for r in keys}
+    scored = {r: (eval_env[r].size(), round(summaries[0][r]["success_rate"], 4),
+                  round(summaries[0][r]["spl"], 4)) for r in keys}
+    # one batch of 128 again, the trained parameters: each call against its plain version
+    ep = next(iter(eval_env["round_1"].eval_batches()))
+    check(ep.instr_tokens.shape[0] == 2 * BATCH, f"an EVAL_TRAIN batch of {2 * BATCH}")
+    with checked_calls() as calls:
+        res_k = loop.build_eval_rollout(agent)(tables, params, ep)
+    with plain_kernels():
+        res_p = loop.build_eval_rollout(agent)(tables, params, ep)
+    b128 = {}
+    for name, errs in calls.items():
+        e, tol = max(errs, key=lambda x: x[0] - x[1])
+        check(all(x <= t for x, t in errs), f"EVAL_TRAIN B = {2 * BATCH}: {name} |kernel - "
+                                            f"plain| {e:.3g} > {tol:.3g} ({len(errs)} calls)")
+        b128[name] = {"calls": len(errs), "max_abs_err": e, "tol": tol}
+    check(b128["lstm_scan"]["calls"] == 2 and b128["pano_attend"]["calls"] == T
+          and b128["cand_score"]["calls"] == T, f"EVAL_TRAIN B = {2 * BATCH} calls {b128}")
+    same = int((res_k.steps.action == res_p.steps.action).all(0).sum())
+    out["eval_train_b128"] = dict(b128, same_actions=same)
+    log(f"curriculum-data (b): EVAL_TRAIN, each round's train split at B = {2 * BATCH}: "
+        f"{scored} (episodes, SR, SPL); launches exact, in all {launches['eval_train']}; one "
+        f"batch of {2 * BATCH} again, each call against its plain version on its inputs: "
+        + ", ".join(f"{n} {v['calls']} calls, worst |kernel - plain| {v['max_abs_err']:.3g} "
+                    f"(tol {v['tol']:.3g})" for n, v in b128.items())
+        + f"; the whole rollout under the plain versions: the same actions in {same} of "
+        f"{2 * BATCH} episodes")
+
+    # (c) R4R with the path teacher: the pipeline's R4R branch, one iteration kernels vs plain
+    rcfg = config(CONFIG, "DATA.NAME", "R4R", "AGENT.TEACHER", "path")
+    rworld, r4r_env, _, _ = pipeline.build_environments(rcfg, tok, seed=SEED, device=device)
+    ragent = build_agent(rcfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
+    rtables = rworld.device_tables(rcfg.TPU.PRECISION, device)
+    batch = r4r_env.next_batch()
+    il_len = il_bucket_fn(rcfg, ragent)(r4r_env)
+    P = r4r_env.path_local.shape[1]
+    check(r4r_env.teacher_mode == "path" and P > 2 and bool((batch.path_len > 2).all()),
+          f"R4R waypoints: P = {P}")
+    _, _, launches["r4r"] = kernel_vs_plain(
+        f"curriculum-data (c): one R4R iteration, path teacher ({r4r_env.size()} episodes, "
+        f"P = {P}, max hops {r4r_env.cur_batch_max_hops}, il_len {il_len})",
+        envdrop_grads(ragent, rtables, fresh(), batch, il_len), names=names)
+    check(launches["r4r"] == iteration_launches(il_len or T, T),
+          f"R4R iteration launches {launches['r4r']}")
+    del rtables
+
+    # (d) the early exit, on and off, from the same seed, as the config sets it
+    def early_exit(on):
+        e = cfg.clone()
+        e.merge_from_list(["TPU.SCAN_EARLY_EXIT", on])
+        loop.configure_runtime(e)
+
+    env = arms_env["round_5"]
+    batch = env.next_batch()
+    out["early_exit"] = {}
+    for label, il in (("il_bucket", il_bucket(env)), ("il_full", None)):
+        fn = envdrop_grads(agent, tables, fresh(), batch, il)
+        runs, ms = {}, {False: [], True: []}
+        try:
+            for on in (False, True):
+                early_exit(on)
+                reset_launch_counts()
+                loss, grads = fn()
+                runs[on] = (loss, grads, launch_counts(), fn.gen_state)
+                fn()  # warm
+            for _ in range(EXIT_ROUNDS):  # in turns, so that drift falls on both
+                for on in (False, True, True, False):
+                    early_exit(on)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms[on].append((time.perf_counter() - t0) * 1e3)
+            for on in (False, True):
+                early_exit(on)
+                runs[on] += profile(fn)[:2]
+        finally:
+            early_exit(False)
+        (l0, g0, c0, s0, w0, b0), (l1, g1, c1, s1, w1, b1) = runs[False], runs[True]
+        ms0, ms1 = statistics.median(ms[False]), statistics.median(ms[True])
+        check(torch.equal(s0, s1), f"early exit {label}: the generator ends elsewhere")
+        check(abs(l1 - l0) <= 1e-4 * max(1.0, abs(l0)), f"early exit {label}: loss {l1} vs {l0}")
+        worst = 0.0
+        for a, b in zip(g1, g0, strict=True):
+            sc = max(float(b.abs().max()), 1e-6)
+            e = float((a - b).abs().max())
+            worst = max(worst, e / sc)
+            check(e <= 1e-2 * sc, f"early exit {label}: a gradient leaf |on - off| {e:.3g}")
+        check(c0 == iteration_launches(il or T, T) and c1["pano_attend"] <= c0["pano_attend"],
+              f"early exit {label}: launches off {c0}, on {c1}")
+        launches[f"early_exit_{label}_on"], launches[f"early_exit_{label}_off"] = c1, c0
+        out["early_exit"][label] = {
+            "il_len": il, "loss": [l0, l1], "grad_rel_err": worst,
+            "K4_K6": {"off": [c0["pano_attend"], c0["cand_score"]],
+                      "on": [c1["pano_attend"], c1["cand_score"]]},
+            "wall_ms": {"off": ms[False], "on": ms[True]},
+            "wall_ms_median": {"off": ms0, "on": ms1}, "device_busy_ms": {"off": b0, "on": b1},
+            "profiled_wall_ms": {"off": w0, "on": w1}}
+        log(f"curriculum-data (d): early exit, {label} (il_len {il}): loss off {l0:.6f} on "
+            f"{l1:.6f}, worst gradient leaf |on - off| / max|off| {worst:.3g} (tol 1e-2), the "
+            f"generator's state equal; K4 / K6 off {c0['pano_attend']} / {c0['cand_score']}, on "
+            f"{c1['pano_attend']} / {c1['cand_score']} (K5 off {c0['pano_attend_bwd']}, on "
+            f"{c1['pano_attend_bwd']}); wall ms an iteration, {2 * EXIT_ROUNDS} each in turns "
+            f"(off, on, on, off): median off {ms0:.2f} on {ms1:.2f} (off "
+            f"{[round(x, 2) for x in ms[False]]}, on {[round(x, 2) for x in ms[True]]}); device "
+            f"busy ms off {b0:.2f} on {b1:.2f} | {card}")
+
+    # (e) the Follower with a frozen GloVe table
+    fcfg = agent_cfg(AGENT_CONFIGS["FOLLOWER"][0])
+    dim = fcfg.MODEL.FOLLOWER.WORD_EMB_SIZE
+    table = np.random.default_rng(SEED + 3).normal(0, 0.3, (tok.vocab_size(), dim))
+    glove = os.path.join(tmp, "glove.npy")
+    np.save(glove, table.astype(np.float32))
+    fcfg.merge_from_list(["MODEL.FOLLOWER.GLOVE_PATH", glove])
+    fagent = build_agent(fcfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
+    fparams0, fstate = init_agent(fagent, torch.Generator().manual_seed(SEED))
+    fparams = tree.tree_map(lambda t: t.to(device).requires_grad_(True), fparams0)
+    emb = fparams["encoder"]["embedding"]["w"]
+    frozen = emb.detach().clone()
+    check(torch.equal(frozen.cpu(), torch.from_numpy(table.astype(np.float32))),
+          "the Follower's embedding is the GloVe table")
+    fenv = R2RBatchEnv(world, arms_env["round_5"].data, BATCH, tok, SEED, device=device)
+    fbatch = fenv.next_batch()
+    zero = ZERO_GRAD["FOLLOWER"]
+    fleaves = [(p, leaf) for p, leaf in zip(leaf_paths(fparams), tree.tree_leaves(fparams))
+               if p not in zero and p != ("encoder", "embedding", "w")]
+
+    def follower_grads():
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        total, _, _ = loop.agent_iteration_loss(fagent, fcfg.AGENT.FEEDBACK, tables, fparams,
+                                                fstate, fbatch, gen)
+        for p in tree.tree_leaves(fparams):
+            p.grad = None
+        total.backward()
+        check(emb.grad is None, "no gradient reaches the GloVe table")
+        return total.item(), [torch.zeros_like(leaf) if leaf.grad is None else leaf.grad.clone()
+                              for _, leaf in fleaves]
+
+    _, _, counts = kernel_vs_plain(f"curriculum-data (e): a Follower iteration with frozen GloVe "
+                                   f"({tok.vocab_size()} x {dim})", follower_grads,
+                                   names=[p for p, _ in fleaves])
+    check(counts == agent_launches("FOLLOWER", False), f"GloVe Follower launches {counts}")
+    optimizer = loop.make_optimizer(fcfg.TRAIN.OPTIM, fcfg.TRAIN.LR, fparams)
+    before = [leaf.detach().clone() for _, leaf in fleaves]
+    reset_launch_counts()
+    logs, _ = loop.agent_one_iter(fagent, optimizer, fcfg.AGENT.FEEDBACK, tables, fparams, fstate,
+                                  fbatch, torch.Generator(device=device).manual_seed(SEED + 1))
+    launches["glove"] = launch_counts()
+    check(launches["glove"] == agent_launches("FOLLOWER", False),
+          f"GloVe Follower step launches {launches['glove']}")
+    check(torch.equal(emb.detach(), frozen), "the GloVe table moved in an optimizer step")
+    moved = sum(int(not torch.equal(b, leaf.detach())) for b, (_, leaf) in zip(before, fleaves))
+    check(moved == len(fleaves), f"{moved} of {len(fleaves)} trained leaves moved")
+    out["glove"] = {"loss": float(logs["loss"]), "optimizer": fcfg.TRAIN.OPTIM,
+                    "leaves_moved": moved}
+    log(f"curriculum-data (e): one {fcfg.TRAIN.OPTIM} step: loss {float(logs['loss']):.6f}, the "
+        f"table unchanged bit for bit, {moved}/{len(fleaves)} trained leaves moved; launches "
+        f"exact {launches['glove']}")
+
+    # (f) main, as a user runs it, in processes of their own
+    small = ("TRAIN.MAX_EPOCH", 2, "TRAIN.ITER_PER_EPOCH", MAIN_ITERS, "TRAIN.EVAL_INTERVAL", 2)
+    runs = {
+        "auto": (f"--config-file {CL_CONFIG} TRAIN.CLMODE AUTO TPU.SCAN_EARLY_EXIT True",
+                 "Using AutoCurriculum (Exp3.S) trainer"),
+        "r4r": (f"--config-file {CONFIG} DATA.NAME R4R AGENT.TEACHER path", "Using Classic trainer"),
+        "glove": (f"--config-file {AGENT_CONFIGS['FOLLOWER'][0]} DATA.NAME R4R AGENT.TEACHER path "
+                  f"MODEL.FOLLOWER.GLOVE_PATH {glove}", "Using Classic trainer"),
+    }
+    out["main"] = {}
+    for what, (args, trainer_line) in runs.items():
+        d = os.path.join(tmp, f"main_{what}")
+        counts, lines, secs = run_main(what, [*args.split(), *small], d)
+        iters = 2 * MAIN_ITERS  # K1 = K2 = 4 an iteration for either agent
+        check(trainer_line in lines and sum("Epoch [" in ln for ln in lines) == 2,
+              f"main {what}: log {lines}")
+        check(counts["lstm_scan_train"] == counts["lstm_scan_bwd"] == 4 * iters
+              and all(counts[k] > 0 for k in KERNELS if k not in OFF_PATH and
+                      (what != "glove" or k not in ("cand_score", "cand_score_bwd"))),
+              f"main {what}: launches {counts}")
+        if what == "glove":  # the table, read back from the run's checkpoint, unchanged
+            saved = params_from_jax(load_checkpoint(os.path.join(d, "ckpt", "latest.ckpt"))
+                                    ["params"])["encoder"]["embedding"]["w"]
+            check(torch.equal(torch.as_tensor(np.asarray(saved)),
+                              torch.from_numpy(table.astype(np.float32))),
+                  "main glove: the checkpoint's embedding is the GloVe table")
+        launches[f"main_{what}"] = counts
+        out["main"][what] = {"s": secs, "log": lines, "launches": counts}
+        log(f"curriculum-data (f): main {args} (2 epochs of {MAIN_ITERS}) in {secs:.1f} s: "
+            f"{' | '.join(lines)}; launches {counts}")
+
+    ran = {k for c in launches.values() for k in KERNELS if c.get(k, 0) > 0}
+    missing = set(KERNELS) - set(OFF_PATH) - ran
+    check(not missing, f"kernels not launched on this slice's paths: {missing}")
+    out["launches"] = launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Agents phase: the Follower and the Self-Monitor
 # ---------------------------------------------------------------------------
 
@@ -1912,7 +2463,6 @@ def speaker_phase(world, data, tok, cfg, device, card):
     sampled and back-translation's, (d) ``engine.self_train`` for a few
     iterations, (e) a speaker checkpoint read back and ``main
     --self-train``."""
-    import glob
     import importlib
 
     from curriculum_learning_for_vln_torch.agents.common import cast_compute_params
@@ -2173,7 +2723,6 @@ def beam_phase(world, data, tok, cfg, m, params, device, card):
     ``beam_rollout`` timed (iterations, decode ms, host ms an iteration,
     rescoring ms) with exact launches, (c) the paths' checks, (d) ``main
     --beam 5`` on a synthetic 6 x 48 world."""
-    import glob
 
     from curriculum_learning_for_vln_torch.agents import beam as beam_mod
     from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
@@ -2521,6 +3070,8 @@ def main() -> int:
         f"{CURRICULUM_ITERS - 2}), {pk['episodes_per_s']:.1f} completed episodes/s, device busy "
         f"{100 * pb / pw:.1f}% under the profiler | {card}")
 
+    cdata = curriculum_data_phase(device, card)
+
     agents = agents_phase(world, data, requests, tok, device, card)
     for name in AGENT_CONFIGS:
         a = agents[name]
@@ -2588,7 +3139,10 @@ def main() -> int:
                 "back_translate": spk["decode"]["back_translate"]["launches"][name],
                 "self_train": {k: v[name] for k, v in spk["self_train"]["launches"].items()}},
             "beam_launches": beam["launches"][name], "vilbert_launches": vil["launches"][name],
+            "curriculum_data_launches": {k: v[name] for k, v in cdata["launches"].items()},
         }
+        if name in cdata["eval_train_b128"]:  # K3, K4, K6 on an EVAL_TRAIN batch of 128
+            entry["eval_train_b128"] = cdata["eval_train_b128"][name]
         if "checks" in r:  # the LSTM kernels: each output group, and the long lengths
             keys = ("lengths", "valid_steps", "checks", *TIME_KEYS, "device_split", "bound_ms",
                     "bound_by")

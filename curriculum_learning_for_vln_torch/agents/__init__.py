@@ -8,6 +8,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.glove import load_glove
 from ..world.compiler import PRECISIONS
 from .envdrop import EnvDropAgent
 from .follower import FollowerAgent
@@ -15,15 +16,20 @@ from .monitor import SelfMonitorAgent
 from .test_agent import TestAgent
 
 
-def build_agent(cfg, vocab_size: int, feat_dim: int = 2048):
+def build_agent(cfg, vocab_size: int, feat_dim: int = 2048, vocab=None):
     """The agent cfg.MODEL.NAME selects, computing in TPU.PRECISION's dtype
-    (the feature table's); EnvDrop with its TPU.OBS_MASKS."""
+    (the feature table's); EnvDrop with its TPU.OBS_MASKS; the Follower
+    with the frozen GloVe table of MODEL.FOLLOWER.GLOVE_PATH, if set
+    (``vocab``, the word list, aligns a text-format file; a ``.npy``
+    table is aligned already; agents/__init__.py:20-31)."""
     name = cfg.MODEL.NAME
     episode_len = cfg.AGENT.MAX_EPISODE_LEN
     dtype = PRECISIONS[cfg.TPU.PRECISION]
     if name == "FOLLOWER":
-        return FollowerAgent(cfg.MODEL.FOLLOWER, vocab_size, feat_dim, episode_len,
-                             compute_dtype=dtype)
+        m = cfg.MODEL.FOLLOWER
+        glove = load_glove(m.GLOVE_PATH, vocab, dim=m.WORD_EMB_SIZE) if m.GLOVE_PATH else None
+        return FollowerAgent(m, vocab_size, feat_dim, episode_len, compute_dtype=dtype,
+                             glove=glove)
     if name == "SELF-MONITOR":
         return SelfMonitorAgent(cfg.MODEL.MONITOR, cfg.DATA.MAX_ENC_LEN, vocab_size, feat_dim,
                                 episode_len, compute_dtype=dtype)

@@ -6,9 +6,24 @@ a Python loop over a fixed ``episode_len`` that calls a model-specific
 step function and does the rest itself — observation metadata, action
 selection, stop conversion, reward shaping and the per-step records
 (per-sample CE against the teacher and the progress monitor's prediction
-included).  Ended episodes are frozen
-by the env semantics and masked in the records; the early exit once
-every episode has ended is not ported yet.
+included).  Ended episodes are frozen by the env semantics and masked in
+the records.
+
+The early exit (``TPU.SCAN_EARLY_EXIT``, common.py:48-69, 244-271; off
+by default): the reference breaks its rollout loop once every episode
+has ended (ref: follower.py:168).  With the flag on, each step first
+asks the card whether any episode is alive (a device-to-host read, until
+the answer is no); after that every step is frozen: no model step runs,
+and the record is what a live step records for an all-ended batch (the
+node sticks, nothing moves, ce 0, the teacher IGNORE, the distance to
+the goal unchanged; the other fields 0, the action 0 as in the JAX
+package), so the records keep their length T and every loss and update
+is the flag-off one.  The model carry stays, so the Self-Monitor's BN
+statistics stop accumulating on dead steps, as the reference's do.  A
+frozen step makes the random draws of the last live step again and drops
+them (ops/draws.py), so the generator ends where the fixed-length loop
+leaves it.  ``set_early_exit`` sets the flag (engine/loop.py::
+configure_runtime, from the config).
 
 Sample feedback is Gumbel-max, argmax(logits + Gumbel noise), which is
 how ``jax.random.categorical`` is defined (common.py:135); the noise comes
@@ -16,6 +31,7 @@ from the rollout's generator through ``gumbel_noise``.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -25,6 +41,7 @@ from ..env import env as E
 from ..env.env import EnvState, EpisodeBatch
 from ..models.attention import NEG_INF
 from ..models.core import cross_entropy_per_sample
+from ..ops import draws
 from ..utils.angles import ANGLE_INC
 from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
@@ -34,6 +51,40 @@ FEEDBACK_ARGMAX = 1
 FEEDBACK_SAMPLE = 2
 
 FEEDBACK_IDS = {"teacher": FEEDBACK_TEACHER, "argmax": FEEDBACK_ARGMAX, "sample": FEEDBACK_SAMPLE}
+
+_EARLY_EXIT = False  # TPU.SCAN_EARLY_EXIT
+
+
+def set_early_exit(on: bool) -> None:
+    global _EARLY_EXIT
+    _EARLY_EXIT = bool(on)
+
+
+class EarlyExit:
+    """The early exit of one rollout loop: ``dead(ended)`` says whether
+    every episode has ended, asking the card until it has; ``live()``
+    records a live step's draws; ``skip()`` makes them again."""
+
+    def __init__(self):
+        self.on, self.is_dead, self.draws = _EARLY_EXIT, False, None
+
+    def dead(self, ended: torch.Tensor) -> bool:
+        # frozen steps need a live step's record first
+        if self.on and not self.is_dead and self.draws is not None:
+            self.is_dead = bool(ended.all())
+        return self.is_dead
+
+    @contextmanager
+    def live(self):
+        if not self.on:
+            yield
+            return
+        with draws.recording() as log:
+            yield
+        self.draws = log
+
+    def skip(self) -> None:
+        draws.replay(self.draws)
 
 
 class StepRecord(NamedTuple):
@@ -90,7 +141,7 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.T
     """Standard Gumbel noise -log(-log(u)), u ~ U[tiny, 1), as
     ``jax.random.gumbel`` draws it."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device).clamp_min(tiny)
+    u = draws.rand(shape, generator, device).clamp_min(tiny)
     return -torch.log(-torch.log(u))
 
 
@@ -143,11 +194,17 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
     state = state0 = E.reset(world, ep)
     mc = model_carry0
     records = []
+    exit_ = EarlyExit()
     for t in range(episode_len):
-        meta = E.observe_meta(world, state, compute_dtype)
-        logits, mc, hidden, progress = model_step(mc, meta, state, t)
-        masked = torch.where(meta.cand_mask, NEG_INF, logits)
-        action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
+        if exit_.dead(state.ended):
+            exit_.skip()
+            records.append(frozen_record(world, state, records[-1]))
+            continue
+        with exit_.live():
+            meta = E.observe_meta(world, state, compute_dtype)
+            logits, mc, hidden, progress = model_step(mc, meta, state, t)
+            masked = torch.where(meta.cand_mask, NEG_INF, logits)
+            action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
         ce = cross_entropy_per_sample(masked, meta.teacher, E.IGNORE_ID)
         if model_post is not None:
             mc = model_post(mc, meta, action)
@@ -177,6 +234,18 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
     steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
     return RolloutResult(final_state=state, start_node=state0.node, start_view=state0.view_idx,
                          steps=steps, model_carry=mc)
+
+
+def frozen_record(world: WorldTables, state: EnvState, like: StepRecord) -> StepRecord:
+    """The record of a step after every episode has ended (common.py:
+    250-268): zeros shaped as the live record ``like``, but the node and
+    view stick, the teacher is IGNORE and ``dist_after`` is the distance
+    to the goal now."""
+    dist_now = world.dist[state.node].gather(1, state.goal_local[:, None])[:, 0]
+    return StepRecord(*(torch.zeros_like(f) for f in like))._replace(
+        node_after=state.node, view_after=state.view_idx,
+        teacher=torch.full_like(state.node, E.IGNORE_ID),
+        dist_after=dist_now.to(like.dist_after.dtype))
 
 
 def ml_loss_mean_over_alive(steps: StepRecord) -> torch.Tensor:

@@ -9,12 +9,15 @@ ActionScoring, in teacher, argmax or sample feedback, with the CE-vs-
 teacher imitation loss.  ``a_t_prev`` is the chosen candidate's feature,
 taken from the carried candidate rows.  At train=True every dropout site
 draws its mask from the rollout's generator in the order the step runs
-them.  Frozen GloVe embeddings (``GLOVE_PATH``) are not ported.
+them.  With ``glove`` (a pretrained [vocab, WORD_EMB_SIZE] table,
+``MODEL.FOLLOWER.GLOVE_PATH``; follower.py:35-51, 78) the encoder's
+embedding is that table, frozen (models/encoder.py).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..env import env as E
@@ -36,16 +39,14 @@ class FollowerAgent:
     name = "FOLLOWER"
 
     def __init__(self, model_cfg, vocab_size: int, feat_dim: int, episode_len: int,
-                 compute_dtype: torch.dtype = torch.float32):
-        if model_cfg.GLOVE_PATH:
-            raise NotImplementedError("MODEL.FOLLOWER.GLOVE_PATH (frozen GloVe embeddings) is "
-                                      "not ported yet")
+                 compute_dtype: torch.dtype = torch.float32, glove: Optional[np.ndarray] = None):
         self.cfg = model_cfg
         self.vocab_size = vocab_size
         self.feature_size = feat_dim + 128
         self.action_emb_size = self.feature_size
         self.episode_len = episode_len
         self.compute_dtype = compute_dtype  # must equal the feature table's dtype
+        self.glove = glove  # optional frozen pretrained embeddings (ref: units.py:30-37)
 
     def init(self, generator: torch.Generator, device=None) -> Tuple[dict, dict]:
         """Seeded f32 parameters on ``device``, and the (empty) model state."""
@@ -53,7 +54,7 @@ class FollowerAgent:
             "encoder": encoder_init(
                 generator, self.vocab_size, self.cfg.WORD_EMB_SIZE, self.cfg.HIDDEN_SIZE,
                 padding_idx=PAD_IDX, bidirectional=self.cfg.ENC_BIDIRECTION,
-                num_layers=self.cfg.ENC_LAYERS, device=device),
+                num_layers=self.cfg.ENC_LAYERS, device=device, glove=self.glove),
             "decoder": D.follower_decoder_init(generator, self.cfg.HIDDEN_SIZE,
                                                self.action_emb_size, self.feature_size,
                                                device=device),
@@ -73,7 +74,7 @@ class FollowerAgent:
         drop = self.cfg.DROP_RATE
         ctx_mask = ep.instr_tokens == PAD_IDX
         ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train, drop,
-                                    generator)
+                                    generator, use_glove=self.glove is not None)
         B = ep.instr_tokens.shape[0]
         a_prev0 = torch.zeros((B, self.action_emb_size), dtype=self.compute_dtype,
                               device=ctx.device)

@@ -19,7 +19,10 @@ episodes:
 
 A deliberate deviation from the reference's fixed-batch iteration, kept
 from the JAX package: the shipped EnvDrop configs set ``TPU.PACKED_RL: 3``.
-The early exit of the JAX scan (``TPU.SCAN_EARLY_EXIT``) is not ported.
+With the early exit on (``TPU.SCAN_EARLY_EXIT``, packed.py:145-161), once
+the pool is spent and every slot has ended, the steps left are frozen as
+in ``common.rollout_scan``: no model step, the record zeros but the slots'
+episodes, the carry kept, the last live step's draws made and dropped.
 """
 from __future__ import annotations
 
@@ -92,12 +95,19 @@ def packed_rollout_scan(world: WorldTables, pool: EpisodeBatch, ctx_pool: torch.
     mc = (h0_pool[:B], c0_pool[:B], h0_pool[:B])  # h_tilde starts at h (ref: envdrop.py:150)
     next_ptr = torch.tensor(B, device=ctx_pool.device)
     records = []
+    exit_ = C.EarlyExit()
     for _ in range(episode_len):
-        meta = E.observe_meta(world, state, compute_dtype)
-        logits, mc2, h1 = decode(mc, ctx_pool[ids], ctx_mask_pool[ids], meta, state)
-        masked = torch.where(meta.cand_mask, NEG_INF, logits)
-        action, log_prob, entropy = C.select_action(C.FEEDBACK_SAMPLE, masked, meta.teacher,
-                                                    generator)
+        if exit_.dead(state.ended):
+            exit_.skip()
+            records.append(PackedStep(*(torch.zeros_like(f) for f in records[-1]))._replace(
+                slot_ep=ids))
+            continue
+        with exit_.live():
+            meta = E.observe_meta(world, state, compute_dtype)
+            logits, mc2, h1 = decode(mc, ctx_pool[ids], ctx_mask_pool[ids], meta, state)
+            masked = torch.where(meta.cand_mask, NEG_INF, logits)
+            action, log_prob, entropy = C.select_action(C.FEEDBACK_SAMPLE, masked, meta.teacher,
+                                                        generator)
         alive_before = torch.logical_not(state.ended)
         is_stop = E.action_is_stop(world, state, action)
         new_state = E.step(world, state, action)

@@ -1,4 +1,4 @@
-"""R2R / CLR2R dataset loading and instruction expansion.
+"""R2R / CLR2R / RxR / R4R dataset loading and instruction expansion.
 
 A copy of the parts of ``curriculum_learning_for_vln_tpu/data/datasets.py``
 that the port runs (numpy only), kept in the port so that it imports
@@ -8,19 +8,24 @@ nothing of the JAX package:
   concatenates splits (ref: tasks/R2R-judy/src/utils/misc.py:63-69).
 * ``expand_r2r_items`` splits each path item into one entry per
   instruction with ``instr_id = "<path_id>_<j>"`` and pre-encoded tokens
-  (ref: src/environ/common_env.py:130-141).
+  (ref: src/environ/common_env.py:130-141); ``expand_rxr_items`` keeps
+  RxR's one instruction per item, keyed by its ``instruction_id`` (ref:
+  common_env.py:384-394).
 * CLR2R round splits are named ``train_round[<k>]_v3`` (k = 1..5), a
   partition of the R2R train set by curriculum difficulty
   (ref: src/environ/curriculum_env.py:44-62); ``load_clr2r_rounds`` reads
   all five, expanded, keyed "round_<k>".
-
-The RxR and R4R loaders are not ported yet.
+* ``make_r4r_items`` builds R4R (Jain et al. '19) from R2R path items by
+  joining pairs end to start, its joins drawn from
+  ``np.random.default_rng(seed)`` as the JAX package draws them.
 """
 from __future__ import annotations
 
 import json
 import os
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ..utils.tokenizer import Tokenizer
 
@@ -62,6 +67,29 @@ def expand_r2r_items(
     return out
 
 
+def expand_rxr_items(
+    items: Sequence[dict],
+    tokenizer: Tokenizer,
+    allowed_scans: Optional[set] = None,
+) -> List[dict]:
+    """RxR-en: one instruction per item (ref: common_env.py:384-394)."""
+    out: List[dict] = []
+    for item in items:
+        if allowed_scans is not None and item["scan"] not in allowed_scans:
+            continue
+        new_item = dict(item)
+        new_item.pop("instruction", None)
+        new_item.pop("instruction_id", None)
+        new_item["instructions"] = item["instruction"]
+        new_item["instr_id"] = item["instruction_id"]
+        enc = tokenizer.encode_sentence(item["instruction"])
+        if enc is None:
+            continue
+        new_item["instr_encoding"], new_item["instr_length"] = enc
+        out.append(new_item)
+    return out
+
+
 def load_clr2r_rounds(
     tokenizer: Tokenizer,
     data_dir: str,
@@ -73,3 +101,54 @@ def load_clr2r_rounds(
         items = load_datasets([clr2r_split_name(k)], dataset="CLR2R", data_dir=data_dir)
         rounds[f"round_{k}"] = expand_r2r_items(items, tokenizer, allowed_scans)
     return rounds
+
+
+def dataset_scans(items: Sequence[dict]) -> List[str]:
+    return sorted({item["scan"] for item in items})
+
+
+def make_r4r_items(
+    items: Sequence[dict],
+    max_joins_per_anchor: int = 1,
+    seed: int = 0,
+) -> List[dict]:
+    """R4R construction (Jain et al. '19, "Stay on the Path"): join R2R
+    path pairs where the second path starts at the first path's goal,
+    concatenating paths and instructions.  The joined routes are not
+    shortest paths, which is what makes the fidelity metrics (CLS, nDTW,
+    SDTW) discriminative.
+
+    As in the JAX package (the evaluator wants exactly 3 instructions a
+    path, evaluator.py:35): instruction k of the first path joins
+    instruction k of the second, and ``max_joins_per_anchor`` caps the
+    continuations of each anchor path, chosen without replacement from
+    ``np.random.default_rng(seed)`` in the anchors' order.
+
+    Joined item: path = a.path + b.path[1:], distance = a + b, heading =
+    a.heading, path_id = "<a.path_id>j<b.path_id>".
+    """
+    rng = np.random.default_rng(seed)
+    by_start: Dict[tuple, List[dict]] = {}
+    for it in items:
+        by_start.setdefault((it["scan"], it["path"][0]), []).append(it)
+
+    out: List[dict] = []
+    for a in items:
+        tails = [b for b in by_start.get((a["scan"], a["path"][-1]), [])
+                 if b["path_id"] != a["path_id"]]
+        if not tails:
+            continue
+        if len(tails) > max_joins_per_anchor:
+            idx = rng.choice(len(tails), size=max_joins_per_anchor, replace=False)
+            tails = [tails[int(i)] for i in sorted(idx)]
+        for b in tails:
+            out.append({
+                "scan": a["scan"],
+                "path_id": f"{a['path_id']}j{b['path_id']}",
+                "path": list(a["path"]) + list(b["path"])[1:],
+                "heading": a["heading"],
+                "distance": float(a["distance"]) + float(b["distance"]),
+                "instructions": [f"{x.strip()} {y.strip()}"
+                                 for x, y in zip(a["instructions"], b["instructions"])],
+            })
+    return out

@@ -116,11 +116,11 @@ class SelfPacedCurriculum(ClassicTrainer):
                    burn_in=sp.BURN_IN, device=device)
 
     def train(self, cfg, agent, tsboard_dir, train_env, valid_env, seed: int = 2020,
-              device=None):
+              device=None, **kwargs):
         # a run starts from an empty loss record (or the checkpoint's)
         self.loss_for_item = torch.zeros(self.dim, device=self.device)
         return super().train(cfg, agent, tsboard_dir, train_env, valid_env, seed=seed,
-                             device=device)
+                             device=device, **kwargs)
 
     # -- hooks ------------------------------------------------------------
     def _rows(self, idx: np.ndarray) -> torch.Tensor:

@@ -21,7 +21,8 @@ rl_loss_per_episode).
 optax's form, then Adam) and, unclipped, the ViLBERT pretrainer's.
 Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
-ported.
+ported.  ``configure_runtime`` sets the rollout's early exit from the
+config, as the trainers' first step (loop.py:26-72).
 """
 from __future__ import annotations
 
@@ -30,10 +31,17 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..agents.common import (FEEDBACK_ARGMAX, FEEDBACK_IDS, FEEDBACK_SAMPLE, FEEDBACK_TEACHER,
-                             assemble_trajectories)
+                             assemble_trajectories, set_early_exit)
 from ..env.env import EpisodeBatch
 from ..utils.tree import tree_leaves
 from ..world.compiler import WorldTables
+
+
+def configure_runtime(cfg) -> None:
+    """The runtime knobs of cfg.TPU the port reads: ``SCAN_EARLY_EXIT``, set
+    whatever its value, so that a second run in one process does not keep
+    an earlier run's (loop.py:56-59)."""
+    set_early_exit(bool(cfg.TPU.SCAN_EARLY_EXIT))
 
 
 class RMSprop(torch.optim.Optimizer):

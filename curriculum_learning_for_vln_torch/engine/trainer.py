@@ -9,7 +9,11 @@ logging, and ``OUTPUT.RESUME``.  Checkpoints hold the optimizer and
 generator state too, and the curriculum state of a curriculum trainer.
 With ``TPU.PACKED_RL`` >= 2 (the shipped EnvDrop configs set 3) each
 iteration draws that many batches: IL on the first, the packed A2C
-rollout over all of them (trainer.py:204-216, 279-298).
+rollout over all of them (trainer.py:204-216, 279-298).  With
+``eval_train`` the per-round train splits of ``eval_train_env`` are
+evaluated (as CLR2R, over one item a path) before the validation splits
+every EVAL_INTERVAL epochs, their scores logged as ``eval_<round>/<metric>``
+and never checkpointed (trainer.py:245-250, 358-370).
 
 The Follower and the Self-Monitor train by ``engine.loop.agent_one_iter``
 (no clip), their model state (the Self-Monitor's BN statistics) carried
@@ -17,12 +21,14 @@ through the epochs, the evaluations and the checkpoints.
 ``check_the_code`` is the teacher-following sanity check (trainer.py:
 108-118).
 
-The curriculum trainers (engine/curriculum.py) are this trainer with its
-hooks overridden: ``select_env`` / ``iter_env`` choose the episode source,
-``batch_weights`` / ``record_losses`` / ``end_epoch`` carry SPCL's
-per-item weights, loss record and update, ``curriculum_state`` /
-``load_curriculum_state`` its checkpoint entry.  One device, eager: no
-mesh, no ``SCAN_ITERS`` and no compile warm-up.
+The curriculum trainers (engine/curriculum.py, engine/auto_curriculum.py)
+are this trainer with its hooks overridden: ``select_env`` / ``iter_env``
+choose the episode source, ``on_epoch_losses`` takes the epoch's
+per-iteration losses in draw order (Exp3.S's rewards), ``batch_weights`` /
+``record_losses`` / ``end_epoch`` carry SPCL's per-item weights, loss
+record and update, ``curriculum_state`` / ``load_curriculum_state`` the
+checkpoint entry.  One device, eager: no mesh, no ``SCAN_ITERS`` and no
+compile warm-up.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ from ..world.compiler import resolve_device
 from .checkpoint import load_checkpoint, restore_training_state, save_checkpoint
 from .evaluator import Evaluation
 from .loop import (agent_one_iter, build_eval_rollout, check_pool_valid, concat_batches,
-                   make_optimizer, one_iter, packed_one_iter, run_eval)
+                   configure_runtime, make_optimizer, one_iter, packed_one_iter, run_eval)
 
 logger = logging.getLogger("main.train")
 
@@ -117,6 +123,9 @@ class ClassicTrainer:
         """Which episode source to use this iteration; the epoch's."""
         return epoch_env
 
+    def on_epoch_losses(self, losses) -> None:
+        """The epoch's per-iteration losses on the host, in draw order."""
+
     def supports_packed_rl(self) -> bool:
         """Whether TPU.PACKED_RL may replace this trainer's iteration."""
         return True
@@ -140,11 +149,14 @@ class ClassicTrainer:
         """After the epoch's evaluation, before its latest checkpoint."""
 
     def train(self, cfg, agent, tsboard_dir, train_env, valid_env, seed: int = 2020,
-              device=None):
+              device=None, eval_train: bool = False, eval_train_env: Optional[dict] = None):
         """Train for TRAIN.MAX_EPOCH epochs on ``device`` (default CUDA).
         Returns (params, best_val)."""
         device = resolve_device(device)
+        configure_runtime(cfg)
         first_env = self.select_env(train_env, cfg.TRAIN.START_EPOCH)
+        if isinstance(first_env, dict):  # a per-iteration curriculum keeps the round dict
+            first_env = next(iter(first_env.values()))
         tables = first_env.world.device_tables(cfg.TPU.PRECISION, device)
         train_cfg = cfg.TRAIN
 
@@ -180,6 +192,13 @@ class ClassicTrainer:
         valid_evaluator = {key: Evaluation(env.world, dedup_by_path(env.data))
                            for key, env in valid_env.items()}
         best_val = {key: {"success_rate": 0.0} for key in valid_env}
+        train_evaluator = None
+        if eval_train:
+            if eval_train_env is None:
+                raise ValueError("eval_train needs eval_train_env")
+            train_evaluator = {key: Evaluation(env.world, dedup_by_path(env.data),
+                                               data_name="CLR2R")
+                               for key, env in eval_train_env.items()}
         output_ckpt_dir = osp.join(ckpt_root, time_str)
         os.makedirs(output_ckpt_dir, exist_ok=True)
         logger.info("Checkpoints at %s", output_ckpt_dir)
@@ -228,6 +247,7 @@ class ClassicTrainer:
                 log_entries.append(logs)
             host = {k: torch.stack([e[k] for e in log_entries]).cpu() for k in log_keys}
             epoch_losses = [float(x) for x in host["loss"]]
+            self.on_epoch_losses(epoch_losses)
             epoch_loss = sum(epoch_losses)
             avg_iter = epoch_loss / len(epoch_losses)
             writer.add_scalar("train/ml_epoch", epoch_loss, ep)
@@ -256,6 +276,15 @@ class ClassicTrainer:
                 msg += f", packed RL: {done} episodes done of {started} started"
             print(msg)
             logger.info(msg)
+
+            if ep % train_cfg.EVAL_INTERVAL == 0 and train_evaluator:
+                summary = {}
+                for key, env in eval_train_env.items():
+                    results = run_eval(agent, params, tables, env, eval_rollout, model_state)
+                    summary[key], _ = train_evaluator[key].score(results)
+                    for mk in METRIC_KEYS:
+                        writer.add_scalar(f"eval_{key}/{mk}", summary[key][mk], ep)
+                prettyprint(summary)
 
             if ep % train_cfg.EVAL_INTERVAL == 0:
                 summary = {}

@@ -11,13 +11,19 @@ dimension and static shapes (candidates padded to MC slots + 1 STOP slot):
 ``observe_meta`` is the non-feature part of ``observe``; the rollout uses
 it with the fused observation kernels (ops/fused_obs.py), which read the
 feature rows themselves, and ``observe_feats`` the feature part, which
-the unfused decode of back-translation reads.  The teacher is the reference's goal-directed
-shortest-path teacher; the JAX package's gt-route waypoint teacher (R4R)
-is not ported yet.  Semantics parity notes are keyed to reference lines.
+the unfused decode of back-translation reads.
+
+The teacher steers toward ``_teacher_target``: with one waypoint (P = 1,
+the goal; what ``teacher_mode="goal"`` packs) the reference's goal-
+directed shortest-path teacher, and with the full gt route (``"path"``,
+R4R's fidelity supervision, Jain et al. '19; env.py:115-160) the next
+waypoint after ``path_ptr``, which ``step`` advances.  An ``EpisodeBatch``
+built without a route gets the goal as its one waypoint.  Semantics
+parity notes are keyed to reference lines.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,9 +33,7 @@ from ..world.compiler import WorldTables
 IGNORE_ID = -1  # matches BasicR2RAgent.ignore_id (ref: base.py:92)
 
 
-class EpisodeBatch(NamedTuple):
-    """Static-shape episode specs (one minibatch), on the device."""
-
+class _EpisodeFields(NamedTuple):
     instr_tokens: torch.Tensor    # [B, L] i64
     instr_len: torch.Tensor       # [B] i64
     start_node: torch.Tensor      # [B] i64 global node id
@@ -38,6 +42,24 @@ class EpisodeBatch(NamedTuple):
     goal_local: torch.Tensor      # [B] i64 scan-local goal index
     item_idx: torch.Tensor        # [B] i64 dataset index
     valid: torch.Tensor           # [B] bool (False = padding slot)
+    # the teacher's waypoints: the gt route's scan-local ids padded with
+    # the goal, P = 1 for the goal-directed teacher (env.py:41-58)
+    path_local: torch.Tensor      # [B, P] i64
+    path_len: torch.Tensor        # [B] i64
+
+
+class EpisodeBatch(_EpisodeFields):
+    """Static-shape episode specs (one minibatch), on the device.  Without
+    ``path_local`` / ``path_len`` the goal is the one waypoint."""
+
+    __slots__ = ()
+
+    def __new__(cls, instr_tokens, instr_len, start_node, start_heading, goal, goal_local,
+                item_idx, valid, path_local=None, path_len=None):
+        if path_local is None:
+            path_local, path_len = goal_local[:, None], torch.ones_like(goal_local)
+        return super().__new__(cls, instr_tokens, instr_len, start_node, start_heading, goal,
+                               goal_local, item_idx, valid, path_local, path_len)
 
 
 class EnvState(NamedTuple):
@@ -48,6 +70,9 @@ class EnvState(NamedTuple):
     goal: torch.Tensor        # [B] i64
     goal_local: torch.Tensor  # [B] i64
     ended: torch.Tensor       # [B] bool
+    path_local: Optional[torch.Tensor] = None  # [B, P] i64 (see EpisodeBatch)
+    path_len: Optional[torch.Tensor] = None    # [B] i64
+    path_ptr: Optional[torch.Tensor] = None    # [B] i64 index of the last reached waypoint
 
 
 class ObsMeta(NamedTuple):
@@ -86,7 +111,37 @@ def reset(world: WorldTables, ep: EpisodeBatch) -> EnvState:
         goal=ep.goal,
         goal_local=ep.goal_local,
         ended=torch.logical_not(ep.valid),  # padding slots are born ended
+        path_local=ep.path_local,
+        path_len=ep.path_len,
+        path_ptr=torch.zeros_like(ep.goal_local),  # episodes start at path[0]
     )
+
+
+def _teacher_target(state: EnvState) -> torch.Tensor:
+    """The scan-local node the teacher steers toward (env.py:115-136): the
+    next gt-route waypoint after ``path_ptr`` (off the route, the shortest
+    path back to it is the recovery), or with no route or P = 1 the goal:
+    the reference's shortest-path-to-goal teacher (base.py:159-178)."""
+    if state.path_local is None or state.path_ptr is None or state.path_local.shape[1] == 1:
+        return state.goal_local
+    tidx = torch.minimum(state.path_ptr + 1, state.path_len - 1)
+    return _pick(state.path_local, tidx)
+
+
+def _advance_path_ptr(world: WorldTables, state: EnvState,
+                      new_node: torch.Tensor) -> torch.Tensor:
+    """The waypoint pointer moved to the first route position beyond it
+    that the agent has just landed on (env.py:139-154): a teacher-follower
+    advances one, a policy that rejoins the route further on skips there,
+    and loops in the route survive, since positions at or before the
+    pointer never match."""
+    path, ptr = state.path_local, state.path_ptr
+    P = path.shape[1]
+    jidx = torch.arange(P, device=path.device)[None, :]
+    hit = ((path == world.node_local[new_node][:, None]) & (jidx > ptr[:, None])
+           & (jidx < state.path_len[:, None]))
+    first = torch.where(hit, jidx, P).min(dim=1).values
+    return torch.where(first < P, first, ptr)
 
 
 def observe_meta(world: WorldTables, state: EnvState,
@@ -106,7 +161,7 @@ def observe_meta(world: WorldTables, state: EnvState,
     MC = c_view.shape[1]
     slot = torch.arange(MC + 1, device=node.device)[None, :]
     cand_mask = slot > n[:, None]
-    teacher_next = _pick(world.next_hop[node], state.goal_local)
+    teacher_next = _pick(world.next_hop[node], _teacher_target(state))
     match = (c_next == teacher_next[:, None]) & c_valid
     # first matching slot (0 when none), as jnp.argmax over a bool row
     teacher_move = match.to(torch.int8).argmax(dim=1)
@@ -173,17 +228,22 @@ def step(world: WorldTables, state: EnvState, action: torch.Tensor) -> EnvState:
     next_view = _pick(world.cand_view[node], a)
 
     move = torch.logical_not(is_stop)
+    new_node = torch.where(move, next_node, node)
     new_view = torch.where(move, next_view, state.view_idx)
     new_heading = (new_view % 12).float() * ANGLE_INC
     new_elev = (new_view // 12 - 1).float() * ANGLE_INC
+    route = state.path_ptr is not None and state.path_local.shape[1] > 1
     return EnvState(
-        node=torch.where(move, next_node, node),
+        node=new_node,
         view_idx=new_view,
         heading=torch.where(move, new_heading, state.heading),
         elevation=torch.where(move, new_elev, state.elevation),
         goal=state.goal,
         goal_local=state.goal_local,
         ended=state.ended | is_stop,
+        path_local=state.path_local,
+        path_len=state.path_len,
+        path_ptr=_advance_path_ptr(world, state, new_node) if route else state.path_ptr,
     )
 
 

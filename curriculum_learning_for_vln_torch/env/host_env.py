@@ -15,14 +15,17 @@ Kept from the JAX package, number for number:
 * exact-coverage evaluation batches, the tail padded with ``valid=False``
   slots (evaluator.py:124-126 asserts coverage);
 * ``cur_batch_max_hops``, the IL episode-length bucketing key;
+* the teacher's waypoint table (host_env.py:100-116): ``teacher_mode``
+  "goal" packs the goal alone (P = 1, the reference's goal-directed
+  teacher), "path" the full gt route, P the longest route of the data,
+  each row padded with the goal (env/env.py::_teacher_target);
 * the CLR2R curriculum bookkeeping: the rounds concatenated in order,
   difficulty ``a`` (the round of each item), capacity ``c = sum(a) *
   c_rate`` and the item -> global index map of the SPCL solver.
 
 ``inject_batch`` (host_env.py:236-253) rebuilds the current batch with
-instructions the speaker generated (back-translation).  Not ported yet:
-the gt-route ("path") teacher tables, the mesh sharding hooks and
-``restart``.
+instructions the speaker generated (back-translation).  Not ported: the
+mesh sharding hooks and ``restart``.
 """
 from __future__ import annotations
 
@@ -42,13 +45,12 @@ class R2RBatchEnv:
     def __init__(self, world: CompiledWorld, data: Sequence[dict], batch_size: int,
                  tokenizer: Optional[Tokenizer] = None, seed: int = 0, name: str = "train",
                  sort_by_length: bool = True, teacher_mode: str = "goal", device=None):
-        if teacher_mode != "goal":
-            raise NotImplementedError(f"teacher_mode {teacher_mode!r} is not ported yet")
         self.world = world
         self.data: List[dict] = list(data)
         self.batch_size = batch_size
         self.tok = tokenizer
         self.name = name
+        self.teacher_mode = teacher_mode
         self.sort_by_length = sort_by_length
         self.device = resolve_device(device)
         self._rng = np.random.default_rng(seed)
@@ -75,13 +77,27 @@ class R2RBatchEnv:
             self.goal_local[i] = world.node_local[goal]
             self.start_heading[i] = item["heading"]
 
+        if teacher_mode == "path":
+            P = max(len(item["path"]) for item in self.data)
+        elif teacher_mode == "goal":
+            P = 1
+        else:
+            raise ValueError(f"teacher_mode: {teacher_mode!r}")
+        self.path_local = np.tile(self.goal_local[:, None], (1, P))
+        self.path_len = np.ones(n, dtype=np.int64)
+        if teacher_mode == "path":
+            for i, item in enumerate(self.data):
+                ids = [world.node_local[world.global_id(item["scan"], vp)] for vp in item["path"]]
+                self.path_local[i, :len(ids)] = ids
+                self.path_len[i] = len(ids)
+
         self._order = self._rng.permutation(n)
         self.ix = 0
         self._cur_indices: Optional[np.ndarray] = None
         self._cur_valid: Optional[np.ndarray] = None
         self._dev = {k: torch.from_numpy(getattr(self, k)).to(self.device)
                      for k in ("instr_tokens", "instr_len", "start_node", "start_heading",
-                               "goal", "goal_local")}
+                               "goal", "goal_local", "path_local", "path_len")}
 
     # -- core iteration ---------------------------------------------------
     def size(self) -> int:

@@ -7,11 +7,18 @@
 
 Config = defaults <- YAML file <- dotted-path overrides.  Runs on CUDA
 unless ``--device`` names another device, and raises without a GPU.  It
-trains the agent ``MODEL.NAME`` names (ENVDROP, FOLLOWER or SELF-MONITOR)
-on R2R or CLR2R (real or ``TPU.SYNTHETIC_WORLD``) with the trainer
+trains the agent ``MODEL.NAME`` names (ENVDROP, FOLLOWER or SELF-MONITOR;
+the Follower with frozen GloVe embeddings from
+``MODEL.FOLLOWER.GLOVE_PATH``) on ``DATA.NAME`` R2R, CLR2R, R4R (real or
+``TPU.SYNTHETIC_WORLD``), RxR or Mixed (real data), with the teacher
+``AGENT.TEACHER`` names (goal, or path: the gt route) and the trainer
 ``TRAIN.CLMODE`` names for CLR2R (main.py:102-124): the classic one,
-``NaiveCurriculum`` (NAIVE) or ``SelfPacedCurriculum`` (SELF-PACE), with
-EnvDrop's packed RL where ``TPU.PACKED_RL`` >= 2; or, with
+``NaiveCurriculum`` (NAIVE), ``AutoCurriculum`` (AUTO, the Exp3.S bandit
+over the rounds) or ``SelfPacedCurriculum`` (SELF-PACE), with EnvDrop's
+packed RL where ``TPU.PACKED_RL`` >= 2 and the trainer allows it, the
+rollouts' early exit with ``TPU.SCAN_EARLY_EXIT``, and with
+``TRAIN.EVAL_TRAIN`` on real data an evaluation of each CLR2R round's
+train split (main.py:127-138); or, with
 ``--check-the-code``, runs the teacher-following sanity check on
 val_unseen and exits; or, with ``--self-train`` (EnvDrop only), the
 back-translation stage (main.py:78-98): a speaker of ``AIDE.SPEAKER`` in
@@ -21,11 +28,8 @@ for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations; or, with
 ``--beam N`` (main.py:67-76), beam-search inference with speaker
 rescoring over the validation splits (``engine.beam_eval``; the agent
 from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  Not ported
-yet, and refused: the AUTO (Exp3.S) curriculum, the per-round
-train-split evaluation (``TRAIN.EVAL_TRAIN``), the rollout early exit
-(``TPU.SCAN_EARLY_EXIT``), the hand-written BPTT (``TPU.FUSED_BPTT``),
-frozen GloVe embeddings (``MODEL.FOLLOWER.GLOVE_PATH``) and the other
-agents.
+yet, and refused: the hand-written BPTT (``TPU.FUSED_BPTT``) and the
+other agents.
 """
 from __future__ import annotations
 
@@ -39,10 +43,13 @@ import numpy as np
 from . import pipeline
 from .agents import build_agent
 from .agents.speaker import Speaker
+from .data import datasets as DS
+from .engine.auto_curriculum import AutoCurriculum
 from .engine.beam_eval import run_beam_eval
 from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
 from .engine.self_train import self_train
 from .engine.trainer import ClassicTrainer, check_the_code
+from .env.host_env import R2RBatchEnv
 from .utils import logging_utils
 from .utils.config import get_cfg_defaults
 from .world.compiler import PRECISIONS, resolve_device
@@ -58,29 +65,42 @@ def check_ported(args, cfg) -> None:
     if cfg.MODEL.NAME not in PORTED_AGENTS:
         raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet "
                                   f"({', '.join(PORTED_AGENTS)})")
-    if cfg.MODEL.NAME == "FOLLOWER" and cfg.MODEL.FOLLOWER.GLOVE_PATH:
-        raise NotImplementedError("MODEL.FOLLOWER.GLOVE_PATH (frozen GloVe embeddings) is not "
+    pipeline.curriculum_mode(cfg)  # raises on an unknown mode
+    if cfg.TPU.FUSED_BPTT:
+        raise NotImplementedError("TPU.FUSED_BPTT (the hand-written rollout BPTT) is not "
                                   "ported yet")
-    pipeline.curriculum_mode(cfg)  # raises on AUTO
-    for on, name in ((cfg.TRAIN.EVAL_TRAIN, "TRAIN.EVAL_TRAIN (the per-round train-split "
-                                            "evaluation)"),
-                     (cfg.TPU.SCAN_EARLY_EXIT, "TPU.SCAN_EARLY_EXIT (the rollout early exit)"),
-                     (cfg.TPU.FUSED_BPTT, "TPU.FUSED_BPTT (the hand-written rollout BPTT)")):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
 
 
-def build_trainer(cfg, train_env, logger):
-    """The trainer TRAIN.CLMODE names for CLR2R (main.py:102-124)."""
+def build_trainer(cfg, train_env, logger, seed: int = 2020):
+    """The trainer TRAIN.CLMODE names for CLR2R (main.py:102-124); AUTO's
+    bandit draws from ``seed``."""
     mode = pipeline.curriculum_mode(cfg)
     if mode == "NAIVE":
         logger.info("Using NaiveCurriculum trainer")
         return NaiveCurriculum()
+    if mode == "AUTO":
+        logger.info("Using AutoCurriculum (Exp3.S) trainer")
+        return AutoCurriculum.from_config(cfg, seed=seed)
     if mode == "SELF-PACE":
         logger.info("Using SelfPacedCurriculum trainer")
         return SelfPacedCurriculum.from_config(cfg, train_env)
     logger.info("Using Classic trainer")
     return ClassicTrainer()
+
+
+def eval_train_envs(cfg, tok, world, seed: int, device=None) -> dict:
+    """TRAIN.EVAL_TRAIN's episode sources (main.py:127-138): each CLR2R
+    round's train split (from DATA.DATA_DIR for CLR2R, else
+    assets/CLR2Rv3) over the world's scans, batches of 2 x BATCH_SIZE,
+    seeded ``seed + 100 + k``."""
+    clr_dir = cfg.DATA.DATA_DIR if cfg.DATA.NAME == "CLR2R" else "assets/CLR2Rv3"
+    envs = {}
+    for k in range(1, DS.CLR2R_ROUNDS + 1):
+        items = DS.load_datasets([DS.clr2r_split_name(k)], "CLR2R", clr_dir)
+        envs[f"round_{k}"] = R2RBatchEnv(
+            world, DS.expand_r2r_items(items, tok, set(world.scan_ids)),
+            cfg.TRAIN.BATCH_SIZE * 2, tok, seed + 100 + k, "train", device=device)
+    return envs
 
 
 def main(args, cfg) -> None:
@@ -107,7 +127,7 @@ def main(args, cfg) -> None:
         return
 
     if args.beam > 0:  # beam search with speaker rescoring (main.py:67-76)
-        agent = build_agent(cfg, tok.vocab_size(), feat_dim)
+        agent = build_agent(cfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
         run_beam_eval(cfg, agent, world, valid_env, tok, beam_size=args.beam, seed=args.seed,
                       device=device)
         logger.info("[4] Beam-search evaluation finished")
@@ -115,7 +135,7 @@ def main(args, cfg) -> None:
 
     if args.self_train:
         # the speaker-augmented back-translation stage (main.py:78-98)
-        agent = build_agent(cfg, tok.vocab_size(), feat_dim)
+        agent = build_agent(cfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
         speaker = Speaker(cfg.AIDE.SPEAKER, tok.vocab_size(), feat_dim=feat_dim,
                           episode_len=cfg.AGENT.MAX_EPISODE_LEN,
                           compute_dtype=PRECISIONS[cfg.TPU.PRECISION])
@@ -126,11 +146,14 @@ def main(args, cfg) -> None:
         logger.info("[4] Self-training finished")
         return
 
-    agent = build_agent(cfg, tok.vocab_size(), feat_dim)
+    agent = build_agent(cfg, tok.vocab_size(), feat_dim, vocab=tok.vocab)
     try:
-        trainer = build_trainer(cfg, train_env, logger)
+        trainer = build_trainer(cfg, train_env, logger, seed=args.seed)
+        eval_env = None
+        if cfg.TRAIN.EVAL_TRAIN and not cfg.TPU.SYNTHETIC_WORLD:
+            eval_env = eval_train_envs(cfg, tok, world, args.seed, device)
         trainer.train(cfg, agent, cfg.OUTPUT.TSBOARD_DIR, train_env, valid_env, seed=args.seed,
-                      device=device)
+                      device=device, eval_train=eval_env is not None, eval_train_env=eval_env)
     except Exception:
         s = traceback.format_exc()
         print(s)

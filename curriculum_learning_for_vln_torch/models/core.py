@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops import draws
 from ..ops import rnn as rnn_ops
 
 
@@ -81,7 +82,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     masks (core.py:61-88) are a TPU-only stream and have no counterpart."""
     if not train or rate == 0.0:
         return x
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    mask = draws.rand(x.shape, generator, x.device) < 1.0 - rate
     return apply_keep_mask(x, mask, rate)
 
 
@@ -91,7 +92,7 @@ def dropout_mask(shape, rate: float, generator: Optional[torch.Generator] = None
     probability in f32 (EnvDrop's shared feature-noise mask; core.py:104-109,
     ref: envdrop.py:106)."""
     keep = 1.0 - rate
-    return (torch.rand(shape, generator=generator, device=device) < keep).float() / keep
+    return (draws.rand(shape, generator, device) < keep).float() / keep
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import philox
+from .. import draws, philox
 from .build import acc_dtype
 
 MODE_CODES = {"none": 0, "ext": 1, "prng": 2, "prng_shared": 3}
@@ -47,7 +47,7 @@ def draw_keep_mask(shape, keep: float, generator: Optional[torch.Generator],
                    device) -> torch.Tensor:
     """A fresh ext keep-mask of ``shape``: each element kept with
     probability ``keep``, drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < keep
+    return draws.rand(shape, generator, device) < keep
 
 
 def keep_mask(drop: DropSpec, shape) -> Optional[torch.Tensor]:

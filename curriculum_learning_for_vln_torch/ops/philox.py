@@ -21,6 +21,8 @@ from typing import Tuple
 
 import torch
 
+from . import draws
+
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
@@ -95,5 +97,4 @@ def group_seeds(seeds: torch.Tensor) -> torch.Tensor:
 
 def draw_seeds(batch: int, generator: torch.Generator, device) -> torch.Tensor:
     """Per-sample 64-bit seeds [batch] (int64) from ``generator``."""
-    return torch.randint(-2 ** 63, 2 ** 63 - 1, (batch,), dtype=torch.int64,
-                         generator=generator, device=device)
+    return draws.randint(-2 ** 63, 2 ** 63 - 1, (batch,), generator, device)

@@ -1,12 +1,15 @@
 """End-to-end data pipeline assembly: config -> world, tokenizer, envs.
 
-The port of ``curriculum_learning_for_vln_tpu/pipeline.py`` for
-``DATA.NAME`` R2R and CLR2R (ref: tasks/R2R-judy/main.py:15-87): vocab
-bootstrap, tokenizer, world compilation and the train / val_seen /
-val_unseen episode sources — for CLR2R under ``TRAIN.CLMODE`` NAIVE the
-five cumulative round envs ``round_1..round_5`` (each an ``R2RBatchEnv``
-seeded ``seed + k``), under SELF-PACE one ``CLR2RBatchEnv`` — from two
-world sources:
+The port of ``curriculum_learning_for_vln_tpu/pipeline.py`` (ref:
+tasks/R2R-judy/main.py:15-87): vocab bootstrap, tokenizer, world
+compilation and the train / val_seen / val_unseen episode sources of
+``DATA.NAME`` R2R, CLR2R, R4R (joined R2R paths, ``make_r4r_items``), RxR
+and Mixed (R2R + RxR training, four validation envs; real data only) —
+for CLR2R under ``TRAIN.CLMODE`` NAIVE the five cumulative round envs
+``round_1..round_5``, under AUTO the five individual rounds (Exp3.S's
+arms; each an ``R2RBatchEnv`` seeded ``seed + k``), under SELF-PACE one
+``CLR2RBatchEnv``; every env but Mixed's with ``AGENT.TEACHER``'s teacher
+— from two world sources:
 
 * real: connectivity JSONs (``DATA.CONNECTIVITY_DIR``) + the ResNet
   feature TSV (``DATA.IMG_FEAT_DIR``), with the on-disk compiled-world
@@ -15,8 +18,6 @@ world sources:
   features, so the whole stack runs with no external assets.
 
 The same seeds give the JAX package's worlds, splits and batch orders.
-The RxR, R4R and Mixed branches and the AUTO curriculum are not ported
-yet and raise.
 """
 from __future__ import annotations
 
@@ -126,11 +127,9 @@ def build_real_world(cfg, scans) -> Tuple[WC.CompiledWorld, int]:
 
 def curriculum_mode(cfg) -> str:
     """TRAIN.CLMODE where it applies (DATA.NAME CLR2R), else "" (classic);
-    raises on a mode the port does not run."""
+    raises on an unknown mode."""
     mode = cfg.TRAIN.CLMODE if cfg.DATA.NAME == "CLR2R" else ""
-    if mode == "AUTO":
-        raise NotImplementedError("the AUTO (Exp3.S) curriculum trainer is not ported yet")
-    if mode not in ("", "NAIVE", "SELF-PACE"):
+    if mode not in ("", "NAIVE", "AUTO", "SELF-PACE"):
         raise ValueError(f"unknown TRAIN.CLMODE {mode!r}")
     return mode
 
@@ -138,41 +137,55 @@ def curriculum_mode(cfg) -> str:
 def build_environments(cfg, tok: Tokenizer, seed: int = 2020, device=None):
     """World + train/valid envs per cfg (ref: main.py:55-87).  Returns
     (world, train_env, valid_env, feat_dim) where train_env is an
-    R2RBatchEnv, a dict of cumulative round envs (NAIVE) or a
-    CLR2RBatchEnv (SELF-PACE); the envs' batches live on ``device``
-    (default CUDA)."""
-    if cfg.DATA.NAME not in ("R2R", "CLR2R"):
-        raise NotImplementedError(f"DATA.NAME {cfg.DATA.NAME!r} is not ported yet "
-                                  "(R2R and CLR2R only)")
+    R2RBatchEnv, a dict of round envs (NAIVE: cumulative; AUTO: one round
+    each) or a CLR2RBatchEnv (SELF-PACE); the envs' batches live on
+    ``device`` (default CUDA)."""
+    name = cfg.DATA.NAME
     mode = curriculum_mode(cfg)
     bs = cfg.TRAIN.BATCH_SIZE
-    tm = cfg.AGENT.TEACHER
+    tm = cfg.AGENT.TEACHER  # "goal" (the reference's) | "path" (the R4R fidelity teacher)
 
-    def env(world, items, s, name):
-        return R2RBatchEnv(world, items, bs, tok, s, name, teacher_mode=tm, device=device)
+    def env(world, items, s, split):
+        return R2RBatchEnv(world, items, bs, tok, s, split, teacher_mode=tm, device=device)
 
-    if cfg.TPU.SYNTHETIC_WORLD:
+    if cfg.TPU.SYNTHETIC_WORLD:  # R2R-style splits whatever the name, R4R joined
         world, splits, rounds_raw, feat_dim = build_synthetic_universe(cfg, seed=seed)
 
         def expand(items):
             return DS.expand_r2r_items(items, tok, None)
 
+        if name == "R4R":  # joined routes over the same synthetic world
+            splits = {k: DS.make_r4r_items(v, cfg.DATA.R4R_JOINS, seed) for k, v in splits.items()}
         train_items = splits["train"]
         val_seen_items, val_unseen_items = splits["val_seen"], splits["val_unseen"]
 
         def round_items(k):  # the raw items of round k
             return rounds_raw[f"round_{k}"]
+    elif name == "Mixed":
+        return build_mixed_environments(cfg, tok, seed, device)
     else:
-        train_items = DS.load_datasets(["train"], "R2R", r2r_dir(cfg))
-        base_dir = "assets" if cfg.DATA.NAME == "CLR2R" else cfg.DATA.DATA_DIR
-        val_seen_items = DS.load_datasets(["val_seen"], "R2R", base_dir)
-        val_unseen_items = DS.load_datasets(["val_unseen"], "R2R", base_dir)
-        all_scans = sorted({it["scan"] for it in train_items + val_seen_items + val_unseen_items})
-        world, feat_dim = build_real_world(cfg, all_scans)
+        if name == "RxR":
+            train_items = DS.load_datasets(["train"], "RxR", cfg.DATA.DATA_DIR)
+            val_seen_items = DS.load_datasets(["val_seen"], "RxR", cfg.DATA.DATA_DIR)
+            val_unseen_items = DS.load_datasets(["val_unseen"], "RxR", cfg.DATA.DATA_DIR)
+        elif name == "R4R":  # joined R2R path pairs, built from the R2R JSONs
+            train_items, val_seen_items, val_unseen_items = (
+                DS.make_r4r_items(DS.load_datasets([split], "R2R", cfg.DATA.DATA_DIR),
+                                  cfg.DATA.R4R_JOINS, seed + k)
+                for k, split in enumerate(("train", "val_seen", "val_unseen")))
+        else:  # R2R, CLR2R (whose rounds come below), or a dataset named so
+            train_items = DS.load_datasets(["train"], "R2R" if name in ("R2R", "CLR2R") else name,
+                                           r2r_dir(cfg))
+            base_dir = "assets" if name == "CLR2R" else cfg.DATA.DATA_DIR
+            val_seen_items = DS.load_datasets(["val_seen"], "R2R", base_dir)
+            val_unseen_items = DS.load_datasets(["val_unseen"], "R2R", base_dir)
+        world, feat_dim = build_real_world(
+            cfg, DS.dataset_scans(train_items + val_seen_items + val_unseen_items))
         allowed = set(world.scan_ids)
+        expand_items = DS.expand_rxr_items if name == "RxR" else DS.expand_r2r_items
 
         def expand(items):
-            return DS.expand_r2r_items(items, tok, allowed)
+            return expand_items(items, tok, allowed)
 
         def round_items(k):
             return DS.load_datasets([DS.clr2r_split_name(k)], "CLR2R", cfg.DATA.DATA_DIR)
@@ -181,11 +194,12 @@ def build_environments(cfg, tok: Tokenizer, seed: int = 2020, device=None):
         "val_seen": env(world, expand(val_seen_items), seed + 11, "val_seen"),
         "val_unseen": env(world, expand(val_unseen_items), seed + 12, "val_unseen"),
     }
-    if mode == "NAIVE":
-        # cumulative rounds: round_k holds rounds 1..k (ref: main.py:66-69)
+    if mode in ("NAIVE", "AUTO"):
+        # NAIVE's round_k holds rounds 1..k (ref: main.py:66-69); AUTO's
+        # bandit arms are the individual rounds (pipeline.py:140-148, 220-226)
         train_env, acc = {}, []
         for k in range(1, DS.CLR2R_ROUNDS + 1):
-            acc = acc + round_items(k)
+            acc = acc + round_items(k) if mode == "NAIVE" else round_items(k)
             train_env[f"round_{k}"] = env(world, expand(acc), seed + k, "train")
     elif mode == "SELF-PACE":
         rounds = {f"round_{k}": expand(round_items(k)) for k in range(1, DS.CLR2R_ROUNDS + 1)}
@@ -193,4 +207,38 @@ def build_environments(cfg, tok: Tokenizer, seed: int = 2020, device=None):
                                   teacher_mode=tm, device=device)
     else:
         train_env = env(world, expand(train_items), seed, "train")
+    return world, train_env, valid_env, feat_dim
+
+
+def build_mixed_environments(cfg, tok: Tokenizer, seed: int, device=None):
+    """Joint R2R + RxR training with a validation env per dataset and split
+    (pipeline.py:157-180; ref: trainer.py:234-240), the R2R splits from
+    ``assets``, RxR-en's from DATA.DATA_DIR or its ``RxR-en``; as in the
+    JAX package, these envs take the goal teacher."""
+    bs = cfg.TRAIN.BATCH_SIZE
+    rxr_dir = cfg.DATA.DATA_DIR
+    if not rxr_dir.endswith("RxR-en"):
+        rxr_dir = os.path.join(rxr_dir, "RxR-en")
+    r2r_train = DS.load_datasets(["train"], "R2R", "assets")
+    rxr_train = DS.load_datasets(["train"], "RxR", rxr_dir)
+    world, feat_dim = build_real_world(cfg, DS.dataset_scans(r2r_train + rxr_train))
+    allowed = set(world.scan_ids)
+
+    def env(items, s, split):
+        return R2RBatchEnv(world, items, bs, tok, s, split, device=device)
+
+    def r2r(split):
+        return DS.expand_r2r_items(DS.load_datasets([split], "R2R", "assets"), tok, allowed)
+
+    def rxr(split):
+        return DS.expand_rxr_items(DS.load_datasets([split], "RxR", rxr_dir), tok, allowed)
+
+    train_env = env(DS.expand_r2r_items(r2r_train, tok, allowed)
+                    + DS.expand_rxr_items(rxr_train, tok, allowed), seed, "train")
+    valid_env = {
+        "r2r_val_seen": env(r2r("val_seen"), seed + 11, "val_seen"),
+        "r2r_val_unseen": env(r2r("val_unseen"), seed + 12, "val_unseen"),
+        "rxr_val_seen": env(rxr("val_seen"), seed + 13, "val_seen"),
+        "rxr_val_unseen": env(rxr("val_unseen"), seed + 14, "val_unseen"),
+    }
     return world, train_env, valid_env, feat_dim

@@ -112,11 +112,13 @@ def test_check_ported_accepts_the_agents_and_refuses_the_rest():
                                        os.path.join(REPO, "configs", config)])
         with pytest.raises(ValueError, match="--self-train"):
             t_main.check_ported(args, cfg)
+    for extra in (["MODEL.FOLLOWER.GLOVE_PATH", "glove.npy"], ["TRAIN.CLMODE", "AUTO"],
+                  ["TRAIN.EVAL_TRAIN", "True"], ["TPU.SCAN_EARLY_EXIT", "True"],
+                  ["AGENT.TEACHER", "path"]):  # ported since
+        args, cfg = t_main.parse_args(["--device", "cpu", "--config-file",
+                                       os.path.join(REPO, "configs", CONFIGS[1]), *extra])
+        t_main.check_ported(args, cfg)
     for extra, what in ((["MODEL.NAME", "SPEAKER"], "SPEAKER"),
-                        (["MODEL.FOLLOWER.GLOVE_PATH", "glove.npy"], "GLOVE"),
-                        (["TRAIN.CLMODE", "AUTO"], "curriculum"),
-                        (["TRAIN.EVAL_TRAIN", "True"], "EVAL_TRAIN"),
-                        (["TPU.SCAN_EARLY_EXIT", "True"], "SCAN_EARLY_EXIT"),
                         (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")):
         args, cfg = t_main.parse_args(["--device", "cpu", "--config-file",
                                        os.path.join(REPO, "configs", CONFIGS[1]), *extra])

@@ -152,3 +152,30 @@ def test_run_beam_eval_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_beam_eval(cfg, agent, world, {}, tok, beam_size=2)
     assert not (tmp_path / "results").exists()
+
+
+# the Exp3.S curriculum, datasets, gt-route teacher, early exit and GloVe slice's modules
+SLICE9_MODULES = ("engine/auto_curriculum.py", "utils/glove.py", "ops/draws.py",
+                  "data/datasets.py", "env/env.py", "env/host_env.py", "agents/common.py",
+                  "agents/packed.py", "models/encoder.py", "pipeline.py", "main.py")
+
+
+def test_curriculum_and_data_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(SLICE9_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     for m in SLICE9_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_main_auto_defaults_to_cuda():
+    if torch.cuda.is_available():  # on a GPU host it would train there
+        pytest.skip("needs a host without CUDA to see the refusal")
+    cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--config-file",
+           "configs/envdrop/envdrop_cl_config.yaml", "TRAIN.CLMODE", "AUTO",
+           "TPU.SCAN_EARLY_EXIT", "True", "TPU.SYNTHETIC_WORLD", "True"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "CUDA is not available" in run.stderr

@@ -203,6 +203,6 @@ def test_main_beam_is_still_refused():
     refused, before any data is loaded."""
     args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3"])
     t_main.check_ported(args, cfg)
-    args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3", "TRAIN.EVAL_TRAIN", "True"])
-    with pytest.raises(NotImplementedError, match="EVAL_TRAIN"):
+    args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3", "TPU.FUSED_BPTT", "True"])
+    with pytest.raises(NotImplementedError, match="FUSED_BPTT"):
         t_main.main(args, cfg)

@@ -146,12 +146,13 @@ def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
         assert run.returncode != 0 and "CUDA is not available" in run.stderr
     t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--self-train"]))  # ported
     t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--beam", "3"]))  # ported
-    for extra, what in ((["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], "curriculum"),
-                        (["TRAIN.EVAL_TRAIN", "True"], "EVAL_TRAIN"),
-                        (["TPU.SCAN_EARLY_EXIT", "True"], "SCAN_EARLY_EXIT"),
-                        (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")):
+    for extra in (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], ["TRAIN.EVAL_TRAIN", "True"],
+                  ["TPU.SCAN_EARLY_EXIT", "True"]):  # ported since
+        t_main.check_ported(*t_main.parse_args(["--device", "cpu", *extra]))
+    for extra, what in ((["TPU.FUSED_BPTT", "True"], "FUSED_BPTT"),
+                        (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "RANDOM"], "CLMODE")):
         args, cfg = t_main.parse_args(["--device", "cpu", *extra])
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises((NotImplementedError, ValueError), match=what):
             t_main.check_ported(args, cfg)
     # the curriculum trainers and packed RL, as the configs ship them, run
     for config, extra in (("envdrop_config.yaml", []), ("envdrop_cl_config.yaml", []),
