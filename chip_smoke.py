@@ -4,12 +4,13 @@ paper's curriculum recipe, the Exp3.S curriculum with the per-round
 train evaluation, R4R with the gt-route teacher, the rollout early exit,
 the Follower and Self-Monitor agents (the Follower also with frozen
 GloVe embeddings), the speaker with back-translation, beam search with
-speaker rescoring, and the ViLBERT scorer with the CLR2R construction,
-on one GPU.
+speaker rescoring, the ViLBERT scorer with the CLR2R construction, and
+data-parallel training over several processes, on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
                                            # short first call for a new kernel
+    python3 chip_smoke.py --dp-only        # build + the data-parallel phase
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions.
@@ -19,7 +20,7 @@ on one GPU.
    (``recurrence_res_kernel`` and ``bwd_recurrence_res_kernel``, which hold
    W_hh in registers), each instantiation printed by name, must show no
    spills and at most 128 registers a thread.
-3. Kernel phases (in a full run, after phase 11, so that their profiler
+3. Kernel phases (in a full run, after phase 12, so that their profiler
    sessions do not come before the timed serve calls), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
@@ -167,9 +168,34 @@ on one GPU.
    pretraining steps (B = 32) and the scoring of 1,000 items, each with
    its device-busy share; no kernel of the port launches.  (c) The loss
    falls over 20 steps.  (d) ``build_clr2r`` writes five rounds.
-12. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+12. Data-parallel phase (after ViLBERT, before the kernel phases):
+   DP_RANKS = 2 rank processes share the card (gloo over CUDA tensors;
+   NCCL refuses two ranks on one GPU), each on its rows of the same
+   batches.  (a) The classic EnvDrop iteration at full width, B = 64 (32
+   a rank), T = 35, prng, in bf16 and f32: the loss and every gradient
+   leaf after the sum over the ranks against one process on the same
+   parameters, batch and generator seed (f32: 1e-4 of each leaf, in L2
+   and element by element; bf16: 1e-2 in L2, each leaf's gradient being
+   summed in bf16 over the steps), each rank's launches exact (K1 = K2 =
+   4, K4 = K6 = T_il + 36, K5 = K7 = T_il + 35), and timed iterations at
+   N = 1 (rank 0 alone) and N = 2 (each rank).  (b) One SPCL packed
+   iteration of ``envdrop_cl_config.yaml`` (prng_shared, a pool of 3 x 64
+   in every rank): the episodes started and done equal, the loss and
+   gradients as (a).  (c) One Self-Monitor iteration in f32: the loss,
+   every gradient leaf within 1e-3 in L2 (beside the same one-process
+   iteration with its BatchNorm sums split as the ranks split them: the
+   BatchNorm's own rounding), the BN running statistics within 1e-5.  (e)
+   ViLBERT at ``VilBertConfig``'s defaults: ``score_paths`` over model =
+   2 against replicated scoring within 1e-5 (f32, TF32 off).  (d) ``main``
+   (the Follower, f32, teacher feedback, SGD, 3 iterations) as four
+   processes run together: one process, 2 ranks joined by the VLN_*
+   variables, and world size 1 on NCCL: every scalar within 1e-4 of the
+   one process's, rank 0 alone writing the checkpoint, each printing its
+   launches.
+13. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
    the curriculum-and-data phase's, the Follower's, the Self-Monitor's,
-   the speaker's, the beam's and the ViLBERT paths), the card's name and power limit, and as the last line
+   the speaker's, the beam's, the ViLBERT and the data-parallel paths),
+   the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -234,6 +260,10 @@ VIL_BATCH = 32        # ViLBERT pretraining batch
 VIL_STEPS = 20        # timed pretraining steps (after one warm-up)
 VIL_ITEMS = 1000      # items scored by score_difficulty
 VIL_PATH = 8          # max_path_len of the scorer's inputs (R2R paths have at most 7 nodes)
+DP_RANKS = 2          # rank processes of the data-parallel phase, sharing the one card
+DP_ITERS = 3          # timed iterations at N = 1 and at N = DP_RANKS (after one warm-up)
+DP_MAIN_ITERS = 3     # iterations of each ``main`` run of the data-parallel phase
+DP_CLR2R_STEPS = 20   # pretraining steps of the data-parallel phase's build_clr2r runs
 
 # Published H100 SXM peaks (dense), used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -1547,7 +1577,7 @@ def curriculum_phase(world, data, tok, params0, device):
 
     def timed(*args):
         before = launch_counts()
-        il = args[-1]
+        il = args[9]  # il_len: the trainer passes it, then the mesh, by position
         t0 = time.perf_counter()
         if len(times) == profiled_iter:
             box = []
@@ -2992,11 +3022,526 @@ def vilbert_phase(world, data, tok, device, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Data-parallel phase
+# ---------------------------------------------------------------------------
+
+def dp_rank(rank, tmp, card, device_type):
+    """One rank of the DP phase: joins the process group (gloo: the ranks
+    share the card), runs ``dp_work`` and saves its results for the
+    parent."""
+    import torch.distributed as dist
+
+    from curriculum_learning_for_vln_torch.parallel import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the one-process references run in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share this host's one card: their place among its ranks
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DP_RANKS))
+    device = M.init_process_group(f"file://{tmp}/store", DP_RANKS, rank, device=device_type,
+                                  timeout_s=900)
+    check(dist.get_backend() == "gloo", f"{DP_RANKS} ranks on one card take gloo")
+    try:
+        out = dp_work(rank, device, card)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+@contextmanager
+def split_batchnorm():
+    """The BN-MLP's training BatchNorm with its batch sums taken over
+    DP_RANKS equal row blocks and added, in one process: the ranks' order
+    of summation without the ranks."""
+    from curriculum_learning_for_vln_torch.models import attention, core
+
+    def batchnorm(params, state, x, train, momentum=0.1, eps=1e-5):
+        if not train:
+            return core.batchnorm(params, state, x, train, momentum, eps)
+        n, blocks = x.shape[0], x.chunk(DP_RANKS)
+        mean = sum(b.sum(dim=0) for b in blocks) / n
+        var = sum(((b - mean) ** 2).sum(dim=0) for b in blocks) / n
+        new = {"mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+               "var": (1 - momentum) * state["var"] + momentum * var.detach() * n / (n - 1),
+               "count": state["count"] + 1}
+        return (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"], new
+
+    saved, attention.batchnorm = attention.batchnorm, batchnorm
+    try:
+        yield
+    finally:
+        attention.batchnorm = saved
+
+
+# Self-Monitor leaves whose gradient is set by rounding, not by the data:
+# the ZERO_GRAD pair, and the bias of each BN-MLP hidden layer, whose
+# BatchNorm sees B identical rows at t = 0 (a_prev starts at zeros): zero
+# variance, so its ReLU input is the rounding of the batch mean times
+# 1 / sqrt(eps), which any other order of summation (the ranks') flips
+DP_ROUNDING = ZERO_GRAD["SELF-MONITOR"] | {
+    ("decoder", "proj_navigable_mlp", "bn_layers", i, "bias") for i in range(4)}
+
+
+def dp_compare(what, got, want, tol, names, elementwise=False):
+    """(loss, leaves) of the ranks against one process's: the loss within
+    ``tol`` of its scale, each leaf's |ranks - one| within ``tol`` of
+    |one| in the L2 norm (``elementwise``: also each element within ``tol``
+    of the leaf's largest), but the DP_ROUNDING leaves, printed only.
+    Returns the worst relative leaf errors (L2, elementwise)."""
+    (loss_n, g_n), (loss_1, g_1) = got, want
+    check(abs(loss_n - loss_1) <= tol * max(1.0, abs(loss_1)),
+          f"{what}: loss {loss_n} at {DP_RANKS} ranks, {loss_1} in one process")
+    worst, worst_el, at, skipped = 0.0, 0.0, "", []
+    for name, a, b in zip(names, g_n, g_1, strict=True):
+        el = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+        l2 = float((a - b).norm()) / max(float(b.norm()), 1e-12)
+        if name in DP_ROUNDING:
+            skipped.append(f"{'.'.join(map(str, name))} {l2:.3g}")
+            continue
+        if l2 >= worst:
+            worst, at = l2, ".".join(map(str, name))
+        worst_el = max(worst_el, el)
+        check(l2 <= tol and (el <= tol or not elementwise),
+              f"{what}: leaf {name} of shape {tuple(a.shape)}: |ranks - one| / |one| {l2:.3g} "
+              f"(L2), {el:.3g} (largest element) > {tol}")
+    log(f"{what}: loss {loss_n:.6f} at {DP_RANKS} ranks, {loss_1:.6f} in one process; worst "
+        f"leaf |ranks - one| / |one| {worst:.3g} in L2 ({at}), {worst_el:.3g} elementwise "
+        f"(tol {tol}{' both' if elementwise else ' in L2'}) over {len(g_n)} leaves"
+        + (f"; set by rounding, not held: {', '.join(skipped)}" if skipped else ""))
+    return worst, worst_el
+
+
+def dp_work(rank, device, card):
+    """(a) the classic EnvDrop iteration in bf16 and f32, (b) the SPCL packed
+    iteration, (c) the Self-Monitor iteration, each at DP_RANKS ranks
+    against one process on the same parameters, batch and generator seed;
+    timed iterations at N = 1 and N = 2; (e) ViLBERT scoring over model =
+    DP_RANKS against replicated scoring."""
+    import torch.distributed as dist
+
+    from curriculum_learning_for_vln_torch.agents import build_agent, init_agent
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.agents.vln_bert import VLNBertScorer
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine import loop
+    from curriculum_learning_for_vln_torch.engine.pretrain import pretrain_arrays
+    from curriculum_learning_for_vln_torch.engine.trainer import il_bucket_fn
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.models.vilbert import VilBertConfig, vlnbert_init
+    from curriculum_learning_for_vln_torch.parallel import mesh as M
+    from curriculum_learning_for_vln_torch.parallel import vilbert_sharding as S
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.utils.config import get_cfg_defaults
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    world, data, _, tok, cfg, m, params0 = build_serving()
+    items = expand_r2r_items(data, tok)
+    mesh = M.make_mesh()
+    check(mesh.data == DP_RANKS and mesh.model == 1, f"mesh {mesh}")
+    T, main = cfg.AGENT.MAX_EPISODE_LEN, rank == 0
+    out = {"launches": {}, "ms": {}, "worst": {}, "vs_plain": {}}
+
+    def env_of(seed):
+        env = R2RBatchEnv(world, items, BATCH, tok, seed=seed, device=device)
+        env.set_sharding(mesh)
+        return env
+
+    def step_grads(params, loss_fn, mesh_, clip):
+        """loss_fn() inside the sharded step of mesh_, its gradients summed
+        over the ranks and clipped as the iteration does; the global logs
+        and the gradient leaves."""
+        leaves = tree.tree_leaves(params)
+        with M.sharded_step(mesh_):
+            total, logs = loss_fn()
+        total.backward()
+        M.all_reduce_grads(params, mesh_)
+        if clip:
+            loop.clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
+        return (loop.reduce_logs({k: v.detach() for k, v in logs.items()}, mesh_),
+                [torch.zeros_like(p) if p.grad is None else p.grad.clone() for p in leaves])
+
+    def fresh(p0):  # a copy of p0's leaves, whatever the device
+        return tree.tree_map(lambda t: t.to(device, copy=True).requires_grad_(True), p0)
+
+    def held(what, run, tol, names):
+        """``run()`` -> (loss, gradient leaves, ...) on this rank's rows, in
+        the sharded step, through the kernels and again under their plain
+        versions: every launch of the DP path, at its shapes, held against
+        the plain versions (the loss within 1e-4 of its scale, each leaf
+        within ``tol`` of its largest plain element; the DP_ROUNDING
+        leaves, set by rounding, printed only).  Returns (the kernel run,
+        its launches, the worst leaf)."""
+        reset_launch_counts()
+        got = run()
+        counts = launch_counts()
+        with plain_kernels():
+            want = run()
+        (loss_k, g_k), (loss_p, g_p) = got[:2], want[:2]
+        check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)),
+              f"{what}: loss kernels {loss_k} plain {loss_p}")
+        worst, at, skipped = 0.0, "", []
+        for name, a, b in zip(names, g_k, g_p, strict=True):
+            e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+            if name in DP_ROUNDING:
+                skipped.append(f"{'.'.join(map(str, name))} {e:.3g}")
+                continue
+            if e >= worst:
+                worst, at = e, ".".join(map(str, name))
+            check(e <= tol, f"{what}: leaf {name}: |kernel - plain| / max|plain| {e:.3g} > {tol}")
+        log(f"{what}, kernels against plain on the rank's rows: loss {loss_k:.6f} / {loss_p:.6f}; "
+            f"worst leaf |kernel - plain| / max|plain| {worst:.3g} ({at}; tol {tol}) over "
+            f"{len(g_k)} leaves" + (f"; set by rounding, not held: {', '.join(skipped)}"
+                                    if skipped else ""))
+        return got, counts, worst
+
+    # (a) the classic iteration, bf16 and f32
+    for precision in ("bf16", "f32"):
+        agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                             compute_dtype=PRECISIONS[precision], obs_masks="prng")
+        tables = world.device_tables(precision, device)
+        env = env_of(SEED)
+        local = env.next_batch()
+        whole, il_len = env.cur_full_batch, il_bucket_fn(cfg, agent)(env)
+
+        def classic(ep, mesh_):
+            params = fresh(params0)
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            logs, g = step_grads(params, lambda: loop.iteration_loss(
+                agent, "sample", tables, params, ep, gen, il_len=il_len), mesh_, True)
+            return float(logs["loss"]), g
+
+        # one bf16 ulp is up to 2^-7 of a leaf's largest element; f32 differs
+        # by the kernels' order of summation alone
+        got, counts, out["vs_plain"][f"classic_{precision}"] = held(
+            f"dp (a) rank {rank} classic {precision}", lambda: classic(local, mesh),
+            1e-2 if precision == "bf16" else 1e-3, leaf_paths(params0))
+        t_il = il_len or T
+        check(counts == iteration_launches(t_il, T),
+              f"rank {rank} classic {precision} launches {counts}, expected "
+              f"{iteration_launches(t_il, T)}")
+        out["launches"][f"classic_{precision}"] = counts
+        if main:
+            out["worst"][f"classic_{precision}"] = dp_compare(
+                f"dp (a) classic EnvDrop iteration {precision}, B={BATCH} ({BATCH // DP_RANKS} a "
+                f"rank), T={T}, T_il={t_il}, prng", got, classic(whole, None),
+                1e-2 if precision == "bf16" else 1e-4, leaf_paths(params0),
+                elementwise=precision == "f32")
+        log(f"dp (a) rank {rank} {precision}: launches {counts} (exact)")
+        dist.barrier()
+
+        if precision != cfg.TPU.PRECISION:
+            continue
+        # timed iterations: one process (rank 0 alone), then every rank
+        for n in (1, DP_RANKS):
+            if n == 1 and not main:
+                dist.barrier()
+                continue
+            params = fresh(params0)
+            opt = loop.make_optimizer(cfg.TRAIN.OPTIM, cfg.TRAIN.LR, params)
+            gen = torch.Generator(device=device).manual_seed(SEED + 1)
+            env = env_of(SEED + 1)
+            times = []
+            for i in range(DP_ITERS + 1):
+                b = env.next_batch()
+                il = il_bucket_fn(cfg, agent)(env)
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                logs = loop.one_iter(agent, opt, "sample", tables, params,
+                                     b if n > 1 else env.cur_full_batch, gen, il_len=il,
+                                     mesh=mesh if n > 1 else None)
+                float(logs["loss"])  # a sync: the iteration has finished
+                torch.cuda.synchronize()
+                if i:  # after one warm-up
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    check(launch_counts() == iteration_launches(il or T, T),
+                          f"rank {rank} N={n} launches {launch_counts()}")
+            out["ms"][f"N={n}"] = times
+            log(f"dp (a) rank {rank}, N = {n}: ms an iteration {[round(t, 2) for t in times]}, "
+                f"median {statistics.median(times):.2f}; launches exact an iteration | {card}")
+            if n == 1:
+                dist.barrier()
+        dist.barrier()
+
+    # (b) the SPCL packed iteration, envdrop_cl_config.yaml as shipped, prng_shared
+    cl = get_cfg_defaults()
+    cl.merge_from_file(CL_CONFIG)
+    check(cl.TPU.PACKED_RL == 3, "the CL config ships PACKED_RL 3")
+    agent = EnvDropAgent(cl.MODEL.ENVDROP, tok.encoding_length, tok.vocab_size(), FEAT_DIM,
+                         cl.AGENT.MAX_EPISODE_LEN, compute_dtype=PRECISIONS[cl.TPU.PRECISION],
+                         obs_masks="prng_shared")
+    tables = world.device_tables(cl.TPU.PRECISION, device)
+    env = env_of(SEED + 3)
+    local = env.next_batch()
+    raws, idx, il_len = [env.cur_full_batch], [env.cur_batch_index], il_bucket_fn(cl, agent)(env)
+    for _ in range(cl.TPU.PACKED_RL - 1):
+        env.next_batch()
+        raws.append(env.cur_full_batch)
+        idx.append(env.cur_batch_index)
+    pool = loop.concat_batches(raws)
+    w = torch.rand(len(items), generator=torch.Generator().manual_seed(SEED)).to(device) + 0.5
+    w_il = w[torch.from_numpy(idx[0]).to(device)]
+    w_pool = w[torch.from_numpy(np.concatenate(idx)).to(device)]
+
+    def packed(ep, mesh_):
+        params = fresh(params0)
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+
+        def loss():
+            return loop.packed_iteration_loss(agent, tables, params, ep, pool, gen,
+                                              M.local_rows(w_il), w_pool, il_len)
+
+        logs, g = step_grads(params, loss, mesh_, True)
+        return float(logs["loss"]), g, int(logs["episodes_started"]), int(logs["episodes_done"])
+
+    got, out["launches"]["spcl_packed"], out["vs_plain"]["spcl_packed"] = held(
+        f"dp (b) rank {rank} SPCL packed ({cl.TPU.PRECISION})", lambda: packed(local, mesh),
+        1e-2 if cl.TPU.PRECISION == "bf16" else 1e-3, leaf_paths(params0))
+    loss_n, g_n, started_n, done_n = got
+    if main:
+        loss_1, g_1, started_1, done_1 = packed(raws[0], None)
+        check((started_n, done_n) == (started_1, done_1),
+              f"packed episodes (started, done) {(started_n, done_n)} at {DP_RANKS} ranks, "
+              f"{(started_1, done_1)} in one process")
+        out["packed_episodes"] = (started_n, done_n)
+        out["worst"]["spcl_packed"] = dp_compare(
+            f"dp (b) SPCL packed iteration ({cl.TPU.PRECISION}, prng_shared, pool "
+            f"{pool.valid.shape[0]}, {started_n} episodes started, {done_n} done in both)",
+            (loss_n, g_n), (loss_1, g_1), 1e-2 if cl.TPU.PRECISION == "bf16" else 1e-4,
+            leaf_paths(params0), elementwise=cl.TPU.PRECISION == "f32")
+    log(f"dp (b) rank {rank}: launches {out['launches']['spcl_packed']}")
+    dist.barrier()
+
+    # (c) the Self-Monitor iteration in f32: loss, gradients, BN statistics
+    mcfg = agent_cfg(AGENT_CONFIGS["SELF-MONITOR"][0], "TPU.PRECISION", "f32")
+    agent = build_agent(mcfg, tok.vocab_size(), FEAT_DIM)
+    p0, s0 = init_agent(agent, torch.Generator().manual_seed(SEED))
+    tables = world.device_tables("f32", device)
+    env = env_of(SEED + 5)
+    local = env.next_batch()
+
+    def monitor(ep, mesh_):
+        params = fresh(p0)
+        state = tree.tree_map(lambda t: t.to(device, copy=True), s0)
+        gen = torch.Generator(device=device).manual_seed(SEED + 11)
+        kept = {}
+
+        def loss():
+            total, logs, kept["state"] = loop.agent_iteration_loss(
+                agent, "sample", tables, params, state, ep, gen,
+                lamb=mcfg.TRAIN.PROGMONITOR_WEIGHT)
+            return total, logs
+
+        logs, g = step_grads(params, loss, mesh_, False)
+        return float(logs["loss"]), g, tree.tree_leaves(kept["state"])
+
+    # the BN-MLP's rsqrt(var + 1e-5) scales the kernels' rounding up: held
+    # as the agents phase holds the Self-Monitor's kernels
+    (loss_n, g_n, s_n), counts, out["vs_plain"]["monitor"] = held(
+        f"dp (c) rank {rank} Self-Monitor (f32)", lambda: monitor(local, mesh), 1e-2,
+        leaf_paths(p0))
+    check(counts == agent_launches("SELF-MONITOR", False),
+          f"rank {rank} Self-Monitor launches {counts}")
+    out["launches"]["monitor"] = counts
+    if main:
+        loss_1, g_1, s_1 = monitor(env.cur_full_batch, None)
+        # the rounding floor: one process again, its BatchNorm sums taken
+        # over the ranks' halves of the rows and added, as the ranks do
+        with split_batchnorm():
+            loss_h, g_h, _ = monitor(env.cur_full_batch, None)
+        names = leaf_paths(p0)
+        floor = max(float((a - b).norm()) / max(float(b.norm()), 1e-12)
+                    for n, a, b in zip(names, g_h, g_1) if n not in DP_ROUNDING)
+        out["monitor_floor"] = floor
+        log(f"dp (c): one process with its BN sums split over the ranks' rows against one "
+            f"process: loss {loss_h:.6f}, worst leaf |split - one| / |one| {floor:.3g} in L2 "
+            f"(the BatchNorm's rounding, which the ranks' sums change too)")
+        # f32 through the BN-MLP's rsqrt(var + 1e-5): held at 1e-3 in L2
+        out["worst"]["monitor"] = dp_compare(
+            f"dp (c) Self-Monitor iteration (f32, sample feedback, T={AGENT_T})",
+            (loss_n, g_n), (loss_1, g_1), 1e-3, names)
+        bn = max(float(((a - b).abs() / (1.0 + b.abs())).max()) for a, b in zip(s_n, s_1))
+        check(bn <= 1e-5, f"Self-Monitor BN running statistics |ranks - one| / (1 + |one|) {bn}")
+        out["bn_err"] = bn
+        log(f"dp (c): the BN running statistics ({len(s_n)} leaves) |ranks - one| / (1 + |one|) "
+            f"{bn:.3g} (tol 1e-5)")
+    dist.barrier()
+
+    # (e) ViLBERT at VilBertConfig's defaults: score_paths over model = DP_RANKS
+    vcfg = VilBertConfig(vocab_size=tok.vocab_size(), v_feature_size=FEAT_DIM)
+    whole_p = tree.tree_map(lambda t: t.to(device),
+                            vlnbert_init(torch.Generator().manual_seed(SEED), vcfg))
+    tp_mesh = M.make_mesh(data=1, model=DP_RANKS)
+    local_p = S.shard_vilbert_params(whole_p, tp_mesh)
+    scorer = VLNBertScorer(vcfg)
+    toks, feats, locs, rmask, _ = pretrain_arrays(world, items[:8], tok, VIL_PATH, FEAT_DIM)
+    inputs = [torch.from_numpy(a).to(device)
+              for a in (toks, feats, locs, (toks != 0).astype(np.float32), rmask)]
+    tp = S.tensor_parallel(tp_mesh)
+    s_tp = scorer.score_paths(local_p, *inputs, tp=tp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_tp = scorer.score_paths(local_p, *inputs, tp=tp)
+    torch.cuda.synchronize()
+    ms_tp = (time.perf_counter() - t0) * 1e3
+    s_rep = scorer.score_paths(whole_p, *inputs)
+    err, scale = float((s_tp - s_rep).abs().max()), float(s_rep.abs().max())
+    check(err <= 1e-5, f"rank {rank}: TP score_paths |tp - replicated| {err:.3g}")
+    out["vilbert"] = {"err": err, "scale": scale, "ms_tp": ms_tp,
+                      "q_shape": tuple(local_p["bert"]["t_layers"][0]["attn"]["query"]["w"].shape)}
+    log(f"dp (e) rank {rank}: ViLBERT score_paths of 8 items over model = {DP_RANKS}: |tp - "
+        f"replicated| {err:.3g} (tol 1e-5) of scale {scale:.3g}; q slice "
+        f"{out['vilbert']['q_shape']}; {ms_tp:.2f} ms a call (gloo all-reduces through the host)")
+    dist.barrier()
+    return out
+
+
+def dp_main_runs(card, device_type):
+    """(d) ``main`` as a user runs it (the Follower, f32, teacher feedback,
+    SGD, one epoch of DP_MAIN_ITERS iterations): one process; DP_RANKS
+    processes joined by the VLN_* variables (gloo: they share the card);
+    and one process at world size 1 on NCCL.  Every process prints its
+    launches; returns {run: (launches, events, log text)}.  With them,
+    ``build_clr2r`` in one process and in DP_RANKS processes over a model
+    axis of DP_RANKS: the same round sizes and final loss."""
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    ports = (free_port(), free_port())
+    runs = {"one": {}, "nccl_world1": {"VLN_COORDINATOR": f"127.0.0.1:{ports[0]}",
+                                       "VLN_NUM_PROCESSES": "1", "VLN_PROCESS_ID": "0"}}
+    for r in range(DP_RANKS):
+        runs[f"rank{r}"] = {"VLN_COORDINATOR": f"127.0.0.1:{ports[1]}",
+                            "VLN_NUM_PROCESSES": str(DP_RANKS), "VLN_PROCESS_ID": str(r),
+                            "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(DP_RANKS)}
+    root = tempfile.mkdtemp(prefix="dp_main_")
+    procs = {}
+    t0 = time.perf_counter()
+    # build_clr2r, the scorer's entry point: one process, and DP_RANKS
+    # processes with --mesh-model DP_RANKS (its heads over the ranks), run
+    # with the mains
+    port = free_port()
+    clr2r = {"clr2r_one": {}}
+    for r in range(DP_RANKS):
+        clr2r[f"clr2r_tp{r}"] = {"VLN_COORDINATOR": f"127.0.0.1:{port}",
+                                 "VLN_NUM_PROCESSES": str(DP_RANKS), "VLN_PROCESS_ID": str(r),
+                                 "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(DP_RANKS)}
+    for name, env in clr2r.items():
+        cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.build_clr2r", "--device",
+               device_type, "--out", os.path.join(root, name), "--steps", DP_CLR2R_STEPS,
+               "--mesh-model", 1 if name == "clr2r_one" else DP_RANKS]
+        procs[name] = subprocess.Popen([str(c) for c in cmd], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True,
+                                       env=dict(os.environ, **env))
+    for name, env in runs.items():
+        d = os.path.join(root, name)
+        cmd = [sys.executable, "-c", MAIN_WRAPPER, "--device", device_type, "--seed", str(SEED),
+               "--config-file",
+               AGENT_CONFIGS["FOLLOWER"][0], "TPU.PRECISION", "f32", "AGENT.FEEDBACK", "teacher",
+               "TRAIN.OPTIM", "sgd", "TRAIN.LR", "0.01", "TRAIN.MAX_EPOCH", "1",
+               "TRAIN.ITER_PER_EPOCH", DP_MAIN_ITERS, "TRAIN.EVAL_INTERVAL", "1",
+               "TRAIN.BATCH_SIZE", BATCH, "TPU.SYNTHETIC_WORLD", "True", "TPU.SYNTHETIC_SCANS",
+               SYN_SCANS, "TPU.SYNTHETIC_NODES", SYN_NODES, "OUTPUT.LOG_DIR", d,
+               "OUTPUT.TSBOARD_DIR", os.path.join(d, "tb"), "OUTPUT.CKPT_DIR",
+               os.path.join(d, "ckpt")]
+        procs[name] = subprocess.Popen([str(c) for c in cmd], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True,
+                                       env=dict(os.environ, **env))
+    for name in clr2r:
+        p = procs.pop(name)
+        text_out = p.communicate(timeout=600)[0]
+        check(p.returncode == 0, f"build_clr2r {name}: rc {p.returncode}\n{text_out[-4000:]}")
+        clr2r[name] = [json.loads(ln) for ln in text_out.splitlines() if ln.startswith("{")]
+    c_one, c_tp = clr2r["clr2r_one"][-1], clr2r["clr2r_tp0"][-1]
+    check(not any(clr2r[f"clr2r_tp{r}"] for r in range(1, DP_RANKS)), "rank 0 alone prints")
+    check(c_tp["rounds"] == c_one["rounds"] and abs(c_tp["final_loss"] - c_one["final_loss"])
+          <= 1e-4 * max(1.0, c_one["final_loss"]),
+          f"build_clr2r over model = {DP_RANKS}: {c_tp}, one process: {c_one}")
+    moved = 0
+    for k in range(1, 6):
+        paths = [{it["path_id"] for it in
+                  json.load(open(os.path.join(root, name, f"R2R_round_{k}_v3.json")))}
+                 for name in ("clr2r_one", "clr2r_tp0")]
+        moved += len(paths[0] - paths[1])
+    log(f"dp (d) build_clr2r in {DP_RANKS} processes, --mesh-model {DP_RANKS}: {c_tp} (one "
+        f"process: {c_one}); {moved} paths in another round than one process's (the "
+        f"pretraining and the scores summed in another order)")
+    res = {}
+    for name, p in procs.items():
+        text_out = p.communicate(timeout=600)[0]
+        d = os.path.join(root, name)
+        text = "".join(open(f).read() for f in glob.glob(os.path.join(d, "*.log")))
+        counts = [json.loads(ln.split(" ", 1)[1]) for ln in text_out.splitlines()
+                  if ln.startswith("launches ")]
+        check(p.returncode == 0 and "Training finished" in text and len(counts) == 1,
+              f"main {name}: rc {p.returncode}\n{text_out[-4000:]}")
+        events = {}
+        for f in glob.glob(os.path.join(d, "tb", "*", "events.jsonl")):
+            for ln in open(f):
+                e = json.loads(ln)
+                if "value" in e and not e["tag"].startswith("perf/"):  # not the timings
+                    events[e["tag"], e["step"]] = e["value"]
+        res[name] = (counts[0], events, text)
+    secs = time.perf_counter() - t0
+    one = res["one"][1]
+    check(("train/ml_epoch", 1) in one, "the one-process run logged its epoch loss")
+    for name in ("rank0", "nccl_world1"):
+        got = res[name][1]
+        check(set(got) == set(one), f"main {name}: the scalars {sorted(set(got) ^ set(one))}")
+        worst = max(abs(got[k] - one[k]) / (1.0 + abs(one[k])) for k in one)
+        check(worst <= 1e-4, f"main {name}: scalars within 1e-4 of one process's: worst {worst}")
+        log(f"dp (d) main {name}: {len(one)} scalars, worst |{name} - one| / (1 + |one|) "
+            f"{worst:.3g} (tol 1e-4); epoch loss {got['train/ml_epoch', 1]:.6f} against "
+            f"{one['train/ml_epoch', 1]:.6f}")
+    check("Device mesh: data=2 model=1" in res["rank0"][2]
+          and "backend gloo (ranks share a GPU)" in res["rank0"][2], "rank 0's mesh and backend")
+    check("backend nccl (every rank owns its GPU)" in res["nccl_world1"][2]
+          and "Device mesh: data=1 model=1" in res["nccl_world1"][2], "NCCL at world size 1")
+    ckpts = {name: os.path.exists(os.path.join(root, name, "ckpt", "latest.ckpt")) for name in res}
+    check(ckpts["rank0"] and not any(ckpts[f"rank{r}"] for r in range(1, DP_RANKS)),
+          f"rank 0 alone writes the checkpoint: {ckpts}")
+    for name, (counts, _, _) in res.items():
+        log(f"dp (d) main {name}: launches {counts}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"dp (d): {len(res)} main and {len(clr2r)} build_clr2r processes in {secs:.1f} s (run "
+        f"together) | {card}")
+    return {name: counts for name, (counts, _, _) in res.items()}, secs
+
+
+def dp_phase(card, device_type="cuda"):
+    """The data-parallel phase: DP_RANKS rank processes sharing the card run
+    ``dp_work``; then ``main`` in DP_RANKS processes and at world size 1 on
+    NCCL.  Returns the ranks' results and the mains' launches.  (Another
+    ``device_type`` rehearses it there: the launch checks then fail.)"""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(dp_rank, args=(tmp, card, device_type), nprocs=DP_RANKS,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+    secs_ranks = time.perf_counter() - t0
+    mains, secs_main = dp_main_runs(card, device_type)
+    ms1 = statistics.median(ranks[0]["ms"]["N=1"])
+    msn = [statistics.median(r["ms"][f"N={DP_RANKS}"]) for r in ranks]
+    log(f"dp: iteration ms at N = 1 {ms1:.2f}, at N = {DP_RANKS} (each rank, {BATCH // DP_RANKS} "
+        f"rows) {', '.join(f'{x:.2f}' for x in msn)}: the ranks share one card and gloo "
+        f"reduces through the host, so N = {DP_RANKS} is expected to be no faster here | {card}")
+    log(f"dp: ranks {secs_ranks:.1f} s, main runs {secs_main:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ranks": ranks, "mains": mains, "secs": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
     kernels_only = "--kernels-only" in sys.argv[1:]
+    dp_only = "--dp-only" in sys.argv[1:]
     from curriculum_learning_for_vln_torch.ops.cuda import build
 
     device = torch.device("cuda")
@@ -3035,6 +3580,13 @@ def main() -> int:
                            device=device)
     log(f"instruction lengths of the first micro-batch: {int(lengths.min())} to "
         f"{int(lengths.max())} tokens of {tok.encoding_length}")
+    if dp_only:
+        dp = dp_phase(card)
+        log(json.dumps({"dp_only": {"mains": dp["mains"], "secs": dp["secs"],
+                                    "ranks": [{k: r[k] for k in ("launches", "ms", "worst",
+                                                                 "vs_plain")}
+                                              for r in dp["ranks"]]}}))
+        return 0
     if kernels_only:
         results = kernel_phases(world, lengths, device)
         log(json.dumps({"kernels_only": {f"{n}/{p}": {k: v for k, v in r.items()}
@@ -3100,6 +3652,9 @@ def main() -> int:
         f"busy {100 * vb / vw:.1f}%), {vil['score']['items_per_s']:.1f} items scored a second "
         f"| {card}")
 
+    dp = dp_phase(card)
+    dp_ranks = dp["ranks"]
+
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
@@ -3140,6 +3695,10 @@ def main() -> int:
                 "self_train": {k: v[name] for k, v in spk["self_train"]["launches"].items()}},
             "beam_launches": beam["launches"][name], "vilbert_launches": vil["launches"][name],
             "curriculum_data_launches": {k: v[name] for k, v in cdata["launches"].items()},
+            "dp_launches": {
+                **{f"{k}_rank{r}": v[name] for r, x in enumerate(dp_ranks)
+                   for k, v in x["launches"].items()},
+                **{f"main_{k}": v[name] for k, v in dp["mains"].items()}},
         }
         if name in cdata["eval_train_b128"]:  # K3, K4, K6 on an EVAL_TRAIN batch of 128
             entry["eval_train_b128"] = cdata["eval_train_b128"][name]

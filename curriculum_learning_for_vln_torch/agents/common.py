@@ -42,6 +42,7 @@ from ..env.env import EnvState, EpisodeBatch
 from ..models.attention import NEG_INF
 from ..models.core import cross_entropy_per_sample
 from ..ops import draws
+from ..parallel import mesh as M
 from ..utils.angles import ANGLE_INC
 from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
@@ -62,7 +63,10 @@ def set_early_exit(on: bool) -> None:
 
 class EarlyExit:
     """The early exit of one rollout loop: ``dead(ended)`` says whether
-    every episode has ended, asking the card until it has; ``live()``
+    every episode has ended (on every rank, in a data-parallel step, so
+    that the ranks run the same steps and their collectives pair up, as
+    JAX's ``lax.cond`` on the global batch), asking the card until it
+    has; ``live()``
     records a live step's draws; ``skip()`` makes them again."""
 
     def __init__(self):
@@ -71,7 +75,7 @@ class EarlyExit:
     def dead(self, ended: torch.Tensor) -> bool:
         # frozen steps need a live step's record first
         if self.on and not self.is_dead and self.draws is not None:
-            self.is_dead = bool(ended.all())
+            self.is_dead = M.all_true(ended)
         return self.is_dead
 
     @contextmanager
@@ -141,7 +145,7 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.T
     """Standard Gumbel noise -log(-log(u)), u ~ U[tiny, 1), as
     ``jax.random.gumbel`` draws it."""
     tiny = torch.finfo(torch.float32).tiny
-    u = draws.rand(shape, generator, device).clamp_min(tiny)
+    u = draws.rand(shape, generator, device, batch_dim=0).clamp_min(tiny)
     return -torch.log(-torch.log(u))
 
 
@@ -251,8 +255,9 @@ def frozen_record(world: WorldTables, state: EnvState, like: StepRecord) -> Step
 def ml_loss_mean_over_alive(steps: StepRecord) -> torch.Tensor:
     """The reference's CrossEntropyLoss(reduction='mean', ignore_index)
     summed over time (common.py:295-299): per step, the mean over the
-    non-ignored samples (0 when there are none)."""
-    return (steps.ce.sum(dim=1) / steps.ce_count.clamp_min(1).float()).sum()
+    non-ignored samples (0 when there are none); in a data-parallel step
+    the samples of every rank."""
+    return (steps.ce.sum(dim=1) / M.global_sum(steps.ce_count).clamp_min(1).float()).sum()
 
 
 def ml_loss_per_sample(steps: StepRecord) -> torch.Tensor:

@@ -33,6 +33,7 @@ from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
 from ..ops import fused_obs, philox
 from ..ops.cuda.drop import NO_DROP, DropSpec, draw_keep_mask
+from ..parallel import mesh as M
 from ..utils.angles import make_angle_feat
 from ..utils.tokenizer import PAD_IDX
 from ..world.compiler import WorldTables
@@ -43,6 +44,9 @@ OBS_MASK_MODES = ("prng", "prng_shared", "ext")
 
 
 class EnvDropLosses(NamedTuple):
+    """In a data-parallel step each scalar is this rank's part of the
+    global one (their sum over the ranks), each vector its rows."""
+
     ml_loss: torch.Tensor              # scalar: summed CE * ML_WEIGHT / B (ref: envdrop.py:268)
     ml_loss_per_sample: torch.Tensor   # [B]: per-sample CE sums (SPCL)
     rl_loss: torch.Tensor              # scalar A2C loss (normalized per RL_NORMALIZE)
@@ -95,8 +99,9 @@ class EnvDropAgent:
             return NO_DROP
         keep = 1.0 - rate
         if self.obs_masks in ("prng", "prng_shared"):
-            return DropSpec(self.obs_masks, seeds=philox.draw_seeds(B, generator, device),
-                            keep=keep)
+            seeds = philox.draw_seeds(B, generator, device,
+                                      shared=self.obs_masks == "prng_shared")
+            return DropSpec(self.obs_masks, seeds=seeds, keep=keep)
         return DropSpec("ext", mask=draw_keep_mask((B, rows, D_), keep, generator, device),
                         keep=keep)
 
@@ -166,13 +171,17 @@ class EnvDropAgent:
         episodes, ``batch_size`` slots at a time (agents/packed.py): the
         pool encoded once, the shared ``decode`` per step, the critic on a
         last decode step, and ``packed_a2c``.  With N == B it computes the
-        unpacked ``rollout(train_rl=True)`` A2C loss."""
+        unpacked ``rollout(train_rl=True)`` A2C loss.  In a data-parallel
+        step the pool is the global one, which every rank holds and
+        encodes whole (its draws are one process's), and a rank runs its
+        ``batch_size`` slots of the global slots (agents/packed.py)."""
         C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask_pool = pool.instr_tokens == PAD_IDX
-        ctx_pool, h0_pool, c0_pool = encoder_apply(params["encoder"], pool.instr_tokens,
-                                                   pool.instr_len, True, drop, generator)
+        with M.replicated_rows():
+            ctx_pool, h0_pool, c0_pool = encoder_apply(params["encoder"], pool.instr_tokens,
+                                                       pool.instr_len, True, drop, generator)
         decode = self._decode(params["decoder"], world, True, generator)
         result = packed_rollout_scan(world, pool, ctx_pool, ctx_mask_pool, h0_pool, c0_pool,
                                      decode, batch_size, episode_len or self.episode_len,
@@ -185,7 +194,7 @@ class EnvDropAgent:
                                   final)
             last_value = D.critic_apply(params["critic"], last_h, True, drop, generator)
         values = D.critic_apply(params["critic"], result.steps.hidden.flip(0), True, drop,
-                                generator)
+                                generator, batch_dim=1)
         losses = packed_a2c(result, values, last_value, self.cfg.GAMMA, self.cfg.RL_NORMALIZE,
                             ctx_pool.shape[0])
         return losses, result
@@ -214,6 +223,7 @@ class EnvDropAgent:
         ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
                                     drop, generator)
         B = ep.instr_tokens.shape[0]
+        Bg = M.global_rows(B)  # the denominators' batch: every rank's rows
         decode = self._decode(params["decoder"], world, train, generator, feat_mask)
 
         def model_step(mc, meta, state, t):
@@ -238,7 +248,7 @@ class EnvDropAgent:
                 last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
             # critic values of all steps, latest first, as one batched call
             values = D.critic_apply(params["critic"], steps.hidden.flip(0), train, drop,
-                                    generator)
+                                    generator, batch_dim=1)
             gamma = self.cfg.GAMMA
             discount = torch.logical_not(result.final_state.ended).float() * last_value.float()
             T = steps.reward.shape[0]
@@ -256,27 +266,25 @@ class EnvDropAgent:
                     loss_vec = loss_vec - 0.01 * steps.entropy[t] * mask
                 critic_loss_sum = critic_loss_sum + (((r_ - v_) ** 2) * mask).sum()
                 rl_vec = rl_vec + loss_vec
-            total = alive.sum().clamp_min(1.0)
             if self.cfg.RL_NORMALIZE == "total":
-                rl_vec = rl_vec / total
+                rl_vec = rl_vec / M.global_sum(alive.sum()).clamp_min(1.0)
             elif self.cfg.RL_NORMALIZE == "batch":
-                rl_vec = rl_vec / B
+                rl_vec = rl_vec / Bg
             rl_loss = rl_vec.sum()
         else:
             zero = alive.new_zeros(())
             rl_vec, rl_loss, critic_loss_sum = alive.new_zeros(B), zero, zero
-            total = alive.sum()
 
         ml_weight = self.cfg.ML_WEIGHT
         if train_ml:
-            ml_loss = C.ml_loss_sum(steps) * ml_weight / B
-            ml_vec = C.ml_loss_per_sample(steps) * ml_weight / B
+            ml_loss = C.ml_loss_sum(steps) * ml_weight / Bg
+            ml_vec = C.ml_loss_per_sample(steps) * ml_weight / Bg
         else:
             ml_loss, ml_vec = alive.new_zeros(()), alive.new_zeros(B)
         losses = EnvDropLosses(
             ml_loss=ml_loss, ml_loss_per_sample=ml_vec, rl_loss=rl_loss,
             rl_loss_per_sample=rl_vec, entropy_sum=(steps.entropy * alive).sum(),
-            critic_loss_sum=critic_loss_sum, total_actions=total)
+            critic_loss_sum=critic_loss_sum, total_actions=alive.sum())
         return losses, result
 
     def loss_fn(self, losses: EnvDropLosses, weights: Optional[torch.Tensor] = None

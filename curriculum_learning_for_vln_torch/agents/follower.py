@@ -25,6 +25,7 @@ from ..env.env import EpisodeBatch
 from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
 from ..ops import fused_obs
+from ..parallel import mesh as M
 from ..utils.tokenizer import PAD_IDX
 from ..world.compiler import WorldTables
 from . import common as C
@@ -105,7 +106,8 @@ class FollowerAgent:
     def loss_fn(self, losses: FollowerLosses, weights: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """The objective; with SPCL weights w the weighted per-sample loss
-        normalised by sum(w) (ref: curriculum.py:297-301)."""
+        normalised by sum(w) (ref: curriculum.py:297-301), over every rank's
+        rows in a data-parallel step."""
         if weights is None:
             return losses.ml_loss
-        return torch.dot(weights, losses.ml_loss_per_sample) / weights.sum()
+        return torch.dot(weights, losses.ml_loss_per_sample) / M.global_sum(weights.sum())

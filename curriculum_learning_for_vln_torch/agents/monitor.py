@@ -22,6 +22,7 @@ from ..env.env import EpisodeBatch
 from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
 from ..ops import fused_obs
+from ..parallel import mesh as M
 from ..utils.tokenizer import PAD_IDX
 from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
@@ -114,8 +115,9 @@ class SelfMonitorAgent:
 
         # scalar (the reference's reductions): per step t > 0, lamb mean_B(mse)
         # + (1 - lamb) mean_alive(ce); at t = 0 the CE alone
-        ce_step_mean = steps.ce.sum(dim=1) / steps.ce_count.clamp_min(1)
-        mse_step_mean = mse_vec.mean(dim=1)
+        # (over every rank's rows in a data-parallel step)
+        ce_step_mean = steps.ce.sum(dim=1) / M.global_sum(steps.ce_count).clamp_min(1)
+        mse_step_mean = mse_vec.sum(dim=1) / M.global_rows(B)
         ml_scalar = torch.where(later, lamb * mse_step_mean + (1 - lamb) * ce_step_mean,
                                 ce_step_mean).sum()
         # per sample (SPCL): the joint vector summed over time (ref: monitor.py:151-165)
@@ -129,7 +131,8 @@ class SelfMonitorAgent:
     def loss_fn(self, losses: MonitorLosses, weights: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """The joint objective; with SPCL weights w the weighted per-sample
-        loss normalised by sum(w) (ref: curriculum.py:297-301)."""
+        loss normalised by sum(w) (ref: curriculum.py:297-301), over every
+        rank's rows in a data-parallel step."""
         if weights is None:
             return losses.ml_loss
-        return torch.dot(weights, losses.ml_loss_per_sample) / weights.sum()
+        return torch.dot(weights, losses.ml_loss_per_sample) / M.global_sum(weights.sum())

@@ -33,6 +33,7 @@ import torch
 from ..env import env as E
 from ..env.env import EnvState, EpisodeBatch
 from ..models.attention import NEG_INF
+from ..parallel import mesh as M
 from ..world.compiler import WorldTables
 from . import common as C
 
@@ -50,6 +51,8 @@ class PackedStep(NamedTuple):
 
 
 class PackedResult(NamedTuple):
+    """``episodes_started`` and ``episodes_done`` count every rank's slots."""
+
     steps: PackedStep
     final_state: EnvState
     final_carry: tuple              # decoder carry (h, c, h_tilde)
@@ -59,6 +62,9 @@ class PackedResult(NamedTuple):
 
 
 class PackedLosses(NamedTuple):
+    """As EnvDropLosses: in a data-parallel step each scalar but the
+    episode counts is this rank's part of the global one."""
+
     rl_loss: torch.Tensor              # scalar (normalized per RL_NORMALIZE)
     rl_loss_per_episode: torch.Tensor  # [N] pool-episode attribution (SPCL)
     entropy_sum: torch.Tensor
@@ -88,12 +94,20 @@ def packed_rollout_scan(world: WorldTables, pool: EpisodeBatch, ctx_pool: torch.
                         generator: Optional[torch.Generator] = None) -> PackedResult:
     """Run ``episode_len`` sampled steps over ``batch_size`` slots, refilling
     ended slots from ``pool`` (N episodes, all valid: the trainers check it
-    once, engine.loop.check_pool_valid) until it is exhausted."""
+    once, engine.loop.check_pool_valid) until it is exhausted.
+
+    In a data-parallel step the pool is the global one on every rank, the
+    slots are the global slots, and a rank runs its ``batch_size`` of them
+    (slots r * B ...): the refill's cumsum runs over every rank's ended
+    flags in global slot order (an all-gather of a [B] flag a step), so
+    the pointer and the counts are one process's."""
     N, B = ctx_pool.shape[0], batch_size
-    ids = torch.arange(B, device=ctx_pool.device)
+    mesh = M.step_mesh()
+    first = mesh.data_index * B if mesh is not None else 0
+    ids = torch.arange(first, first + B, device=ctx_pool.device)
     state = E.reset(world, gather_episodes(pool, ids))
-    mc = (h0_pool[:B], c0_pool[:B], h0_pool[:B])  # h_tilde starts at h (ref: envdrop.py:150)
-    next_ptr = torch.tensor(B, device=ctx_pool.device)
+    mc = (h0_pool[ids], c0_pool[ids], h0_pool[ids])  # h_tilde starts at h (ref: envdrop.py:150)
+    next_ptr = torch.tensor(M.global_rows(B), device=ctx_pool.device)
     records = []
     exit_ = C.EarlyExit()
     for _ in range(episode_len):
@@ -117,20 +131,22 @@ def packed_rollout_scan(world: WorldTables, pool: EpisodeBatch, ctx_pool: torch.
             reward=C.shaped_reward(is_stop, meta.dist, dist_after, alive_before),
             log_prob=log_prob, entropy=entropy, hidden=h1))
 
-        # refill the ended slots from the pool, in slot order
-        want = new_state.ended
-        cand_ids = next_ptr + torch.cumsum(want.long(), 0) - 1
-        can = want & (cand_ids < N)
-        ids = torch.where(can, cand_ids, ids)
+        # refill the ended slots from the pool, in global slot order
+        want = M.gather_rows(new_state.ended)
+        cand_all = next_ptr + torch.cumsum(want.long(), 0) - 1
+        can_all = want & (cand_all < N)
+        can = can_all[first: first + B]
+        ids = torch.where(can, cand_all[first: first + B], ids)
         fresh = E.reset(world, gather_episodes(pool, ids))
         state = EnvState(*(_sel(can, a, b) for a, b in zip(fresh, new_state)))
         h2, c2, ht2 = mc2
         mc = (_sel(can, h0_pool[ids], h2), _sel(can, c0_pool[ids], c2),
               _sel(can, h0_pool[ids], ht2))
-        next_ptr = next_ptr + can.sum()
+        next_ptr = next_ptr + can_all.sum()
     steps = PackedStep(*(torch.stack(field) for field in zip(*records)))
     return PackedResult(steps=steps, final_state=state, final_carry=mc, final_slot_ep=ids,
-                        episodes_started=next_ptr, episodes_done=steps.ended_now.sum())
+                        episodes_started=next_ptr,
+                        episodes_done=M.global_sum(steps.ended_now.sum()))
 
 
 def packed_a2c(result: PackedResult, values: torch.Tensor, last_value: torch.Tensor,
@@ -157,11 +173,10 @@ def packed_a2c(result: PackedResult, values: torch.Tensor, last_value: torch.Ten
                       - 0.01 * steps.entropy[t] * mask)  # packed is always sampled
         critic_loss_sum = critic_loss_sum + (((r_ - v_) ** 2) * mask).sum()
     rl = torch.stack(rl_vecs)  # [T, B]
-    total = alive.sum().clamp_min(1.0)
-    if rl_normalize == "total":
-        rl = rl / total
+    if rl_normalize == "total":  # over every rank's slots in a data-parallel step
+        rl = rl / M.global_sum(alive.sum()).clamp_min(1.0)
     elif rl_normalize == "batch":
-        rl = rl / B
+        rl = rl / M.global_rows(B)
     # pool-episode attribution: each step's loss onto its episode
     per_episode = rl.new_zeros(num_episodes).index_add(0, steps.slot_ep.reshape(-1),
                                                        rl.reshape(-1))

@@ -42,6 +42,7 @@ from ..models.attention import NEG_INF
 from ..models.core import dropout_mask
 from ..models.speaker_model import (speaker_decoder_apply, speaker_decoder_init,
                                     speaker_encoder_apply, speaker_encoder_init)
+from ..parallel import mesh as M
 from ..utils.tokenizer import BOS_IDX, EOS_IDX, PAD_IDX, UNK_IDX
 from ..utils.tree import tree_leaves, tree_map
 from ..world.compiler import WorldTables
@@ -175,7 +176,8 @@ class Speaker:
         per_word = torch.where(valid, -picked, 0.0)
         if for_listener:
             return per_word
-        return per_word.sum() / valid.sum().clamp_min(1)
+        # over every rank's words in a data-parallel step
+        return per_word.sum() / M.global_sum(valid.sum()).clamp_min(1)
 
     def infer(self, params: dict, feats: SpeakerFeatures, sampling: bool = False,
               train: bool = False, feat_mask: Optional[torch.Tensor] = None,
@@ -213,20 +215,24 @@ class Speaker:
 
     # ------------------------------------------------------------------
     def train_steps(self, params: dict, optimizer: ClippedAdam, world: WorldTables, henv,
-                    generator: Optional[torch.Generator], iters: int):
+                    generator: Optional[torch.Generator], iters: int, mesh=None):
         """``iters`` teacher-forcing updates on ``henv``'s next batches (ref:
-        speaker.py:75-88), ``params`` updated in place.  Returns (params,
+        speaker.py:75-88), ``params`` updated in place.  With a ``mesh``
+        the batches are this rank's rows and each step takes the gradient
+        summed over the ranks (self_train.py:84-92).  Returns (params,
         optimizer, the losses)."""
         losses = []
         for _ in range(iters):
             ep = henv.next_batch()
             feats = collect_shortest_path_features(world, ep, self.episode_len,
                                                    self.compute_dtype)
-            loss = self.teacher_forcing_loss(params, feats, ep.instr_tokens, True, generator)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with M.sharded_step(mesh):
+                loss = self.teacher_forcing_loss(params, feats, ep.instr_tokens, True, generator)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                M.all_reduce_grads(params, mesh)
+                losses.append(M.global_sum(loss.detach()))
             optimizer.step()
-            losses.append(loss.detach())
         return params, optimizer, torch.stack(losses).tolist() if losses else []
 
     @torch.no_grad()

@@ -40,22 +40,25 @@ class VLNBertScorer:
 
     def apply(self, params, instr_tokens, image_features, image_locations,
               attention_mask=None, image_attention_mask=None, train: bool = False,
-              compute_heads: bool = True, generator: Optional[torch.Generator] = None):
+              compute_heads: bool = True, generator: Optional[torch.Generator] = None,
+              tp=None):
         return vlnbert_apply(
             params, self.cfg, instr_tokens, image_features, image_locations,
             attention_mask=attention_mask, image_attention_mask=image_attention_mask,
             train=train, dropout_prob=self.dropout_prob, compute_heads=compute_heads,
-            generator=generator)
+            generator=generator, tp=tp)
 
     @torch.inference_mode()
     def score_paths(self, params, instr_tokens, image_features, image_locations,
-                    attention_mask=None, image_attention_mask=None) -> torch.Tensor:
+                    attention_mask=None, image_attention_mask=None, tp=None) -> torch.Tensor:
         """vil_logit [B] of a batch of (path, instruction) pairs, with the
         LM and region heads left out (compute_heads=False): the difficulty
-        score reads vil_logit alone."""
+        score reads vil_logit alone.  With ``tp`` (parallel/
+        vilbert_sharding.py) ``params`` are this rank's slices and the
+        model group scores the batch together."""
         logit, _, _, _ = self.apply(params, instr_tokens, image_features, image_locations,
                                     attention_mask, image_attention_mask, train=False,
-                                    compute_heads=False)
+                                    compute_heads=False, tp=tp)
         return logit[:, 0]
 
 

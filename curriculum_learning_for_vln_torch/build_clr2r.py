@@ -9,10 +9,17 @@ end to end on a synthetic grounded world.  Runs on CUDA unless
 ``--device`` names another device, and raises without a GPU:
 
     python -m curriculum_learning_for_vln_torch.build_clr2r --out DIR \\
-        [--steps 120] [--device cpu]
+        [--steps 120] [--device cpu] [--mesh-model M]
 
 Writes DIR/R2R_round_{1..5}_v3.json in the reference's round-file format
 and prints {"rounds": {...}, "final_loss": x} as its last line.
+
+Several processes, started as ``main``'s are (the VLN_* variables), score
+together over a (data, model) mesh of ``--mesh-model`` M ranks a model
+group (TPU.MESH_MODEL's counterpart): rank 0 pretrains and broadcasts the
+scorer, each batch's rows split over the data axis and the scorer's heads
+and FFN columns over the model axis (parallel/vilbert_sharding.py); rank
+0 writes the files and prints the line.
 """
 from __future__ import annotations
 
@@ -32,12 +39,28 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda; raises without a GPU)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks of a model group, over which the scorer's heads split "
+                         "(several processes: the VLN_* variables, as main)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
 
+    from .parallel import mesh as M
+    from .world import compiler
+
+    device = (M.init_from_env(args.device) if M.launched_by_env()
+              else compiler.resolve_device(args.device))
+    try:
+        return build(args, device, M.make_mesh(model=args.mesh_model))
+    finally:
+        if M.dist.is_initialized():
+            M.dist.destroy_process_group()
+
+
+def build(args, device, mesh) -> dict:
     import numpy as np
     import torch
 
@@ -46,10 +69,10 @@ def main(argv=None) -> dict:
     from .engine.pretrain import (VLNBertPretrainer, make_clr2r_rounds, pretrain_batches,
                                   score_difficulty)
     from .models.vilbert import VilBertConfig
+    from .parallel import mesh as M
     from .utils.tokenizer import Tokenizer, build_vocab
     from .world import compiler, synthetic
 
-    device = compiler.resolve_device(args.device)
     feat = 128
     max_path = 8
     graphs = synthetic.make_world_graphs(args.scans, args.nodes, seed=args.seed)
@@ -84,14 +107,19 @@ def main(argv=None) -> dict:
                     return
 
     generator = torch.Generator(device=device).manual_seed(args.seed + 9)
-    params, optimizer, logs = trainer.train(params, optimizer, batches(), generator)
-    print(f"pretrained {args.steps} steps, final loss {float(logs['loss']):.4f} (lm "
-          f"{float(logs['lm_loss']):.3f} region {float(logs['region_loss']):.3f} align "
-          f"{float(logs['align_loss']):.3f})", file=sys.stderr)
+    final = torch.zeros(4, device=device)  # the losses, rank 0's on every rank
+    if M.is_main():  # rank 0 pretrains; every rank then scores with its parameters
+        params, optimizer, logs = trainer.train(params, optimizer, batches(), generator)
+        final = torch.stack([logs[k].detach().float().reshape(())
+                             for k in ("loss", "lm_loss", "region_loss", "align_loss")])
+        print(f"pretrained {args.steps} steps, final loss {float(final[0]):.4f} (lm "
+              f"{float(final[1]):.3f} region {float(final[2]):.3f} align "
+              f"{float(final[3]):.3f})", file=sys.stderr)
+    M.replicate((params, final))
 
     scorer = VLNBertScorer(cfg)
     scores = score_difficulty(scorer, params, world, data, tok, max_path_len=max_path,
-                              feat_dim=feat)
+                              feat_dim=feat, mesh=mesh)
     # one score a path (3 instructions each): the mean; the rounds are
     # path-level partitions of the train split
     by_path = {}
@@ -99,15 +127,15 @@ def main(argv=None) -> dict:
         by_path.setdefault(it["path_id"], []).append(float(s))
     path_scores = np.array([np.mean(by_path[it["path_id"]]) for it in items])
     rounds = make_clr2r_rounds(items, path_scores, n_rounds=5)
-
+    result = {"rounds": {k: len(v) for k, v in rounds.items()}, "final_loss": float(final[0])}
+    if not M.is_main():
+        return result
     os.makedirs(args.out, exist_ok=True)
     for name, round_items in rounds.items():
         path = os.path.join(args.out, f"R2R_{name}_v3.json")
         with open(path, "w") as f:
             json.dump(round_items, f)
         print(f"wrote {path}: {len(round_items)} paths", file=sys.stderr)
-    result = {"rounds": {k: len(v) for k, v in rounds.items()},
-              "final_loss": float(logs["loss"])}
     print(json.dumps(result))
     return result
 

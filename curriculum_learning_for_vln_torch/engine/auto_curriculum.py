@@ -16,6 +16,9 @@ The bandit is numpy on the host, number for number the JAX package's
 (the same ``np.random.default_rng(seed)`` draws), and its state rides the
 checkpoints as {"kind": "exp3s", "log_w", "history", "last_loss"}, the
 JAX package's form, so a run of either package resumes in the port.
+Data-parallel, every rank holds the same bandit: the rewards are the
+global losses (summed over the ranks, engine/loop.py), so every rank
+draws the same arm from the same seed.
 """
 from __future__ import annotations
 

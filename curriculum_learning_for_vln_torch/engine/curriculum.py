@@ -18,7 +18,12 @@ trainer with its hooks overridden (engine/trainer.py):
   the JAX package's form, so an SPCL run of either package resumes in the
   port.
 
-One device: the JAX package's mesh and ``SCAN_ITERS`` are not ported.
+Data-parallel as the classic trainer (curriculum.py:148-177): the
+weights and the loss record stay whole on every rank; an iteration takes
+the global batch's weights (``engine.loop`` keeps the rank's rows) and
+records the per-item losses gathered from every rank (curriculum.py:
+100-101, 235-238), so the update is one process's on every rank.
+``SCAN_ITERS`` is not ported.
 """
 from __future__ import annotations
 

@@ -23,6 +23,15 @@ Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
 ported.  ``configure_runtime`` sets the rollout's early exit from the
 config, as the trainers' first step (loop.py:26-72).
+
+Data parallelism: given a ``mesh`` of more than one rank, an iteration
+runs this rank's rows of the global batch as its part of the global
+program (``parallel.mesh.sharded_step``: global draws, global
+denominators, SPCL weights cut to the rank's rows), and ``_update``
+sums the gradients over the ranks before the clip and the step
+(``all_reduce_grads``), then sums the logged scalars and gathers the
+per-sample record, so that every rank logs, clips and steps as one
+process on the whole batch does (JAX's SPMD step, mesh.py:79-101).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 from ..agents.common import (FEEDBACK_ARGMAX, FEEDBACK_IDS, FEEDBACK_SAMPLE, FEEDBACK_TEACHER,
                              assemble_trajectories, set_early_exit)
 from ..env.env import EpisodeBatch
+from ..parallel import mesh as M
 from ..utils.tree import tree_leaves
 from ..world.compiler import WorldTables
 
@@ -162,7 +172,7 @@ def iteration_loss(agent, feedback: str, tables: WorldTables, params: dict, ep,
         "ml_loss": il.ml_loss,
         "rl_loss": rl.rl_loss if rl is not None else zero,
         # SPCL per-item record: ml vector * B (ref: curriculum.py:313)
-        "loss_per_sample": ml_vec * ml_vec.shape[0],
+        "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
         "entropy": rl.entropy_sum if rl is not None else il.entropy_sum,
         "critic_loss": rl.critic_loss_sum if rl is not None else zero,
         "total_actions": rl.total_actions if rl is not None else il.total_actions,
@@ -197,7 +207,7 @@ def packed_iteration_loss(agent, tables: WorldTables, params: dict, ep: EpisodeB
         "ml_loss": il.ml_loss,
         "rl_loss": rl.rl_loss,
         # SPCL per-item record for the IL batch (ref: curriculum.py:313)
-        "loss_per_sample": ml_vec * ml_vec.shape[0],
+        "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
         "entropy": rl.entropy_sum,
         "critic_loss": rl.critic_loss_sum,
         "total_actions": rl.total_actions,
@@ -207,17 +217,48 @@ def packed_iteration_loss(agent, tables: WorldTables, params: dict, ep: EpisodeB
     return total, logs
 
 
+# an iteration's logs, by how the ranks' values make the global one: scalars
+# that are sums of the ranks' parts, scalars every rank holds whole (the
+# packed rollout's episode counts), and per-row vectors (gathered in rank order)
+SUMMED_LOGS = ("loss", "ml_loss", "rl_loss", "entropy", "critic_loss", "total_actions",
+               "progress_loss")
+GLOBAL_LOGS = ("episodes_done", "episodes_started")
+ROW_LOGS = ("loss_per_sample",)
+
+
+def reduce_logs(logs: dict, mesh: Optional[M.Mesh]) -> dict:
+    """The global logs of a data-parallel iteration: the summed scalars
+    summed over the ranks (one all-reduce), ``loss_per_sample`` gathered
+    in rank order; as they are without a process group.  A key of none of
+    the three kinds raises, with or without a process group."""
+    unknown = set(logs).difference(SUMMED_LOGS, GLOBAL_LOGS, ROW_LOGS)
+    if unknown:
+        raise KeyError(f"reduce_logs: the logs {sorted(unknown)} are of no known kind "
+                       "(engine/loop.py: SUMMED_LOGS, GLOBAL_LOGS or ROW_LOGS)")
+    if mesh is None or not mesh.distributed:
+        return logs
+    with M.sharded_step(mesh):
+        keys = [k for k in SUMMED_LOGS if k in logs]
+        sums = M.global_sum(torch.stack([logs[k].float() for k in keys]))
+        out = dict(logs, **{k: v.to(logs[k].dtype) for k, v in zip(keys, sums.unbind())})
+        if "loss_per_sample" in logs:
+            out["loss_per_sample"] = M.gather_rows(logs["loss_per_sample"])
+    return out
+
+
 def _update(optimizer: torch.optim.Optimizer, params: dict, total: torch.Tensor,
-            logs: dict, clip: bool = True) -> dict:
-    """Gradients of ``total``, with ``clip`` the clip at 40 of the encoder's
-    and the decoder's (EnvDrop's alone, loop.py:146), one optimizer step on
-    ``params`` (in place); the detached logs."""
+            logs: dict, clip: bool = True, mesh: Optional[M.Mesh] = None) -> dict:
+    """Gradients of ``total`` (summed over the ranks of ``mesh``), with
+    ``clip`` the clip at 40 of the encoder's and the decoder's (EnvDrop's
+    alone, loop.py:146), one optimizer step on ``params`` (in place); the
+    detached global logs."""
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    M.all_reduce_grads(params, mesh)
     if clip:
         clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
     optimizer.step()
-    return {k: v.detach() for k, v in logs.items()}
+    return reduce_logs({k: v.detach() for k, v in logs.items()}, mesh)
 
 
 def agent_iteration_loss(agent, feedback: str, tables: WorldTables, params: dict,
@@ -248,34 +289,45 @@ def agent_iteration_loss(agent, feedback: str, tables: WorldTables, params: dict
 def agent_one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
                    params: dict, model_state: dict, ep: EpisodeBatch,
                    generator: Optional[torch.Generator], weights: Optional[torch.Tensor] = None,
-                   il_len: Optional[int] = None, lamb: float = 0.5):
+                   il_len: Optional[int] = None, lamb: float = 0.5,
+                   mesh: Optional[M.Mesh] = None):
     """One Follower or Self-Monitor iteration: ``agent_iteration_loss`` and
-    one unclipped update of ``params``.  Returns (the detached logs, the
-    new model state)."""
-    total, logs, model_state = agent_iteration_loss(agent, feedback, tables, params, model_state,
-                                                    ep, generator, weights, il_len, lamb)
-    return _update(optimizer, params, total, logs, clip=False), model_state
+    one unclipped update of ``params``; with a ``mesh``, ``ep`` is this
+    rank's rows and ``weights`` the global batch's.  Returns (the detached
+    logs, the new model state)."""
+    with M.sharded_step(mesh):
+        total, logs, model_state = agent_iteration_loss(
+            agent, feedback, tables, params, model_state, ep, generator, M.local_rows(weights),
+            il_len, lamb)
+    return _update(optimizer, params, total, logs, clip=False, mesh=mesh), model_state
 
 
 def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
              params: dict, ep, generator: Optional[torch.Generator],
-             weights: Optional[torch.Tensor] = None, il_len: Optional[int] = None) -> dict:
+             weights: Optional[torch.Tensor] = None, il_len: Optional[int] = None,
+             mesh: Optional[M.Mesh] = None) -> dict:
     """One training iteration: ``iteration_loss`` and one update of
-    ``params``.  Returns the detached logs."""
-    total, logs = iteration_loss(agent, feedback, tables, params, ep, generator, weights, il_len)
-    return _update(optimizer, params, total, logs)
+    ``params``; with a ``mesh``, ``ep`` is this rank's rows and ``weights``
+    the global batch's.  Returns the detached logs."""
+    with M.sharded_step(mesh):
+        total, logs = iteration_loss(agent, feedback, tables, params, ep, generator,
+                                     M.local_rows(weights), il_len)
+    return _update(optimizer, params, total, logs, mesh=mesh)
 
 
 def packed_one_iter(agent, optimizer: torch.optim.Optimizer, tables: WorldTables, params: dict,
                     ep: EpisodeBatch, pool: EpisodeBatch, generator: Optional[torch.Generator],
                     w_il: Optional[torch.Tensor] = None, w_pool: Optional[torch.Tensor] = None,
-                    il_len: Optional[int] = None) -> dict:
+                    il_len: Optional[int] = None, mesh: Optional[M.Mesh] = None) -> dict:
     """One packed iteration: ``packed_iteration_loss`` and one update of
-    ``params``.  Returns the detached logs, ``episodes_done`` and
+    ``params``; with a ``mesh``, ``ep`` and ``w_il`` are this rank's rows
+    of the global IL batch and its weights, ``pool`` and ``w_pool`` the
+    global pool's.  Returns the detached logs, ``episodes_done`` and
     ``episodes_started`` among them."""
-    total, logs = packed_iteration_loss(agent, tables, params, ep, pool, generator, w_il,
-                                        w_pool, il_len)
-    return _update(optimizer, params, total, logs)
+    with M.sharded_step(mesh):
+        total, logs = packed_iteration_loss(agent, tables, params, ep, pool, generator,
+                                            M.local_rows(w_il), w_pool, il_len)
+    return _update(optimizer, params, total, logs, mesh=mesh)
 
 
 def concat_batches(batches) -> EpisodeBatch:

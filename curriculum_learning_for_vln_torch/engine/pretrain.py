@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from ..models.vilbert import VilBertConfig, vlnbert_apply, vlnbert_init
+from ..parallel import mesh as M
+from ..parallel import vilbert_sharding as S
 from ..utils.tokenizer import PAD_IDX
 from ..utils.tree import tree_leaves, tree_map
 from .loop import ClippedAdam
@@ -270,10 +272,21 @@ def pretrain_batches(world, items: Sequence[dict], tok, batch_size: int, max_pat
 
 
 def score_difficulty(scorer, params, world, items: Sequence[dict], tok, max_path_len: int,
-                     feat_dim: int, batch_size: int = 32) -> np.ndarray:
+                     feat_dim: int, batch_size: int = 32, mesh=None) -> np.ndarray:
     """The path-instruction compatibility logit of each item (higher =
     easier; the paper's CLR2R difficulty signal), in batches of
-    ``batch_size`` (the last one padded) on the device of ``params``."""
+    ``batch_size`` (the last one padded) on the device of ``params``.
+
+    Over a process group's ``mesh`` (parallel/mesh.py) each batch is padded
+    to a multiple of the data axis (``pad_batch_to_devices``) and its rows
+    split over it, the scorer's heads and FFN columns over the model axis
+    (parallel/vilbert_sharding.py), and every rank gathers every score;
+    without one, as above."""
+    mesh = mesh if mesh is not None else M.make_mesh()
+    tp = S.tensor_parallel(mesh)
+    local = S.shard_vilbert_params(params, mesh) if tp is not None else params
+    batch_size = M.pad_batch_to_devices(batch_size, mesh)
+    mine = M.batch_rows(mesh, batch_size)
     tokens, feats, locs, region_mask, _ = pretrain_arrays(world, items, tok, max_path_len,
                                                           feat_dim)
     device = tree_leaves(params)[0].device
@@ -282,14 +295,17 @@ def score_difficulty(scorer, params, world, items: Sequence[dict], tok, max_path
         e = min(s + batch_size, len(items))
         pad = batch_size - (e - s)
         sl = slice(s, e)
-        t = np.pad(tokens[sl], ((0, pad), (0, 0)))
-        f = np.pad(feats[sl], ((0, pad), (0, 0), (0, 0)))
-        l = np.pad(locs[sl], ((0, pad), (0, 0), (0, 0)))
-        m = np.pad(region_mask[sl], ((0, pad), (0, 0)))
+        t = np.pad(tokens[sl], ((0, pad), (0, 0)))[mine]
+        f = np.pad(feats[sl], ((0, pad), (0, 0), (0, 0)))[mine]
+        l = np.pad(locs[sl], ((0, pad), (0, 0), (0, 0)))[mine]
+        m = np.pad(region_mask[sl], ((0, pad), (0, 0)))[mine]
         am = (t != PAD_IDX).astype(np.float32)
-        vals = scorer.score_paths(params, *(torch.from_numpy(a).to(device) for a in (t, f, l)),
-                                  torch.from_numpy(am).to(device), torch.from_numpy(m).to(device))
-        out[sl] = vals.float().cpu().numpy()[: e - s]
+        vals = scorer.score_paths(local, *(torch.from_numpy(a).to(device) for a in (t, f, l)),
+                                  torch.from_numpy(am).to(device), torch.from_numpy(m).to(device),
+                                  tp=tp)
+        with M.sharded_step(mesh):
+            vals = M.gather_rows(vals.float())  # every data rank's rows, in order
+        out[sl] = vals.cpu().numpy()[: e - s]
     return out
 
 

@@ -27,12 +27,26 @@ choose the episode source, ``on_epoch_losses`` takes the epoch's
 per-iteration losses in draw order (Exp3.S's rewards), ``batch_weights`` /
 ``record_losses`` / ``end_epoch`` carry SPCL's per-item weights, loss
 record and update, ``curriculum_state`` / ``load_curriculum_state`` the
-checkpoint entry.  One device, eager: no mesh, no ``SCAN_ITERS`` and no
-compile warm-up.
+checkpoint entry.  Eager: no ``SCAN_ITERS`` and no compile warm-up.
+
+Data parallelism (trainer.py:46-75, 172): ``setup_mesh`` builds the
+(data, model) mesh of TPU.MESH_DATA / MESH_MODEL over the process group
+(the data axis fitted to the gcd of the envs' batch sizes) and makes
+the training envs emit each rank's rows; evaluation batches stay whole
+on every rank.  Rank 0's parameters, model state and optimizer state are
+broadcast at the start and after a resume; every iteration goes through
+``engine.loop`` with the mesh (gradients summed over the ranks); rank 0
+alone writes checkpoints, scalars and tables, and the ranks meet at a
+barrier after each epoch's checkpoints.  With ``TPU.PROFILE_DIR`` rank 0
+traces the second epoch (trainer.py:257-266; utils/profiling.py).  A
+``StepTimer`` times each epoch's training and evaluation (the card
+synchronized), logged as ms/iter and written as ``perf/`` scalars.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
+import math
 import os
 import os.path as osp
 import time
@@ -43,6 +57,8 @@ import torch
 
 from ..agents import TestAgent, init_agent
 from ..convert import model_state_from_jax, params_from_jax
+from ..parallel import mesh as M
+from ..utils import profiling
 from ..utils.logging_utils import ScalarWriter, clean_dir, prettyprint
 from ..utils.tree import tree_map
 from ..world.compiler import resolve_device
@@ -55,6 +71,32 @@ logger = logging.getLogger("main.train")
 
 METRIC_KEYS = ("lengths", "steps", "nav_error", "oracle_error", "success_rate", "oracle_rate",
                "spl", "ndtw", "sdtw")
+
+
+def _flat_envs(envs):
+    for env in envs:
+        if isinstance(env, dict):
+            yield from env.values()
+        elif isinstance(env, (list, tuple)):
+            yield from _flat_envs(env)
+        elif env is not None:
+            yield env
+
+
+def setup_mesh(cfg, batch_size: int, train_env=None, *eval_envs) -> M.Mesh:
+    """The production (data, model) mesh from cfg.TPU over the process
+    group (one process: 1 x 1), with the data axis fitted to the gcd of
+    every env's batch size, and the training env(s) ``train_env`` (an env,
+    a dict or a list of them) set to emit this rank's rows; evaluation
+    envs stay whole (trainer.py:46-75)."""
+    for env in _flat_envs((train_env,) + eval_envs):
+        batch_size = math.gcd(batch_size, env.batch_size)
+    mesh = M.mesh_from_config(cfg, batch_size)
+    for env in _flat_envs((train_env,)):
+        env.set_sharding(mesh)
+    logger.info("Device mesh: data=%d model=%d (of %d ranks)", mesh.data, mesh.model,
+                M.world_size())
+    return mesh
 
 
 def dedup_by_path(items):
@@ -159,9 +201,12 @@ class ClassicTrainer:
             first_env = next(iter(first_env.values()))
         tables = first_env.world.device_tables(cfg.TPU.PRECISION, device)
         train_cfg = cfg.TRAIN
+        mesh = setup_mesh(cfg, train_cfg.BATCH_SIZE, train_env, valid_env, eval_train_env)
+        is_main = M.is_main()
 
         time_str = time.strftime("%Y-%m%d-%H:%M", time.localtime())
-        writer = ScalarWriter(osp.join(tsboard_dir, time_str) if tsboard_dir else None)
+        writer = ScalarWriter(osp.join(tsboard_dir, time_str)
+                              if tsboard_dir and is_main else None)
 
         # the same parameters for a seed on any device
         params, model_state = init_agent(agent, torch.Generator().manual_seed(seed))
@@ -180,10 +225,12 @@ class ClassicTrainer:
                 self.load_curriculum_state(bundle["curriculum"])
         params = tree_map(lambda t: t.to(device).requires_grad_(t.is_floating_point()), params)
         model_state = tree_map(lambda t: t.to(device), model_state)
+        M.replicate((params, model_state))  # rank 0's, on every rank
         envdrop = agent.name == "ENVDROP"
         optimizer = make_optimizer(train_cfg.OPTIM, train_cfg.LR, params)
         if bundle is not None:
             start_epoch = restore_training_state(bundle, optimizer, generator) + 1
+            M.replicate_optimizer(optimizer)
 
         eval_rollout = build_eval_rollout(agent)
         il_bucket = il_bucket_fn(cfg, agent)
@@ -200,12 +247,14 @@ class ClassicTrainer:
                                                data_name="CLR2R")
                                for key, env in eval_train_env.items()}
         output_ckpt_dir = osp.join(ckpt_root, time_str)
-        os.makedirs(output_ckpt_dir, exist_ok=True)
-        logger.info("Checkpoints at %s", output_ckpt_dir)
+        if is_main:
+            os.makedirs(output_ckpt_dir, exist_ok=True)
+            logger.info("Checkpoints at %s", output_ckpt_dir)
 
         def save(path, ep):
-            save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump(),
-                            curriculum=self.curriculum_state(), model_state=model_state)
+            if is_main:
+                save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump(),
+                                curriculum=self.curriculum_state(), model_state=model_state)
 
         start_time = last_time = time.time()
         iters = train_cfg.ITER_PER_EPOCH
@@ -213,39 +262,54 @@ class ClassicTrainer:
                     else ("loss", "progress_loss") if agent.name == "SELF-MONITOR" else ("loss",))
         if packed:
             log_keys += ("episodes_done", "episodes_started")
+        profile_dir = cfg.TPU.PROFILE_DIR
+        timer = profiling.StepTimer()  # each epoch's training and evaluation, card synchronized
         for ep in range(start_epoch, train_cfg.MAX_EPOCH + 1):
+            timer.reset()
+            if profile_dir and ep == start_epoch + 1 and is_main:
+                # the second epoch: the first carries the kernels' builds
+                profile_ctx = profiling.trace(profile_dir)
+                logger.info("Capturing a torch.profiler trace of epoch %d -> %s", ep,
+                            profile_dir)
+            else:
+                profile_ctx = contextlib.nullcontext()
             epoch_env = self.select_env(train_env, ep)
             # logs stay on the device until the epoch ends: one sync per epoch
             log_entries = []
-            for _ in range(iters):
-                env_i = self.iter_env(epoch_env, train_env)
-                batch = env_i.next_batch()
-                idx = env_i.cur_batch_index
-                il_len = il_bucket(env_i)
-                if packed:
-                    # IL on the first batch, the packed A2C rollout over all
-                    raws, pool_idx = [batch], [idx]
-                    for _ in range(packed - 1):
-                        raws.append(env_i.next_batch())
-                        pool_idx.append(env_i.cur_batch_index)
-                    pool = concat_batches(raws)
-                    if not pool_checked:
-                        check_pool_valid(pool)
-                        pool_checked = True
-                    logs = packed_one_iter(agent, optimizer, tables, params, batch, pool,
-                                           generator, self.batch_weights(idx),
-                                           self.batch_weights(np.concatenate(pool_idx)), il_len)
-                elif envdrop:
-                    logs = one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, batch,
-                                    generator, weights=self.batch_weights(idx), il_len=il_len)
-                else:
-                    logs, model_state = agent_one_iter(
-                        agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, model_state, batch,
-                        generator, weights=self.batch_weights(idx), il_len=il_len,
-                        lamb=train_cfg.PROGMONITOR_WEIGHT)
-                self.record_losses(idx, logs["loss_per_sample"])
-                log_entries.append(logs)
-            host = {k: torch.stack([e[k] for e in log_entries]).cpu() for k in log_keys}
+            with profile_ctx, timer.time("train_epoch"):
+                for _ in range(iters):
+                    env_i = self.iter_env(epoch_env, train_env)
+                    batch = env_i.next_batch()  # this rank's rows
+                    idx = env_i.cur_batch_index  # the global batch's items
+                    il_len = il_bucket(env_i)
+                    if packed:
+                        # IL on the first batch, the packed A2C rollout over the
+                        # global pool of all
+                        raws, pool_idx = [env_i.cur_full_batch], [idx]
+                        for _ in range(packed - 1):
+                            env_i.next_batch()
+                            raws.append(env_i.cur_full_batch)
+                            pool_idx.append(env_i.cur_batch_index)
+                        pool = concat_batches(raws)
+                        if not pool_checked:
+                            check_pool_valid(pool)
+                            pool_checked = True
+                        logs = packed_one_iter(agent, optimizer, tables, params, batch, pool,
+                                               generator, self.batch_weights(idx),
+                                               self.batch_weights(np.concatenate(pool_idx)),
+                                               il_len, mesh)
+                    elif envdrop:
+                        logs = one_iter(agent, optimizer, cfg.AGENT.FEEDBACK, tables, params,
+                                        batch, generator, weights=self.batch_weights(idx),
+                                        il_len=il_len, mesh=mesh)
+                    else:
+                        logs, model_state = agent_one_iter(
+                            agent, optimizer, cfg.AGENT.FEEDBACK, tables, params, model_state,
+                            batch, generator, weights=self.batch_weights(idx), il_len=il_len,
+                            lamb=train_cfg.PROGMONITOR_WEIGHT, mesh=mesh)
+                    self.record_losses(idx, logs["loss_per_sample"])
+                    log_entries.append(logs)
+                host = {k: torch.stack([e[k] for e in log_entries]).cpu() for k in log_keys}
             epoch_losses = [float(x) for x in host["loss"]]
             self.on_epoch_losses(epoch_losses)
             epoch_loss = sum(epoch_losses)
@@ -267,26 +331,33 @@ class ClassicTrainer:
             cost = (time.time() - last_time) / 60
             remain = ((time.time() - start_time) / (60 * (ep + 1 - start_epoch))
                       * (train_cfg.MAX_EPOCH - ep))
+            iter_ms = timer.summary()["train_epoch"]["mean_ms"] / iters
             msg = (f"Epoch [{ep}/{train_cfg.MAX_EPOCH}], {cost:.2f}min/ep, remaining "
-                   f"{remain:.2f}min, loss {epoch_loss:.4f} (avg {avg_iter:.4f})")
+                   f"{remain:.2f}min, {iter_ms:.1f} ms/iter, loss {epoch_loss:.4f} "
+                   f"(avg {avg_iter:.4f})")
             if packed:
                 done, started = (int(host[k].sum()) for k in ("episodes_done", "episodes_started"))
                 writer.add_scalar("train/episodes_done", done, ep)
                 writer.add_scalar("train/episodes_started", started, ep)
                 msg += f", packed RL: {done} episodes done of {started} started"
-            print(msg)
+            if is_main:
+                print(msg)
             logger.info(msg)
 
-            if ep % train_cfg.EVAL_INTERVAL == 0 and train_evaluator:
+            evaluating = ep % train_cfg.EVAL_INTERVAL == 0
+            if evaluating:
+                timer.start("eval")
+            if evaluating and train_evaluator:
                 summary = {}
                 for key, env in eval_train_env.items():
                     results = run_eval(agent, params, tables, env, eval_rollout, model_state)
                     summary[key], _ = train_evaluator[key].score(results)
                     for mk in METRIC_KEYS:
                         writer.add_scalar(f"eval_{key}/{mk}", summary[key][mk], ep)
-                prettyprint(summary)
+                if is_main:
+                    prettyprint(summary)
 
-            if ep % train_cfg.EVAL_INTERVAL == 0:
+            if evaluating:
                 summary = {}
                 for key, env in valid_env.items():
                     results = run_eval(agent, params, tables, env, eval_rollout, model_state)
@@ -296,18 +367,24 @@ class ClassicTrainer:
                         writer.add_scalar(f"{key}/{mk}", scores[mk], ep)
                     if scores["success_rate"] > best_val[key]["success_rate"]:
                         best_val[key] = dict(scores)
-                        clean_dir(output_ckpt_dir, clean_key=f"best_{key}")
                         path = osp.join(output_ckpt_dir,
                                         f"best_{key}_SR:{scores['success_rate']:.4f}.ckpt")
+                        if is_main:
+                            clean_dir(output_ckpt_dir, clean_key=f"best_{key}")
+                            logger.info("Saved best %s SR=%.4f -> %s", key,
+                                        scores["success_rate"], path)
                         save(path, ep)
-                        logger.info("Saved best %s SR=%.4f -> %s", key, scores["success_rate"],
-                                    path)
-                prettyprint(summary)
+                if is_main:
+                    prettyprint(summary)
+                timer.stop("eval")
+            timer.write_scalars(writer, ep)  # perf/train_epoch_mean_ms, perf/eval_mean_ms
 
             self.end_epoch(ep, writer)
-            clean_dir(output_ckpt_dir, clean_key="latest_ep")
+            if is_main:
+                clean_dir(output_ckpt_dir, clean_key="latest_ep")
             save(osp.join(output_ckpt_dir, f"latest_ep{ep}.ckpt"), ep)
             save(osp.join(ckpt_root, "latest.ckpt"), ep)  # stable "latest" for OUTPUT.RESUME
+            M.barrier()  # the other ranks read no checkpoint before rank 0 has written it
             last_time = time.time()
 
         writer.close()

@@ -24,8 +24,15 @@ Kept from the JAX package, number for number:
   c_rate`` and the item -> global index map of the SPCL solver.
 
 ``inject_batch`` (host_env.py:236-253) rebuilds the current batch with
-instructions the speaker generated (back-translation).  Not ported: the
-mesh sharding hooks and ``restart``.
+instructions the speaker generated (back-translation).
+
+``set_sharding(mesh)`` (host_env.py:126-147) makes ``next_batch`` emit
+this rank's rows of each batch: every rank draws the same episode
+selection from the same seed (the global batch, ``cur_full_batch``, its
+``cur_batch_index`` and ``cur_batch_max_hops``) and keeps its rows.
+Evaluation batches stay whole on every rank (the JAX package's multi-
+process choice, trainer.py:66), so that scoring stays local.  Not
+ported: ``restart``.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as M
 from ..utils.tokenizer import Tokenizer
 from ..world.compiler import CompiledWorld, resolve_device
 from .env import EpisodeBatch
@@ -95,6 +103,8 @@ class R2RBatchEnv:
         self.ix = 0
         self._cur_indices: Optional[np.ndarray] = None
         self._cur_valid: Optional[np.ndarray] = None
+        self.cur_full_batch: Optional[EpisodeBatch] = None
+        self._mesh = None  # a data-parallel mesh whose rows next_batch emits
         self._dev = {k: torch.from_numpy(getattr(self, k)).to(self.device)
                      for k in ("instr_tokens", "instr_len", "start_node", "start_heading",
                                "goal", "goal_local", "path_local", "path_len")}
@@ -125,9 +135,19 @@ class R2RBatchEnv:
         return EpisodeBatch(**{k: v[ix] for k, v in self._dev.items()}, item_idx=ix,
                             valid=torch.from_numpy(valid).to(self.device))
 
+    def set_sharding(self, mesh) -> None:
+        """Emit this rank's rows of every training batch of ``mesh`` (None:
+        the whole batch)."""
+        self._mesh = mesh if mesh is not None and mesh.data > 1 else None
+
+    def _place(self, batch: EpisodeBatch) -> EpisodeBatch:
+        return batch if self._mesh is None else M.shard_batch(batch, self._mesh)
+
     def next_batch(self) -> EpisodeBatch:
-        """The next training minibatch."""
-        return self._make_batch(self._next_indices())
+        """The next training minibatch (this rank's rows of it under
+        ``set_sharding``; the whole of it is ``cur_full_batch``)."""
+        self.cur_full_batch = self._make_batch(self._next_indices())
+        return self._place(self.cur_full_batch)
 
     def inject_batch(self, idx: np.ndarray, instr_tokens: np.ndarray,
                      instr_len: np.ndarray) -> EpisodeBatch:

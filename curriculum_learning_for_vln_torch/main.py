@@ -30,6 +30,16 @@ rescoring over the validation splits (``engine.beam_eval``; the agent
 from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  Not ported
 yet, and refused: the hand-written BPTT (``TPU.FUSED_BPTT``) and the
 other agents.
+
+Several processes train as one on the whole batch (main.py:41-55): with
+``VLN_COORDINATOR`` (host:port), ``VLN_NUM_PROCESSES`` and
+``VLN_PROCESS_ID`` each process joins the process group at
+``tcp://VLN_COORDINATOR`` as that rank; with ``VLN_MULTIHOST=1`` at
+``env://`` (torchrun's RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT).  The
+backend follows ``parallel.mesh.init_process_group``'s rule (NCCL when
+every rank owns its GPU, gloo when ranks share one or run on the CPU),
+and the trainers split each batch over the mesh of ``TPU.MESH_DATA`` /
+``TPU.MESH_MODEL`` (engine/trainer.py::setup_mesh).
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
 from .engine.self_train import self_train
 from .engine.trainer import ClassicTrainer, check_the_code
 from .env.host_env import R2RBatchEnv
+from .parallel import mesh as M
 from .utils import logging_utils
 from .utils.config import get_cfg_defaults
 from .world.compiler import PRECISIONS, resolve_device
@@ -103,10 +114,30 @@ def eval_train_envs(cfg, tok, world, seed: int, device=None) -> dict:
     return envs
 
 
+def init_distributed(device_arg, logger):
+    """Join the process group the ``VLN_*`` variables name (main.py:41-55);
+    returns this rank's device (``--device``, default CUDA)."""
+    device = M.init_from_env(device_arg)
+    logger.info("[0] multi-process: rank %d of %d on %s", M.world_rank(), M.world_size(),
+                device)
+    return device
+
+
 def main(args, cfg) -> None:
-    device = resolve_device(args.device)
+    distributed = M.launched_by_env()
+    device = None if distributed else resolve_device(args.device)
     check_ported(args, cfg)
     logger = logging_utils.get_main_logger(cfg.OUTPUT.LOG_DIR, cfg.MODEL.NAME)
+    if distributed:
+        device = init_distributed(args.device, logger)
+    try:
+        run(args, cfg, device, logger)
+    finally:
+        if M.dist.is_initialized():
+            M.dist.destroy_process_group()
+
+
+def run(args, cfg, device, logger) -> None:
     if cfg.TPU.SCAN_ITERS > 1:
         logger.info("TPU.SCAN_ITERS %d is a TPU dispatch knob; it has no effect here",
                     cfg.TPU.SCAN_ITERS)
@@ -163,7 +194,7 @@ def main(args, cfg) -> None:
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="R2R navigation training, PyTorch on one GPU")
+    parser = argparse.ArgumentParser(description="R2R navigation training, PyTorch on GPUs")
     parser.add_argument("--config-file", default="configs/envdrop/envdrop_config.yaml",
                         metavar="FILE", help="path to config file")
     parser.add_argument("--seed", default=2020, type=int, help="random seed")

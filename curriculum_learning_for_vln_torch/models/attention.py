@@ -124,7 +124,7 @@ def positional_encoding(pe: torch.Tensor, x: torch.Tensor, train: bool, rate: fl
     and trained like any other."""
     dtype = torch.promote_types(x.dtype, pe.dtype)
     y = x.to(dtype) + pe[None, : x.shape[1], :].to(dtype)
-    return dropout(y, rate, train, generator)
+    return dropout(y, rate, train, generator, batch_dim=0)
 
 
 # -- MLP with BatchNorm ------------------------------------------------------
@@ -163,7 +163,7 @@ def mlp_bn(params: dict, state: dict, x: torch.Tensor, train: bool, drop_rate: f
             x, s = batchnorm(params["bn_layers"][i], state["bns"][i], x, train)
             new_state["bns"].append(s)
         if drop_rate > 0:
-            x = dropout(x, drop_rate, train, generator)
+            x = dropout(x, drop_rate, train, generator, batch_dim=0)
         x = torch.relu(x)
     if "out" in params:
         x = dense(params["out"], x)

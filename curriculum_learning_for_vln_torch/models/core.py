@@ -20,6 +20,7 @@ import torch
 
 from ..ops import draws
 from ..ops import rnn as rnn_ops
+from ..parallel import mesh as M
 
 
 def _uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
@@ -75,14 +76,15 @@ def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.T
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, batch_dim=draws.UNSET) -> torch.Tensor:
     """Inverted dropout with a keep-mask drawn from ``generator`` (torch's
     Philox on the card; on the device of ``x``); identity when not
-    training or rate == 0 (core.py:97-101).  The JAX package's "rbg" fast
-    masks (core.py:61-88) are a TPU-only stream and have no counterpart."""
+    training or rate == 0 (core.py:97-101).  ``batch_dim`` is the batch
+    axis of x (ops/draws.py).  The JAX package's "rbg" fast masks
+    (core.py:61-88) are a TPU-only stream and have no counterpart."""
     if not train or rate == 0.0:
         return x
-    mask = draws.rand(x.shape, generator, x.device) < 1.0 - rate
+    mask = draws.rand(x.shape, generator, x.device, batch_dim) < 1.0 - rate
     return apply_keep_mask(x, mask, rate)
 
 
@@ -92,7 +94,7 @@ def dropout_mask(shape, rate: float, generator: Optional[torch.Generator] = None
     probability in f32 (EnvDrop's shared feature-noise mask; core.py:104-109,
     ref: envdrop.py:106)."""
     keep = 1.0 - rate
-    return (draws.rand(shape, generator, device) < keep).float() / keep
+    return (draws.rand(shape, generator, device, batch_dim=None) < keep).float() / keep
 
 
 # ---------------------------------------------------------------------------
@@ -159,11 +161,13 @@ def batchnorm(params: dict, state: dict, x: torch.Tensor, train: bool, momentum:
     train, with the running mean, the unbiased running variance and
     ``count`` updated as a returned value (carrying no gradient), the
     running statistics in eval.  The state stays in its own dtype (f32);
-    x and the statistics promote as jnp does."""
+    x and the statistics promote as jnp does.  In a data-parallel step
+    the statistics are those of every rank's rows: sums reduced over the
+    data axis, in the forward and the backward (parallel/mesh.py)."""
     if train:
-        mean = x.mean(dim=0)
-        var = x.var(dim=0, unbiased=False)
-        n = x.shape[0]
+        n = M.global_rows(x.shape[0])
+        mean = M.differentiable_sum(x.sum(dim=0)) / n
+        var = M.differentiable_sum(((x - mean) ** 2).sum(dim=0)) / n
         with torch.no_grad():
             unbiased = var.detach() * n / max(n - 1, 1)
             new_state = {

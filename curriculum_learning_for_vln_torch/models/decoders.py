@@ -78,9 +78,9 @@ def follower_decoder_from_vis(p: dict, weighted_v: torch.Tensor, a_prev: torch.T
     [B, K], (h1, c1), text attention weights)."""
     dtype = torch.promote_types(a_prev.dtype, weighted_v.dtype)
     visual_ctx = dropout(torch.cat([a_prev.to(dtype), weighted_v.to(dtype)], dim=-1), drop_rate,
-                         train, generator)
+                         train, generator, batch_dim=0)
     h1, c1 = lstm_cell(p["lstm"], visual_ctx, h, c)
-    h1_drop = dropout(h1, drop_rate, train, generator)
+    h1_drop = dropout(h1, drop_rate, train, generator, batch_dim=0)
     h_tilde, alpha_c = soft_dot(p["text_attn"], h1_drop, ctx, ctx_mask)
     logits = action_scoring(p["decode_action"], cand_feat, h_tilde)
     return logits, (h1, c1), alpha_c
@@ -159,14 +159,15 @@ def monitor_decoder_step(p: dict, bn_state: dict, a_prev: torch.Tensor, cand_fea
     h1, c1 = lstm_cell(p["lstm"], _cat(proj_prev, weighted_cands, weighted_ctx), h, c)
 
     # policy net (ref: policy.py:108-117)
-    h1_drop = dropout(h1, drop_rate, train, generator)
+    h1_drop = dropout(h1, drop_rate, train, generator, batch_dim=0)
     h_tilde = dense(p["action_linear"], _cat(weighted_ctx, h1_drop))
     dtype = torch.promote_types(proj_cands.dtype, h_tilde.dtype)
     logits = torch.einsum("bkd,bd->bk", proj_cands.to(dtype), h_tilde.to(dtype))
 
     # progress monitor (ref: policy.py:119-130): gate on the previous h, new c
     concat_pm = dense(p["monitor_linear"], _cat(h, weighted_cands))
-    h_pm = dropout(torch.sigmoid(concat_pm) * torch.tanh(c1), drop_rate, train, generator)
+    h_pm = dropout(torch.sigmoid(concat_pm) * torch.tanh(c1), drop_rate, train, generator,
+                   batch_dim=0)
     progress = torch.tanh(dense(p["critic"], _cat(ctx_attn, h_pm)))[:, 0]
     return (logits, progress), (h1, c1), {"mlp": bn2}, (ctx_attn, cands_attn)
 
@@ -188,7 +189,8 @@ def envdrop_visual_query(p: dict, h_tilde_prev: torch.Tensor, train: bool = Fals
                          drop_rate: float = 0.5,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The visual-attention query tv = W_in . dropout(h_tilde_prev) [B, F]."""
-    return dense(p["visual_attn"]["linear_in"], dropout(h_tilde_prev, drop_rate, train, generator))
+    return dense(p["visual_attn"]["linear_in"],
+                 dropout(h_tilde_prev, drop_rate, train, generator, batch_dim=0))
 
 
 def envdrop_decoder_from_vis(
@@ -208,12 +210,13 @@ def envdrop_decoder_from_vis(
     (recurrent input h_tilde_prev, ref: policy.py:238), text attention,
     and the candidate logits ``cand_scorer(q)`` of the projected query q.
     Returns (logits [B, MC+1], (h1, c1), h_tilde)."""
-    act_emb = dropout(torch.tanh(dense(p["act_embed"], a_t_angle)), drop_rate, train, generator)
+    act_emb = dropout(torch.tanh(dense(p["act_embed"], a_t_angle)), drop_rate, train, generator,
+                      batch_dim=0)
     x = torch.cat([act_emb.float(), visual_feat.float()], dim=-1)
     h1, c1 = lstm_cell(p["lstm"], x, h_tilde_prev, c)
-    h1_drop = dropout(h1, drop_rate, train, generator)
+    h1_drop = dropout(h1, drop_rate, train, generator, batch_dim=0)
     h_tilde, _alpha = soft_dot(p["text_attn"], h1_drop, ctx, ctx_mask)
-    q = dense(p["cand_attn"], dropout(h_tilde, drop_rate, train, generator))
+    q = dense(p["cand_attn"], dropout(h_tilde, drop_rate, train, generator, batch_dim=0))
     return cand_scorer(q), (h1, c1), h_tilde
 
 
@@ -222,7 +225,7 @@ def drop_feat_img(feat: torch.Tensor, rate: float, train: bool, angle_feat_size:
     """Environmental dropout on the image dims only (decoders.py:247-252,
     ref: policy.py:226-232)."""
     img, ang = feat[..., :-angle_feat_size], feat[..., -angle_feat_size:]
-    return torch.cat([dropout(img, rate, train, generator), ang], dim=-1)
+    return torch.cat([dropout(img, rate, train, generator, batch_dim=0), ang], dim=-1)
 
 
 def envdrop_decoder_step(
@@ -251,7 +254,7 @@ def envdrop_decoder_step(
     if not already_dropfeat:
         pano_feat = drop_feat_img(pano_feat, feat_drop_rate, train, angle_feat_size, generator)
         cand_feat = drop_feat_img(cand_feat, feat_drop_rate, train, angle_feat_size, generator)
-    prev_drop = dropout(h_tilde_prev, drop_rate, train, generator)
+    prev_drop = dropout(h_tilde_prev, drop_rate, train, generator, batch_dim=0)
     visual_feat, _alpha = soft_dot(p["visual_attn"], prev_drop, pano_feat)
 
     def scorer(q):
@@ -270,6 +273,8 @@ def critic_init(gen: torch.Generator, hidden_size: int, device=None) -> dict:
 
 
 def critic_apply(p: dict, state: torch.Tensor, train: bool = False, drop_rate: float = 0.5,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    x = dropout(torch.relu(dense(p["fc1"], state)), drop_rate, train, generator)
+                 generator: Optional[torch.Generator] = None, batch_dim: int = 0) -> torch.Tensor:
+    """The critic's value of ``state`` [..., H]; ``batch_dim`` is its batch
+    axis (1 for the [T, B, H] stack of a rollout's steps)."""
+    x = dropout(torch.relu(dense(p["fc1"], state)), drop_rate, train, generator, batch_dim)
     return dense(p["fc2"], x)[..., 0]

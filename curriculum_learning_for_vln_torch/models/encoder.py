@@ -54,13 +54,13 @@ def encoder_apply(p: dict, tokens: torch.Tensor, lengths: torch.Tensor, train: b
     if use_glove:
         x = embedding(p["embedding"], tokens).detach()
     else:
-        x = dropout(embedding(p["embedding"], tokens), drop_rate, train, generator)
+        x = dropout(embedding(p["embedding"], tokens), drop_rate, train, generator, batch_dim=0)
     h_t = c_t = None
     for li, layer in enumerate(p["layers"]):
         x, (h_t, c_t) = bilstm_layer(layer["fwd"], layer["bwd"], x, lengths)
         if li < num_layers - 1:
             # inter-layer dropout (torch LSTM dropout arg; ref units.py:41)
-            x = dropout(x, drop_rate, train, generator)
+            x = dropout(x, drop_rate, train, generator, batch_dim=0)
     decoder_init = torch.tanh(dense(p["enc2dec"], h_t))
-    ctx = dropout(x, drop_rate, train, generator)
+    ctx = dropout(x, drop_rate, train, generator, batch_dim=0)
     return ctx, decoder_init, c_t

@@ -97,15 +97,15 @@ def speaker_encoder_apply(p: dict, action_embeds: torch.Tensor, features: torch.
     if not already_dropfeat:
         x = drop_feat_img(x, feat_drop_rate, train, angle_feat_size, generator)
     ctx = dropout(_bidir_unmasked_lstm(p["lstm_fwd"], p["lstm_bwd"], x), drop_rate, train,
-                  generator)
+                  generator, batch_dim=0)
     H = ctx.shape[-1]
     feats = features
     if not already_dropfeat:
         feats = drop_feat_img(feats, feat_drop_rate, train, angle_feat_size, generator)
     x2, _ = soft_dot(p["attn"], ctx.reshape(B * T, H), feats.reshape(B * T, V, F))
-    x2 = dropout(x2.reshape(B, T, H), drop_rate, train, generator)
+    x2 = dropout(x2.reshape(B, T, H), drop_rate, train, generator, batch_dim=0)
     out = _bidir_unmasked_lstm(p["post_fwd"], p["post_bwd"], x2)
-    return dropout(out, drop_rate, train, generator)
+    return dropout(out, drop_rate, train, generator, batch_dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +147,9 @@ def speaker_decoder_apply(p: dict, words: torch.Tensor, ctx: torch.Tensor,
     """words [B, L] token ids, ctx [B, T, H], ctx_mask [B, T] (True =
     masked), the state (h0, c0) [B, H] -> (logits [B, L, V], h1, c1)
     (speaker_model.py:134-162)."""
-    embeds = dropout(embedding(p["embedding"], words), drop_rate, train, generator)
+    embeds = dropout(embedding(p["embedding"], words), drop_rate, train, generator, batch_dim=0)
     x, (h1, c1) = _unmasked_lstm(p["lstm"], embeds, h0, c0)
-    x = dropout(x, drop_rate, train, generator)
-    x2 = dropout(_attend_each_word(p["attn"], x, ctx, ctx_mask), drop_rate, train, generator)
+    x = dropout(x, drop_rate, train, generator, batch_dim=0)
+    x2 = dropout(_attend_each_word(p["attn"], x, ctx, ctx_mask), drop_rate, train, generator,
+                 batch_dim=0)
     return dense(p["projection"], x2), h1, c1

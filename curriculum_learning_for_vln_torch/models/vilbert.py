@@ -28,7 +28,11 @@ probabilities back in the value dtype, so under bf16 parameters every
 product stays bf16.  Attention is plain ``torch.einsum``: the JAX package
 computes it outside any Pallas kernel, and ``scaled_dot_product_attention``
 does not keep the f32-softmax, bf16-probability contract.  At train=True
-every dropout site draws its mask from ``generator``.
+every dropout site draws its mask from ``generator``.  With ``tp`` (a
+``parallel.vilbert_sharding.TensorParallel`` over parameters cut by
+``shard_vilbert_params``) a rank runs its share of the heads and of the
+FFN columns, and sums each row-parallel product over the model group
+before its bias (scoring, train=False).
 ``convert_torch_state_dict`` maps reference (HF-style) checkpoint tensors
 onto the tree.
 """
@@ -177,7 +181,18 @@ def _attend(q, k, v, masks, drop: float, train: bool, generator):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def _row_dense(p: dict, x: torch.Tensor, tp) -> torch.Tensor:
+    """``dense`` of a row-parallel layer: with ``tp``, this rank's input
+    features times its rows of w, summed over the model group, then the
+    bias, once."""
+    if tp is None:
+        return dense(p, x)
+    dtype = torch.promote_types(x.dtype, p["w"].dtype)
+    return tp.reduce(x.to(dtype) @ p["w"].to(dtype)) + p["b"].to(dtype)
+
+
 def _mha(p: dict, q_x, kv_x, heads: int, mask, train: bool, drop: float, generator):
+    """``heads``: this rank's heads (all of them without tensor parallelism)."""
     q = _split_heads(dense(p["query"], q_x), heads)
     k = _split_heads(dense(p["key"], kv_x), heads)
     v = _split_heads(dense(p["value"], kv_x), heads)
@@ -197,12 +212,12 @@ def _bert_layer_init(gen: torch.Generator, hidden: int, inter: int, std: float) 
 
 
 def _bert_layer(p: dict, x, mask, heads: int, train: bool, drop_h: float, drop_a: float,
-                generator):
-    ctx = _mha(p["attn"], x, x, heads, mask, train, drop_a, generator)
-    ctx = dropout(dense(p["attn_out"], ctx), drop_h, train, generator)
+                generator, tp=None):
+    ctx = _mha(p["attn"], x, x, heads // (tp.size if tp else 1), mask, train, drop_a, generator)
+    ctx = dropout(_row_dense(p["attn_out"], ctx, tp), drop_h, train, generator)
     x = layer_norm(p["attn_ln"], x + ctx)
     h = gelu(dense(p["inter"], x))
-    h = dropout(dense(p["out"], h), drop_h, train, generator)
+    h = dropout(_row_dense(p["out"], h, tp), drop_h, train, generator)
     return layer_norm(p["out_ln"], x + h)
 
 
@@ -233,8 +248,8 @@ def _connection_layer_init(gen: torch.Generator, cfg: VilBertConfig) -> dict:
 
 
 def _connection_layer(p: dict, cfg: VilBertConfig, v_x, v_mask, t_x, t_mask, co_mask,
-                      train: bool, generator):
-    heads = cfg.bi_num_attention_heads
+                      train: bool, generator, tp=None):
+    heads = cfg.bi_num_attention_heads // (tp.size if tp else 1)
     q1, k1, v1 = (_split_heads(dense(p[n], v_x), heads) for n in ("q1", "k1", "v1"))
     q2, k2, v2 = (_split_heads(dense(p[n], t_x), heads) for n in ("q2", "k2", "v2"))
 
@@ -247,16 +262,18 @@ def _connection_layer(p: dict, cfg: VilBertConfig, v_x, v_mask, t_x, t_mask, co_
                                 generator))
 
     # biOutput: ctx2 (text-informed) to the vision stream, ctx1 to the text stream
-    v_res = dropout(dense(p["dense1"], ctx2), cfg.v_hidden_dropout_prob, train, generator)
+    v_res = dropout(_row_dense(p["dense1"], ctx2, tp), cfg.v_hidden_dropout_prob, train,
+                    generator)
     v_att = layer_norm(p["ln1"], v_res + v_x)
-    t_res = dropout(dense(p["dense2"], ctx1), cfg.hidden_dropout_prob, train, generator)
+    t_res = dropout(_row_dense(p["dense2"], ctx1, tp), cfg.hidden_dropout_prob, train,
+                    generator)
     t_att = layer_norm(p["ln2"], t_res + t_x)
 
     v_h = gelu(dense(p["v_inter"], v_att))
-    v_h = dropout(dense(p["v_out"], v_h), cfg.v_hidden_dropout_prob, train, generator)
+    v_h = dropout(_row_dense(p["v_out"], v_h, tp), cfg.v_hidden_dropout_prob, train, generator)
     v_out = layer_norm(p["v_ln"], v_att + v_h)
     t_h = gelu(dense(p["t_inter"], t_att))
-    t_h = dropout(dense(p["t_out"], t_h), cfg.hidden_dropout_prob, train, generator)
+    t_h = dropout(_row_dense(p["t_out"], t_h, tp), cfg.hidden_dropout_prob, train, generator)
     t_out = layer_norm(p["t_ln"], t_att + t_h)
     return v_out, t_out
 
@@ -307,8 +324,12 @@ def vilbert_apply(
     co_attention_mask: Optional[torch.Tensor] = None,     # [B, Lv, Lt]
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    tp=None,
 ):
-    """Returns (seq_t, seq_v, pooled_t, pooled_v)."""
+    """Returns (seq_t, seq_v, pooled_t, pooled_v); with ``tp`` over this
+    rank's slices of the parameters (tensor-parallel scoring)."""
+    if tp is not None and train:
+        raise ValueError("tensor-parallel ViLBERT scores (train=False); it trains replicated")
     B, Lt = input_txt.shape
     Lv = input_imgs.shape[1]
     dev = input_txt.device
@@ -342,11 +363,12 @@ def vilbert_apply(
     def v_layer(idx, v_x):
         return _bert_layer(params["v_layers"][idx], v_x, v_mask, cfg.v_num_attention_heads,
                            train, cfg.v_hidden_dropout_prob, cfg.v_attention_probs_dropout_prob,
-                           generator)
+                           generator, tp)
 
     def t_layer(idx, t_x):
         return _bert_layer(params["t_layers"][idx], t_x, t_mask, cfg.num_attention_heads, train,
-                           cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, generator)
+                           cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, generator,
+                           tp)
 
     # the interleaved encoder (vilbert.py:758-895)
     v_start = t_start = 0
@@ -361,7 +383,7 @@ def vilbert_apply(
                 t_x = t_x.detach()
         if cfg.with_coattention:
             v_x, t_x = _connection_layer(params["c_layers"][count], cfg, v_x, v_mask, t_x,
-                                         t_mask, co_mask, train, generator)
+                                         t_mask, co_mask, train, generator, tp)
         v_start, t_start = v_end, t_end
     for idx in range(v_start, cfg.v_num_hidden_layers):
         v_x = v_layer(idx, v_x)
@@ -415,6 +437,7 @@ def vlnbert_apply(
     dropout_prob: float = 0.1,
     compute_heads: bool = True,
     generator: Optional[torch.Generator] = None,
+    tp=None,
 ):
     """Path-instruction compatibility scoring.  Returns (vil_logit [B, 1],
     vision_prediction, linguistic_prediction, seq_relationship [B, 2]).
@@ -426,7 +449,7 @@ def vlnbert_apply(
     seq_t, seq_v, pooled_t, pooled_v = vilbert_apply(
         params["bert"], cfg, instr_tokens, image_features, image_locations, token_type_ids,
         attention_mask, image_attention_mask, co_attention_mask, train=train,
-        generator=generator)
+        generator=generator, tp=tp)
     cls = params["cls"]
     linguistic_pred = vision_pred = None
     if compute_heads:

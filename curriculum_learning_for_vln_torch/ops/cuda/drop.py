@@ -47,7 +47,7 @@ def draw_keep_mask(shape, keep: float, generator: Optional[torch.Generator],
                    device) -> torch.Tensor:
     """A fresh ext keep-mask of ``shape``: each element kept with
     probability ``keep``, drawn from ``generator``."""
-    return draws.rand(shape, generator, device) < keep
+    return draws.rand(shape, generator, device, batch_dim=0) < keep
 
 
 def keep_mask(drop: DropSpec, shape) -> Optional[torch.Tensor]:

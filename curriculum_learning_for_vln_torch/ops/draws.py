@@ -15,6 +15,15 @@ the shapes.
 ``rand`` and ``randint`` are ``torch.rand`` and ``torch.randint``, noted
 in the open ``recording`` if there is one; ``replay`` makes a recorded
 step's draws again.
+
+In a data-parallel step (``parallel.mesh.sharded_step``) a rank holds
+rows r * B / N ... of the global batch along ``batch_dim`` (None: a
+draw with no batch axis, which every rank takes whole).  It draws the
+global batch's noise from the one generator every rank holds, and keeps
+its rows: rank r's draws are rows r * B / N ... of one process's, and
+every generator ends where one process's does.  A draw site names its
+batch axis: inside such a step a draw without ``batch_dim`` raises,
+since a batch on another axis would silently draw the wrong noise.
 """
 from __future__ import annotations
 
@@ -23,22 +32,46 @@ from typing import List, Optional
 
 import torch
 
+from ..parallel import mesh as M
+
 _log: Optional[List[tuple]] = None  # the draws of the step being recorded
+UNSET = object()  # the batch_dim of a draw site that named no batch axis
 
 
-def rand(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def _global(shape, batch_dim):
+    """The global shape of a draw whose rank holds ``shape``, and the
+    rank's (dim, start, length) of it (None: the whole draw)."""
+    mesh = M.step_mesh()
+    if mesh is None or mesh.data == 1:
+        return tuple(shape), None
+    if batch_dim is UNSET:
+        raise ValueError(f"a draw of shape {tuple(shape)} inside a data-parallel step names no "
+                         "batch axis: pass batch_dim (None for a draw every rank takes whole)")
+    if batch_dim is None:
+        return tuple(shape), None
+    shape = list(shape)
+    n = shape[batch_dim]
+    shape[batch_dim] = n * mesh.data
+    return tuple(shape), (batch_dim, mesh.data_index * n, n)
+
+
+def rand(shape, generator: Optional[torch.Generator], device, batch_dim=UNSET) -> torch.Tensor:
     """U[0, 1) f32 of ``shape``."""
+    shape, rows = _global(shape, batch_dim)
     if _log is not None:
-        _log.append((tuple(shape), generator, device, None))
-    return torch.rand(shape, generator=generator, device=device)
+        _log.append((shape, generator, device, None))
+    out = torch.rand(shape, generator=generator, device=device)
+    return out if rows is None else out.narrow(*rows)
 
 
 def randint(low: int, high: int, shape, generator: Optional[torch.Generator], device,
-            dtype=torch.int64) -> torch.Tensor:
+            dtype=torch.int64, batch_dim=UNSET) -> torch.Tensor:
     """Integers of ``dtype`` in [low, high) of ``shape``."""
+    shape, rows = _global(shape, batch_dim)
     if _log is not None:
-        _log.append((tuple(shape), generator, device, (low, high, dtype)))
-    return torch.randint(low, high, shape, dtype=dtype, generator=generator, device=device)
+        _log.append((shape, generator, device, (low, high, dtype)))
+    out = torch.randint(low, high, shape, dtype=dtype, generator=generator, device=device)
+    return out if rows is None else out.narrow(*rows)
 
 
 @contextmanager

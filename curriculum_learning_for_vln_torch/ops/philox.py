@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import mesh as M
 from . import draws
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -95,6 +96,24 @@ def group_seeds(seeds: torch.Tensor) -> torch.Tensor:
     return seeds[rows - rows % SHARED_GROUP]
 
 
-def draw_seeds(batch: int, generator: torch.Generator, device) -> torch.Tensor:
-    """Per-sample 64-bit seeds [batch] (int64) from ``generator``."""
-    return draws.randint(-2 ** 63, 2 ** 63 - 1, (batch,), generator, device)
+def draw_seeds(batch: int, generator: torch.Generator, device, shared: bool = False
+               ) -> torch.Tensor:
+    """Per-sample 64-bit seeds [batch] (int64) from ``generator``.
+
+    With ``shared`` (the prng_shared mode) in a data-parallel step, every
+    row carries its global group's seed, so that a rank whose first row
+    does not start a group of 8 (B = 16 over 8 ranks) still takes the
+    group's seed of one process; the kernels' grouping of the rank's
+    rows then changes nothing.  That holds when each rank's groups lie
+    inside the global ones (rows a rank a multiple or a divisor of 8);
+    another layout raises."""
+    mesh = M.step_mesh()
+    if not shared or mesh is None or mesh.data == 1:
+        return draws.randint(-2 ** 63, 2 ** 63 - 1, (batch,), generator, device, batch_dim=0)
+    if batch % SHARED_GROUP and SHARED_GROUP % batch:
+        raise ValueError(f"prng_shared over data = {mesh.data}: {batch} rows a rank straddle "
+                         f"the global groups of {SHARED_GROUP}; use rows a rank that divide "
+                         f"or are a multiple of {SHARED_GROUP}")
+    seeds = draws.randint(-2 ** 63, 2 ** 63 - 1, (batch * mesh.data,), generator, device,
+                          batch_dim=None)
+    return group_seeds(seeds)[mesh.data_index * batch: (mesh.data_index + 1) * batch]

@@ -10,13 +10,18 @@ Covers the reference's three observability channels
 2. ``prettyprint`` — console table of PL/NE/SR/OSR/SPL/nDTW/SDTW/CLS
    (dependency-free text table instead of prettytable).
 3. ``ScalarWriter`` — scalar/histogram event sink writing JSONL (always)
-   and TensorBoard event files when a tensorboard writer is importable.
+   and TensorBoard event files when the ``tensorboard`` package is
+   installed.  The event files are written from tensorboard's protobuf
+   messages and record framing alone: ``torch.utils.tensorboard`` and
+   tensorboard's own file writer import TensorFlow where it is installed,
+   and TensorFlow's Keras imports JAX, which the port never loads.
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
+import socket
 import time
 from typing import Optional
 
@@ -73,8 +78,48 @@ def pretty_json_dump(obj, fp) -> None:
     json.dump(obj, fp, sort_keys=True, indent=4, separators=(",", ":"))
 
 
+class _EventFile:
+    """A TensorBoard event file (``events.out.tfevents.*``): Event messages
+    in TFRecord framing, from the ``tensorboard`` package's protobuf
+    classes and record writer, neither of which imports TensorFlow."""
+
+    def __init__(self, logdir: str):
+        from tensorboard.compat.proto import event_pb2, summary_pb2
+        from tensorboard.summary.writer.record_writer import RecordWriter
+
+        self._event, self._summary = event_pb2.Event, summary_pb2
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}.{os.getpid()}"
+        self._records = RecordWriter(open(os.path.join(logdir, name), "wb"))
+        self._write(file_version="brain.Event:2")
+
+    def _write(self, **fields) -> None:
+        self._records.write(self._event(wall_time=time.time(), **fields).SerializeToString())
+        self._records.flush()
+
+    def _value(self, step: int, **value) -> None:
+        summary = self._summary.Summary(value=[self._summary.Summary.Value(**value)])
+        self._write(step=int(step), summary=summary)
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        self._value(step, tag=tag, simple_value=float(value))
+
+    def histogram(self, tag: str, arr: np.ndarray, step: int) -> None:
+        if not arr.size:
+            return
+        counts, edges = np.histogram(arr, bins=30)
+        histo = self._summary.HistogramProto(
+            min=float(arr.min()), max=float(arr.max()), num=float(arr.size),
+            sum=float(arr.sum()), sum_squares=float((arr * arr).sum()),
+            bucket_limit=edges[1:].tolist(), bucket=counts.astype(np.float64).tolist())
+        self._value(step, tag=tag, histo=histo)
+
+    def close(self) -> None:
+        self._records.close()
+
+
 class ScalarWriter:
-    """Scalar/histogram sink: JSONL events plus optional TensorBoard."""
+    """Scalar/histogram sink: JSONL events plus, where the ``tensorboard``
+    package is installed, a TensorBoard event file."""
 
     def __init__(self, logdir: Optional[str]):
         self.logdir = logdir
@@ -83,11 +128,9 @@ class ScalarWriter:
         if logdir:
             os.makedirs(logdir, exist_ok=True)
             self._fp = open(os.path.join(logdir, "events.jsonl"), "a")
-            try:  # tensorboardX or torch.utils.tensorboard, if present
-                from torch.utils.tensorboard import SummaryWriter  # type: ignore
-
-                self._tb = SummaryWriter(log_dir=logdir)
-            except Exception:
+            try:
+                self._tb = _EventFile(logdir)
+            except ImportError:
                 self._tb = None
 
     def add_scalar(self, tag: str, value, step: int) -> None:
@@ -95,7 +138,7 @@ class ScalarWriter:
             self._fp.write(json.dumps({"tag": tag, "value": float(value), "step": int(step), "ts": time.time()}) + "\n")
             self._fp.flush()
         if self._tb:
-            self._tb.add_scalar(tag, float(value), step)
+            self._tb.scalar(tag, float(value), step)
 
     def add_histogram(self, tag: str, values, step: int) -> None:
         arr = np.asarray(values, dtype=np.float64)
@@ -106,7 +149,7 @@ class ScalarWriter:
                             "step": int(step), "ts": time.time()}) + "\n")
             self._fp.flush()
         if self._tb:
-            self._tb.add_histogram(tag, arr, step)
+            self._tb.histogram(tag, arr, step)
 
     def close(self) -> None:
         if self._fp:

@@ -179,3 +179,46 @@ def test_main_auto_defaults_to_cuda():
            "TPU.SCAN_EARLY_EXIT", "True", "TPU.SYNTHETIC_WORLD", "True"]
     run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
     assert run.returncode != 0 and "CUDA is not available" in run.stderr
+
+
+# the data-parallel slice's modules
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/vilbert_sharding.py",
+                    "utils/profiling.py", "engine/trainer.py", "engine/self_train.py",
+                    "models/vilbert.py", "ops/philox.py", "main.py")
+
+
+def test_parallel_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(PARALLEL_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in PARALLEL_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_multi_process_main_defaults_to_cuda(tmp_path):
+    """With the VLN_* variables and no --device, each rank asks for its GPU
+    and raises without one: no rank falls back to the CPU or to gloo."""
+    if torch.cuda.is_available():  # on a GPU host it would train there
+        pytest.skip("needs a host without CUDA to see the refusal")
+    env = dict(os.environ, VLN_COORDINATOR="127.0.0.1:1", VLN_NUM_PROCESSES="2",
+               VLN_PROCESS_ID="0")
+    cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--config-file",
+           "configs/follower/follower_config.yaml", "TPU.SYNTHETIC_WORLD", "True",
+           "OUTPUT.LOG_DIR", str(tmp_path)]
+    run = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "CUDA is not available" in run.stderr
+
+
+def test_backend_rule(monkeypatch):
+    """NCCL when every rank of a host owns its GPU, gloo when they share one
+    or run on the CPU."""
+    from curriculum_learning_for_vln_torch.parallel import mesh as M
+
+    assert M.backend_for(torch.device("cpu"), 2) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert M.backend_for(torch.device("cuda", 0), 1) == "nccl"
+    assert M.backend_for(torch.device("cuda", 1), 2) == "nccl"
+    assert M.backend_for(torch.device("cuda", 0), 4) == "gloo"
