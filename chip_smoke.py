@@ -11,6 +11,7 @@ data-parallel training over several processes, on one GPU.
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
                                            # short first call for a new kernel
     python3 chip_smoke.py --dp-only        # build + the data-parallel phase
+    python3 chip_smoke.py --bptt-only      # build + the slice-11 phase (14)
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions.
@@ -194,17 +195,38 @@ data-parallel training over several processes, on one GPU.
    launches.
 13. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
    the curriculum-and-data phase's, the Follower's, the Self-Monitor's,
-   the speaker's, the beam's, the ViLBERT and the data-parallel paths),
-   the card's name and power limit, and as the last line
+   the speaker's, the beam's, the ViLBERT, the data-parallel and the
+   BPTT paths), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
+14. Slice-11 phase (after phase 12, before the kernel phases), on the
+   serve world at EnvDrop's full width, B = 64, T = 35, prng: (a) one
+   classic iteration with ``TPU.FUSED_BPTT`` on (the hand-written rollout
+   backward, ops/bptt.py) against off, in bf16 and f32, from the same
+   parameters, batch and generator seed: the losses within 1e-5
+   relative, every gradient leaf within 1e-4 in L2 (f32) or 1e-2 (bf16),
+   the generator's state equal, the launches exact (on: K1 = K2 = 4, K4 =
+   K6 = 1 for the A2C tail's bootstrap step, nothing else; off: as phase
+   5), then bf16 iterations timed in turns (off, on, on, off) and one of
+   each profiled (its device-busy share); (b) ``main`` with
+   ``TPU.FUSED_BPTT True`` (PACKED_RL 0) for one short epoch on the 6 x
+   160 synthetic world (K5 = K7 = 0); (c) the native C++ solver builds
+   and the serve world compiled with it has scipy's tables but its
+   distances (within 1e-4) and its next hops at equal-cost ties (each
+   still on a shortest path); (d) ``utils.roofline.roofline_summary`` of
+   the timed iterations and of a serve call (the H100's published peaks);
+   (e) the peak device memory of one bf16 iteration with the flag off and
+   on, in prng and ext, at B = 64 and 512 (the BPTT draws its masks again
+   and gathers the observations again where autograd stores them).
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device, or without the port beside it, it fails.
 """
 from __future__ import annotations
 
+import gc
 import glob
 import json
+import math
 import os
 import shutil
 import statistics
@@ -265,9 +287,9 @@ DP_ITERS = 3          # timed iterations at N = 1 and at N = DP_RANKS (after one
 DP_MAIN_ITERS = 3     # iterations of each ``main`` run of the data-parallel phase
 DP_CLR2R_STEPS = 20   # pretraining steps of the data-parallel phase's build_clr2r runs
 
-# Published H100 SXM peaks (dense), used for the bound of each kernel.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+BPTT_ROUNDS = 2       # rounds of (off, on, on, off) timed iterations of phase 14 (prng)
+BPTT_MAIN_ITERS = 2   # iterations of phase 14's ``main`` run
+BPTT_MEM_BATCHES = (64, 512)  # batches of phase 14's memory reading
 
 # name -> (source, TPU kernel it replaces, launch counter: module, attribute)
 KERNELS = {
@@ -395,8 +417,14 @@ def library_times(fn, iters: int, what: str):
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """The least time of the work: its bytes over the H100's memory rate or
+    its operations over the dtype's dense peak, whichever is longer (the
+    published peaks of ``utils/roofline.py``)."""
+    from curriculum_learning_for_vln_torch.utils import roofline as R
+
+    peak = {torch.bfloat16: R.H100_PEAK_BF16_FLOPS, torch.float32: R.H100_PEAK_F32_FLOPS}
+    t_bytes = nbytes / R.H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3536,12 +3564,297 @@ def dp_phase(card, device_type="cuda"):
     return {"ranks": ranks, "mains": mains, "secs": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the rollout BPTT, the native solver, the roofline, memory
+# ---------------------------------------------------------------------------
+
+def bptt_launches(t_il, T, on):
+    """A classic iteration's launches with TPU.FUSED_BPTT ``on``: the
+    encoder's K1 = K2 = 4 and, inside the BPTT rollouts, no observation
+    kernel; the A2C tail's bootstrap step alone runs K4 and K6 once."""
+    if on:
+        return launches_of(lstm_scan_train=4, lstm_scan_bwd=4, pano_attend=1, cand_score=1)
+    return iteration_launches(t_il, T)
+
+
+def bptt_memory(agent, world, items, tok, tables, params, il_bucket, device, card):
+    """Device memory of one classic iteration (its loss, then its
+    backward) with TPU.FUSED_BPTT off and on, in OBS_MASKS prng and ext,
+    at each batch of BPTT_MEM_BATCHES: the MiB still allocated once the
+    loss is formed (autograd's saved residuals, or the BPTT's per-step
+    records) and the peak through the backward, both above what was
+    allocated before the iteration."""
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.engine import loop
+    from curriculum_learning_for_vln_torch.utils import tree
+
+    leaves = tree.tree_leaves(params)
+    rows = []
+    for B in BPTT_MEM_BATCHES:
+        env = R2RBatchEnv(world, items, B, tok, seed=SEED + 5, device=device)
+        batch = env.next_batch()
+        il_len = il_bucket(env)
+        for mode in ("prng", "ext"):
+            agent.obs_masks = mode
+            got = {}
+            for on in (False, True):
+                agent.use_fused_bptt = on
+                for p in leaves:
+                    p.grad = None
+                gen = torch.Generator(device=device).manual_seed(SEED + 7)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                total, logs = loop.iteration_loss(agent, "sample", tables, params, batch, gen,
+                                                  il_len=il_len)
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated() - base
+                total.backward()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                check(math.isfinite(total.item()) and all(bool(torch.isfinite(p.grad).all())
+                                                          for p in leaves),
+                      f"memory B {B} {mode} FUSED_BPTT {on}: finite loss and gradients")
+                del total, logs
+                got[on] = {"held_mib": held / 2 ** 20, "peak_mib": peak / 2 ** 20}
+            rows.append({"B": B, "obs_masks": mode, "t_il": il_len or agent.episode_len,
+                         "off": got[False], "on": got[True]})
+            log(f"bptt (e) memory B {B} {mode}: held after the loss off {got[False]['held_mib']:.1f} "
+                f"MiB, on {got[True]['held_mib']:.1f} MiB; peak through the backward off "
+                f"{got[False]['peak_mib']:.1f} MiB, on {got[True]['peak_mib']:.1f} MiB | {card}")
+    agent.obs_masks = "prng"
+    for p in leaves:
+        p.grad = None
+    return rows
+
+
+def bptt_phase(world, data, requests, tok, cfg, m, params0, device, card):
+    """(a) A classic EnvDrop iteration (prng, B = 64, T = 35) with
+    TPU.FUSED_BPTT on against off, bf16 and f32, from the same parameters,
+    batch and generator seed: losses, every gradient leaf in L2, the
+    generator's state, exact launches; then timed iterations in turns with
+    each one's device-busy share.  (b) ``main`` with the flag, one short
+    epoch.  (c) The native solver on the serve world against scipy's.  (d)
+    The roofline of the iteration and of a serve call.  (e) The peak
+    device memory of an iteration, flag off against on."""
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine import loop
+    from curriculum_learning_for_vln_torch.engine.trainer import il_bucket_fn
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.serve import Navigator
+    from curriculum_learning_for_vln_torch.utils import roofline as R
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.world import compiler, native, synthetic
+    from curriculum_learning_for_vln_torch.world.graph import shortest_paths
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    t_phase = time.perf_counter()
+    T = cfg.AGENT.MAX_EPISODE_LEN
+    out = {"launches": {}}
+    items = expand_r2r_items(data, tok)
+
+    # (a) the BPTT iteration against the fused one
+    timed = {}
+    for prec in (cfg.TPU.PRECISION, "f32"):
+        agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                             compute_dtype=PRECISIONS[prec], obs_masks="prng")
+        tables = world.device_tables(prec, device)
+        env = R2RBatchEnv(world, items, BATCH, tok, seed=SEED + 3, device=device)
+        il_bucket = il_bucket_fn(cfg, agent)
+        batch = env.next_batch()
+        il_len = il_bucket(env)
+        t_il = il_len or T
+        params = tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0)
+        leaves = tree.tree_leaves(params)
+        paths = leaf_paths(params)
+        runs = {}
+        for on in (False, True):
+            agent.use_fused_bptt = on
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            for p in leaves:
+                p.grad = None
+            reset_launch_counts()
+            total, logs = loop.iteration_loss(agent, "sample", tables, params, batch, gen,
+                                              il_len=il_len)
+            total.backward()
+            torch.cuda.synchronize()
+            runs[on] = (total.item(), logs["rl_loss"].item(), launch_counts(),
+                        gen.get_state(), [p.grad.detach().clone() for p in leaves])
+            want = bptt_launches(t_il, T, on)
+            check(runs[on][2] == want, f"{prec} FUSED_BPTT {on}: launches {runs[on][2]}, "
+                                       f"expected {want} (T_il {t_il})")
+        (l0, r0, c0, s0, g0), (l1, r1, c1, s1, g1) = runs[False], runs[True]
+        check(torch.equal(s0, s1), f"{prec}: the generator ends elsewhere with the BPTT")
+        loss_rel = abs(l1 - l0) / max(abs(l0), 1e-6)
+        check(loss_rel <= 1e-5, f"{prec}: loss BPTT {l1} vs fused {l0}")
+        tol = 1e-4 if prec == "f32" else 1e-2
+        worst, worst_at = 0.0, ""
+        for path, a, b in zip(paths, g0, g1, strict=True):
+            rel = float((b - a).float().norm()) / max(float(a.float().norm()), 1e-12)
+            if rel >= worst:
+                worst, worst_at = rel, ".".join(map(str, path))
+            check(rel <= tol, f"{prec}: gradient {'.'.join(map(str, path))} BPTT vs fused "
+                              f"{rel:.3g} in L2 > {tol}")
+        log(f"bptt (a) {prec}: loss BPTT {l1:.6f} fused {l0:.6f} (relative {loss_rel:.3g}); rl "
+            f"loss {r1:.6f} / {r0:.6f}; worst leaf |BPTT - fused| / |fused| in L2 {worst:.3g} "
+            f"({worst_at}; tol {tol}) over {len(leaves)} leaves; generator equal; T_il {t_il}; "
+            f"launches off {c0}, on {c1}")
+        out[prec] = {"loss": [l0, l1], "loss_rel": loss_rel, "worst_leaf_l2": worst,
+                     "worst_leaf": worst_at, "t_il": t_il}
+        out["launches"][f"iteration_off_{prec}"] = c0
+        out["launches"][f"iteration_on_{prec}"] = c1
+        if prec != cfg.TPU.PRECISION:
+            continue
+
+        # timed iterations in turns (off, on, on, off), each a one_iter
+        # update from its own copy of the parameters and generator
+        state = {}
+        for on in (False, True):
+            p = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+            state[on] = (p, loop.make_optimizer(cfg.TRAIN.OPTIM, cfg.TRAIN.LR, p),
+                         torch.Generator(device=device).manual_seed(SEED + 1))
+
+        def iterate(on):
+            agent.use_fused_bptt = on
+            p, opt, gen = state[on]
+            b = env.next_batch()
+            return loop.one_iter(agent, opt, "sample", tables, p, b, gen, il_len=il_bucket(env))
+
+        for on in (False, True):  # warm-up
+            iterate(on)
+        torch.cuda.synchronize()
+        ms = {False: [], True: []}
+        for _ in range(BPTT_ROUNDS):
+            for on in (False, True, True, False):
+                t0 = time.perf_counter()
+                logs = iterate(on)
+                float(logs["loss"])
+                torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+        for on in (False, True):
+            wall, busy, rows = profile(lambda: iterate(on))
+            print_profile(f"one {prec} classic iteration, FUSED_BPTT {on}", wall, busy, rows)
+            timed[on] = {"ms": ms[on], "median_ms": statistics.median(ms[on]),
+                         "busy_pct": 100 * busy / wall, "wall_ms": wall, "busy_ms": busy}
+        log(f"bptt (a) timed {prec}: FUSED_BPTT off {timed[False]['median_ms']:.2f} ms "
+            f"(busy {timed[False]['busy_pct']:.1f}%), on {timed[True]['median_ms']:.2f} ms "
+            f"(busy {timed[True]['busy_pct']:.1f}%) an iteration, medians of {2 * BPTT_ROUNDS} "
+            f"in turns (off, on, on, off) | {card}")
+        out["timed"] = {str(k): v for k, v in timed.items()}
+
+        # the same in mode ext, whose masks are one draw each: the BPTT
+        # regenerates prng masks with plain Philox, the kernels in place
+        agent.obs_masks = "ext"
+        for on in (False, True):  # warm-up
+            iterate(on)
+        ext = {False: [], True: []}
+        for on in (False, True, True, False):
+            t0 = time.perf_counter()
+            float(iterate(on)["loss"])
+            torch.cuda.synchronize()
+            ext[on].append((time.perf_counter() - t0) * 1e3)
+        agent.obs_masks = "prng"
+        log(f"bptt (a) timed {prec}, OBS_MASKS ext: FUSED_BPTT off "
+            f"{statistics.median(ext[False]):.2f} ms, on {statistics.median(ext[True]):.2f} ms "
+            f"an iteration, medians of 2 in turns | {card}")
+        out["timed_ext"] = {str(k): v for k, v in ext.items()}
+
+        # (e) the peak memory of an iteration with the flag off and on
+        out["memory"] = bptt_memory(agent, world, items, tok, tables, params, il_bucket,
+                                    device, card)
+
+    # (b) main with the flag, one short epoch on the 6 x 160 synthetic world
+    d = tempfile.mkdtemp(prefix="chip_smoke_bptt_")
+    counts, lines, secs = run_main("bptt", ["--config-file", CONFIG, "TPU.FUSED_BPTT", "True",
+                                            "TPU.PACKED_RL", 0, "TRAIN.MAX_EPOCH", 1,
+                                            "TRAIN.ITER_PER_EPOCH", BPTT_MAIN_ITERS,
+                                            "TRAIN.EVAL_INTERVAL", 1], d)
+    check("Using Classic trainer" in lines and sum("Epoch [" in ln for ln in lines) == 1,
+          f"main bptt: log {lines}")
+    check(counts["lstm_scan_train"] == counts["lstm_scan_bwd"] == 4 * BPTT_MAIN_ITERS
+          and counts["pano_attend_bwd"] == counts["cand_score_bwd"] == 0
+          and counts["pano_attend"] >= BPTT_MAIN_ITERS and counts["lstm_scan"] > 0,
+          f"main bptt: launches {counts}")
+    shutil.rmtree(d, ignore_errors=True)
+    out["launches"]["main"] = counts
+    out["main"] = {"s": secs, "log": lines}
+    log(f"bptt (b): main TPU.FUSED_BPTT True ({BPTT_MAIN_ITERS} iterations and an evaluation) in "
+        f"{secs:.1f} s: {' | '.join(lines)}; launches {counts}")
+
+    # (c) the native solver: the serve world's tables against scipy's
+    check(native.native_available(), "the native graph library builds on this machine")
+    graphs = synthetic.make_world_graphs(NUM_SCANS, NODES_PER_SCAN, seed=SEED)
+    t0 = time.perf_counter()
+    w_native = compiler.compile_world(graphs, 16)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_scipy = compiler.compile_world(graphs, 16, use_native=False)
+    t_scipy = time.perf_counter() - t0
+    for name in ("cand_next", "cand_valid", "cand_heading", "cand_elev", "cand_view", "n_cands"):
+        check(np.array_equal(getattr(w_native, name), getattr(w_scipy, name)), f"native {name}")
+    check(np.array_equal(w_native.next_hop, world.next_hop)
+          and np.array_equal(w_native.dist, world.dist), "the serve world was compiled natively")
+    dist_err = float(np.abs(w_native.dist - w_scipy.dist).max())
+    check(dist_err <= 1e-4, f"native distances within 1e-4 of scipy's: {dist_err}")
+    ties = 0
+    for s_i, scan in enumerate(w_native.scan_ids):
+        g, off = graphs[scan], int(w_native.scan_offset[s_i])
+        V = g.num_nodes
+        nh = w_native.next_hop[off:off + V, :V] - off
+        sd = shortest_paths(g)[0]
+        for a, b in zip(*np.nonzero(nh != w_scipy.next_hop[off:off + V, :V] - off)):
+            ties += 1
+            hop = nh[a, b]
+            check(abs(sd[a, b] - np.linalg.norm(g.pos[a] - g.pos[hop]) - sd[hop, b]) <= 1e-3,
+                  f"native next hop {a}->{b} via {hop} is on a shortest path")
+    log(f"bptt (c): native solver available; serve world {world.num_nodes} nodes compiled "
+        f"natively in {t_native:.2f} s (scipy {t_scipy:.2f} s, host); tables equal but distances "
+        f"(max |native - scipy| {dist_err:.3g}) and {ties} next hops at equal-cost ties")
+    out["native"] = {"dist_err": dist_err, "tie_next_hops": ties, "native_s": t_native,
+                     "scipy_s": t_scipy}
+
+    # (d) the roofline of the timed iteration and of a serve call
+    prec = cfg.TPU.PRECISION
+    wb = 2 if prec == "bf16" else 4
+    shapes = R.EnvDropShapes(B=BATCH, T=T, L=tok.encoding_length, D=FEAT_DIM,
+                             H=m.HIDDEN_SIZE, K=world.cand_next.shape[1] + 1,
+                             emb=m.WORD_EMB_SIZE, act=m.ACT_EMB_SIZE, wb=wb, fb=wb)
+    it = R.train_iter_cost(shapes, il_T=out[prec]["t_il"])
+    roof = {}
+    for on in (False, True):
+        roof[f"iteration_bptt_{on}"] = R.roofline_summary(
+            it["flops"], it["bytes"], timed[on]["median_ms"] / 1e3, "gpu")
+    agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                         compute_dtype=PRECISIONS[prec])
+    nav = Navigator(world, agent, params0, tok, max_batch=BATCH, precision=prec, device=device)
+    nav.navigate_batch(requests[:BATCH])
+    serve_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nav.navigate_batch(requests[i * BATCH:(i + 1) * BATCH])
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    rc = R.rollout_cost(shapes)
+    roof["serve_call"] = R.roofline_summary(rc.flops, rc.bytes,
+                                            statistics.median(serve_ms) / 1e3, "gpu")
+    for what, r in roof.items():
+        log(f"bptt (d) roofline {what}: {json.dumps(r)} | {card}")
+    out["roofline"] = roof
+
+    out["secs"] = time.perf_counter() - t_phase
+    log(f"bptt: phase 14 in {out['secs']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
     kernels_only = "--kernels-only" in sys.argv[1:]
     dp_only = "--dp-only" in sys.argv[1:]
+    bptt_only = "--bptt-only" in sys.argv[1:]
     from curriculum_learning_for_vln_torch.ops.cuda import build
 
     device = torch.device("cuda")
@@ -3586,6 +3899,10 @@ def main() -> int:
                                     "ranks": [{k: r[k] for k in ("launches", "ms", "worst",
                                                                  "vs_plain")}
                                               for r in dp["ranks"]]}}))
+        return 0
+    if bptt_only:
+        bptt = bptt_phase(world, data, requests, tok, cfg, m, params, device, card)
+        log(json.dumps({"bptt_only": {k: bptt[k] for k in ("launches", "memory", "secs")}}))
         return 0
     if kernels_only:
         results = kernel_phases(world, lengths, device)
@@ -3655,6 +3972,8 @@ def main() -> int:
     dp = dp_phase(card)
     dp_ranks = dp["ranks"]
 
+    bptt = bptt_phase(world, data, requests, tok, cfg, m, params, device, card)
+
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
@@ -3699,6 +4018,7 @@ def main() -> int:
                 **{f"{k}_rank{r}": v[name] for r, x in enumerate(dp_ranks)
                    for k, v in x["launches"].items()},
                 **{f"main_{k}": v[name] for k, v in dp["mains"].items()}},
+            "bptt_launches": {k: v[name] for k, v in bptt["launches"].items()},
         }
         if name in cdata["eval_train_b128"]:  # K3, K4, K6 on an EVAL_TRAIN batch of 128
             entry["eval_train_b128"] = cdata["eval_train_b128"][name]

@@ -18,7 +18,8 @@ from .test_agent import TestAgent
 
 def build_agent(cfg, vocab_size: int, feat_dim: int = 2048, vocab=None):
     """The agent cfg.MODEL.NAME selects, computing in TPU.PRECISION's dtype
-    (the feature table's); EnvDrop with its TPU.OBS_MASKS; the Follower
+    (the feature table's); EnvDrop with its TPU.OBS_MASKS and, with
+    TPU.FUSED_BPTT, the hand-written rollout backward; the Follower
     with the frozen GloVe table of MODEL.FOLLOWER.GLOVE_PATH, if set
     (``vocab``, the word list, aligns a text-format file; a ``.npy``
     table is aligned already; agents/__init__.py:20-31)."""
@@ -34,8 +35,10 @@ def build_agent(cfg, vocab_size: int, feat_dim: int = 2048, vocab=None):
         return SelfMonitorAgent(cfg.MODEL.MONITOR, cfg.DATA.MAX_ENC_LEN, vocab_size, feat_dim,
                                 episode_len, compute_dtype=dtype)
     if name == "ENVDROP":
-        return EnvDropAgent(cfg.MODEL.ENVDROP, cfg.DATA.MAX_ENC_LEN, vocab_size, feat_dim,
-                            episode_len, compute_dtype=dtype, obs_masks=cfg.TPU.OBS_MASKS)
+        agent = EnvDropAgent(cfg.MODEL.ENVDROP, cfg.DATA.MAX_ENC_LEN, vocab_size, feat_dim,
+                             episode_len, compute_dtype=dtype, obs_masks=cfg.TPU.OBS_MASKS)
+        agent.use_fused_bptt = bool(cfg.TPU.FUSED_BPTT)  # (agents/__init__.py:52-53)
+        return agent
     if name == "TEST":
         return TestAgent(episode_len)
     raise NotImplementedError(f"MODEL.NAME {name!r} is not ported")

@@ -149,15 +149,23 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.T
     return -torch.log(-torch.log(u))
 
 
+def policy_terms(masked_logits: torch.Tensor, action: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log_prob of ``action``, entropy) of the policy over ``masked_logits``
+    [B, K] (common.py:126-139); an ignored action reads slot 0."""
+    logp = torch.log_softmax(masked_logits, dim=-1)
+    probs = torch.exp(logp)
+    entropy = -torch.sum(probs * torch.where(probs > 0, logp, 0.0), dim=-1)
+    a_safe = action.clamp(0, masked_logits.shape[-1] - 1)
+    return logp.gather(1, a_safe[:, None])[:, 0], entropy
+
+
 def select_action(feedback: int, masked_logits: torch.Tensor, teacher: torch.Tensor,
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (action, log_prob, entropy) for the feedback mode
     (ref: follower.py:131-139, envdrop.py:182-195).  The action carries no
     gradient; log_prob and entropy do."""
-    logp = torch.log_softmax(masked_logits, dim=-1)
-    probs = torch.exp(logp)
-    entropy = -torch.sum(probs * torch.where(probs > 0, logp, 0.0), dim=-1)
     if feedback == FEEDBACK_TEACHER:
         action = teacher
     elif feedback == FEEDBACK_ARGMAX:
@@ -165,8 +173,7 @@ def select_action(feedback: int, masked_logits: torch.Tensor, teacher: torch.Ten
     else:
         noise = gumbel_noise(masked_logits.shape, generator, masked_logits.device)
         action = torch.argmax(masked_logits.detach() + noise, dim=-1)
-    a_safe = action.clamp(0, masked_logits.shape[-1] - 1)
-    log_prob = logp.gather(1, a_safe[:, None])[:, 0]
+    log_prob, entropy = policy_terms(masked_logits, action)
     return action, log_prob, entropy
 
 
@@ -187,15 +194,41 @@ def shaped_reward(is_stop: torch.Tensor, dist_before: torch.Tensor, dist_after: 
 ModelStepFn = Callable
 
 
+def visited_history(state0: EnvState, episode_len: int) -> torch.Tensor:
+    """The visited-node history of ``avoid_cyclic`` (common.py:183-185):
+    [B, T+1], slot t the node at time t, -1 while unfilled."""
+    visited = torch.full((state0.node.shape[0], episode_len + 1), -1, dtype=state0.node.dtype,
+                         device=state0.node.device)
+    visited[:, 0] = state0.node
+    return visited
+
+
+def cyclic_mask(world: WorldTables, node: torch.Tensor, cand_mask: torch.Tensor,
+                visited: torch.Tensor) -> torch.Tensor:
+    """``cand_mask`` [B, MC+1] with the candidates that lead to an already
+    visited node masked too (ref: follower.py:117-122; common.py:194-202):
+    only valid candidates, since padding slots alias the node itself
+    (always visited) and slot n doubles as STOP, which stays open."""
+    c_next = world.cand_next[node]                                          # [B, MC]
+    seen = (c_next[:, :, None] == visited[:, None, :]).any(dim=-1) & world.cand_valid[node]
+    pad = seen.new_zeros((seen.shape[0], cand_mask.shape[1] - seen.shape[1]))
+    return cand_mask | torch.cat([seen, pad], dim=1)
+
+
 def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
                  model_step: ModelStepFn, episode_len: int, feedback: int,
                  compute_dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 model_post: Optional[Callable] = None) -> RolloutResult:
+                 model_post: Optional[Callable] = None,
+                 avoid_cyclic: bool = False) -> RolloutResult:
     """Run ``episode_len`` decoder steps over the batch; ``model_post``
     updates the carry from the chosen action before the env steps
-    (common.py:208-210)."""
+    (common.py:208-210).  ``avoid_cyclic`` masks the candidates that lead
+    to viewpoints already visited (``cyclic_mask``), from a history of
+    the nodes on the device; a frozen step records the node that sticks,
+    as a live step on an all-ended batch does."""
     state = state0 = E.reset(world, ep)
+    visited = visited_history(state0, episode_len) if avoid_cyclic else None
     mc = model_carry0
     records = []
     exit_ = EarlyExit()
@@ -203,41 +236,57 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
         if exit_.dead(state.ended):
             exit_.skip()
             records.append(frozen_record(world, state, records[-1]))
+            if visited is not None:
+                visited[:, t + 1] = state.node
             continue
         with exit_.live():
             meta = E.observe_meta(world, state, compute_dtype)
             logits, mc, hidden, progress = model_step(mc, meta, state, t)
-            masked = torch.where(meta.cand_mask, NEG_INF, logits)
+            cand_mask = (meta.cand_mask if visited is None
+                         else cyclic_mask(world, state.node, meta.cand_mask, visited))
+            masked = torch.where(cand_mask, NEG_INF, logits)
             action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
-        ce = cross_entropy_per_sample(masked, meta.teacher, E.IGNORE_ID)
         if model_post is not None:
             mc = model_post(mc, meta, action)
-
-        alive_before = torch.logical_not(state.ended)
-        is_stop = E.action_is_stop(world, state, action)
-        new_state = E.step(world, state, action)
-        dist_after = world.dist[new_state.node].gather(1, state.goal_local[:, None])[:, 0]
-        records.append(StepRecord(
-            node_after=new_state.node,
-            view_after=new_state.view_idx,
-            moved=alive_before & torch.logical_not(is_stop),
-            alive_before=alive_before,
-            ce=ce,
-            ce_count=(meta.teacher != E.IGNORE_ID).sum(),
-            logits=masked,
-            log_prob=log_prob,
-            entropy=entropy,
-            hidden=hidden,
-            reward=shaped_reward(is_stop, meta.dist, dist_after, alive_before),
-            dist_after=dist_after,
-            teacher=meta.teacher,
-            action=action,
-            progress=(torch.zeros_like(meta.dist) if progress is None else progress),
-        ))
+        new_state, record = step_and_record(world, state, meta, masked, action, log_prob,
+                                            entropy, hidden, progress)
+        if visited is not None:
+            visited[:, t + 1] = new_state.node
+        records.append(record)
         state = new_state
     steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
     return RolloutResult(final_state=state, start_node=state0.node, start_view=state0.view_idx,
                          steps=steps, model_carry=mc)
+
+
+def step_and_record(world: WorldTables, state: EnvState, meta: E.ObsMeta, masked: torch.Tensor,
+                    action: torch.Tensor, log_prob: torch.Tensor, entropy: torch.Tensor,
+                    hidden: torch.Tensor, progress: Optional[torch.Tensor] = None
+                    ) -> Tuple[EnvState, StepRecord]:
+    """The env step of ``action`` from ``state`` and the step's record
+    (common.py:204-240): the CE of the masked logits against the teacher,
+    the stop conversion, the shaped reward, the distance after."""
+    alive_before = torch.logical_not(state.ended)
+    is_stop = E.action_is_stop(world, state, action)
+    new_state = E.step(world, state, action)
+    dist_after = world.dist[new_state.node].gather(1, state.goal_local[:, None])[:, 0]
+    return new_state, StepRecord(
+        node_after=new_state.node,
+        view_after=new_state.view_idx,
+        moved=alive_before & torch.logical_not(is_stop),
+        alive_before=alive_before,
+        ce=cross_entropy_per_sample(masked, meta.teacher, E.IGNORE_ID),
+        ce_count=(meta.teacher != E.IGNORE_ID).sum(),
+        logits=masked,
+        log_prob=log_prob,
+        entropy=entropy,
+        hidden=hidden,
+        reward=shaped_reward(is_stop, meta.dist, dist_after, alive_before),
+        dist_after=dist_after,
+        teacher=meta.teacher,
+        action=action,
+        progress=(torch.zeros_like(meta.dist) if progress is None else progress),
+    )
 
 
 def frozen_record(world: WorldTables, state: EnvState, like: StepRecord) -> StepRecord:

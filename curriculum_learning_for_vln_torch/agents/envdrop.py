@@ -17,9 +17,15 @@ group of 8 rows) or "ext" (keep-masks drawn here).  ``rollout_packed``
 rollout (envdrop.py:198-230): the shared noise mask on the image dims of
 the gathered features, the unfused decode, no observation kernel;
 ``rollout_packed`` takes no mask (the back-translation step does not
-pack).
+pack).  ``rollout(avoid_cyclic=True)`` masks the candidates that lead
+back to visited viewpoints (envdrop.py:195).
 
-The hand-written BPTT path (``FUSED_BPTT``) is not ported.
+With ``use_fused_bptt`` (TPU.FUSED_BPTT, set by ``build_agent``) a
+training rollout runs the hand-written BPTT of ``ops/bptt.py`` instead
+(envdrop.py:235-245): the same forward and draws, the observations
+gathered plainly (no K4-K7 inside it), a backward by hand.  The A2C
+tail's extra decode step runs outside it, through K4 and K6, and the
+packed rollout never takes it (agents/packed.py has no such branch).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from ..env import env as E
 from ..env.env import EpisodeBatch
 from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
-from ..ops import fused_obs, philox
+from ..ops import bptt, fused_obs, philox
 from ..ops.cuda.drop import NO_DROP, DropSpec, draw_keep_mask
 from ..parallel import mesh as M
 from ..utils.angles import make_angle_feat
@@ -75,6 +81,9 @@ class EnvDropAgent:
         # dtype of the compute weights; must equal the feature table's dtype
         self.compute_dtype = compute_dtype
         self.obs_masks = obs_masks
+        # the hand-written rollout backward (ops/bptt.py); build_agent sets
+        # it from TPU.FUSED_BPTT
+        self.use_fused_bptt = False
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Seeded f32 parameters on ``device`` (EnvDrop has no model state)."""
@@ -204,7 +213,8 @@ class EnvDropAgent:
                 episode_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
                 model_state: Optional[dict] = None,
-                feat_mask: Optional[torch.Tensor] = None
+                feat_mask: Optional[torch.Tensor] = None,
+                avoid_cyclic: bool = False
                 ) -> Tuple[EnvDropLosses, C.RolloutResult]:
         """One batched episode rollout.  Returns (losses, result); the A2C
         terms are computed with sample feedback and ``train_rl``.
@@ -230,9 +240,16 @@ class EnvDropAgent:
             return (*decode(mc, ctx, ctx_mask, meta, state), None)
 
         # h_tilde starts as the encoder's h (ref: envdrop.py:150)
-        result = C.rollout_scan(world, ep, (h0, c0, h0), model_step,
-                                episode_len or self.episode_len, feedback,
-                                compute_dtype=self.compute_dtype, generator=generator)
+        if train and self.use_fused_bptt:
+            result = bptt.envdrop_rollout_bptt(
+                self, params["decoder"], world, ep, ctx, ctx_mask, h0, c0,
+                episode_len or self.episode_len, feedback, generator=generator,
+                avoid_cyclic=avoid_cyclic, feat_mask=feat_mask)
+        else:
+            result = C.rollout_scan(world, ep, (h0, c0, h0), model_step,
+                                    episode_len or self.episode_len, feedback,
+                                    compute_dtype=self.compute_dtype, generator=generator,
+                                    avoid_cyclic=avoid_cyclic)
         steps = result.steps
         alive = steps.alive_before.float()
 

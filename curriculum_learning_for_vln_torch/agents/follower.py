@@ -65,10 +65,11 @@ class FollowerAgent:
     def rollout(self, params: dict, world: WorldTables, ep: EpisodeBatch, feedback: int,
                 train: bool = False, episode_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                model_state: Optional[dict] = None
+                model_state: Optional[dict] = None, avoid_cyclic: bool = False
                 ) -> Tuple[FollowerLosses, C.RolloutResult, dict]:
         """One batched rollout: (losses, result, model_state), the last as
-        given (the Follower has none)."""
+        given (the Follower has none).  ``avoid_cyclic`` masks the
+        candidates that lead back to visited viewpoints (follower.py:69)."""
         C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         dec = params["decoder"]
@@ -98,7 +99,7 @@ class FollowerAgent:
         result = C.rollout_scan(world, ep, (h0, c0, a_prev0, None), model_step,
                                 episode_len or self.episode_len, feedback,
                                 compute_dtype=self.compute_dtype, generator=generator,
-                                model_post=model_post)
+                                model_post=model_post, avoid_cyclic=avoid_cyclic)
         losses = FollowerLosses(ml_loss=C.ml_loss_mean_over_alive(result.steps),
                                 ml_loss_per_sample=C.ml_loss_per_sample(result.steps))
         return losses, result, model_state if model_state is not None else {}

@@ -65,12 +65,14 @@ class SelfMonitorAgent:
     def rollout(self, params: dict, world: WorldTables, ep: EpisodeBatch, feedback: int,
                 train: bool = False, episode_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                model_state: Optional[dict] = None, lamb: float = 0.5
+                model_state: Optional[dict] = None, lamb: float = 0.5,
+                avoid_cyclic: bool = False
                 ) -> Tuple[MonitorLosses, C.RolloutResult, dict]:
         """One batched rollout: (losses, result, model_state), the BN
         statistics after the rollout when ``train`` (carrying no gradient),
         else ``model_state`` as given.  ``lamb`` weighs the progress MSE
-        against the CE (TRAIN.PROGMONITOR_WEIGHT)."""
+        against the CE (TRAIN.PROGMONITOR_WEIGHT).  ``avoid_cyclic`` masks
+        the candidates that lead back to visited viewpoints (monitor.py:72)."""
         C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         dec = params["decoder"]
@@ -100,7 +102,7 @@ class SelfMonitorAgent:
         result = C.rollout_scan(world, ep, (h0, c0, a_prev0, model_state["decoder_bn"], None),
                                 model_step, episode_len or self.episode_len, feedback,
                                 compute_dtype=self.compute_dtype, generator=generator,
-                                model_post=model_post)
+                                model_post=model_post, avoid_cyclic=avoid_cyclic)
         steps = result.steps
 
         # progress targets (ref: monitor.py:153-157) from the distance at the

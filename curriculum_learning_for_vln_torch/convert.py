@@ -59,6 +59,12 @@ _TREE_KEYS = {
         ("bert", "t_pooler", "w"), ("bert", "v_pooler", "w"),
         ("cls", "transform", "w"), ("cls", "decoder_bias"), ("cls", "v_decoder", "w"),
         ("vil_logit", "w")),
+    # the sub-instruction family (models/subinstr.py), unused on the main path
+    "SUB-MONITOR": (
+        ("proj_navigable_mlp", "layers"), ("proj_navigable_mlp", "bn_in"), ("pe",),
+        ("text_attn", "linear_in", "w"), ("visual_attn", "linear_in_h", "w"), ("lstm", "w_ih"),
+        ("action_linear", "w")),
+    "INSTR-SHIFTING": (("linear0", "w"), ("linear1", "w"), ("linear2", "w"), ("linear3", "w")),
 }
 _STATE_KEYS = (("decoder_bn", "mlp", "bn_in", "mean"), ("decoder_bn", "mlp", "bns"))
 
@@ -74,13 +80,13 @@ def _has(tree, path) -> bool:
 
 def tree_kind(tree: dict) -> str:
     """The model whose parameter tree this is ("ENVDROP", "FOLLOWER",
-    "SELF-MONITOR", "SPEAKER" or "VILBERT"); raises on a tree of none of
-    them."""
+    "SELF-MONITOR", "SPEAKER", "VILBERT", or the sub-instruction decoder's
+    or shifting head's); raises on a tree of none of them."""
     for kind, paths in _TREE_KEYS.items():
         if all(_has(tree, p) for p in paths):
             return kind
-    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree, nor a speaker's "
-                     "or a VLN-BERT scorer's")
+    raise ValueError("not an EnvDrop, Follower or Self-Monitor parameter tree, nor a speaker's, "
+                     "a VLN-BERT scorer's or a sub-instruction module's")
 
 
 def _leaf_to_torch(x):
@@ -92,8 +98,8 @@ def _leaf_to_torch(x):
 
 def params_from_jax(tree: dict) -> dict:
     """The port's parameters (CPU tensors, f32) from a JAX EnvDrop, Follower,
-    Self-Monitor, speaker or VLN-BERT parameter tree of numpy arrays.
-    Raises on a tree of none of their structures."""
+    Self-Monitor, speaker, VLN-BERT or sub-instruction parameter tree of
+    numpy arrays.  Raises on a tree of none of their structures."""
     tree_kind(tree)
     return tree_map(_leaf_to_torch, tree)
 

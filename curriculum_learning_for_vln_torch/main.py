@@ -27,9 +27,11 @@ generated instructions (``engine.self_train``, on CLR2R over round_5),
 for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations; or, with
 ``--beam N`` (main.py:67-76), beam-search inference with speaker
 rescoring over the validation splits (``engine.beam_eval``; the agent
-from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  Not ported
-yet, and refused: the hand-written BPTT (``TPU.FUSED_BPTT``) and the
-other agents.
+from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  EnvDrop
+trains through the hand-written rollout BPTT with ``TPU.FUSED_BPTT``
+(ops/bptt.py).  ``MODEL.NAME TEST`` is refused but with
+``--check-the-code``: the model-free teacher-follower has no loss, and
+the JAX package's trainer fails on it in its first iteration.
 
 Several processes train as one on the whole batch (main.py:41-55): with
 ``VLN_COORDINATOR`` (host:port), ``VLN_NUM_PROCESSES`` and
@@ -65,21 +67,23 @@ from .utils import logging_utils
 from .utils.config import get_cfg_defaults
 from .world.compiler import PRECISIONS, resolve_device
 
-PORTED_AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR")
+AGENTS = ("ENVDROP", "FOLLOWER", "SELF-MONITOR", "TEST")
 
 
 def check_ported(args, cfg) -> None:
-    """Raise on every mode and option of the JAX CLI that the port does
-    not run yet, before any data is loaded."""
-    if args.self_train and cfg.MODEL.NAME != "ENVDROP":  # (main.py:84)
+    """Raise, before any data is loaded, on what the JAX CLI cannot run
+    either: back-translation for another agent than EnvDrop (main.py:84),
+    an agent ``build_agent`` does not know (agents/__init__.py:46), and
+    training or beam search with the TestAgent, which has no loss_fn (the
+    JAX trainer fails in its first iteration); ``--check-the-code`` runs
+    it."""
+    if args.self_train and cfg.MODEL.NAME != "ENVDROP":
         raise ValueError("--self-train: back-translation is an EnvDrop stage")
-    if cfg.MODEL.NAME not in PORTED_AGENTS:
-        raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} is not ported yet "
-                                  f"({', '.join(PORTED_AGENTS)})")
-    pipeline.curriculum_mode(cfg)  # raises on an unknown mode
-    if cfg.TPU.FUSED_BPTT:
-        raise NotImplementedError("TPU.FUSED_BPTT (the hand-written rollout BPTT) is not "
-                                  "ported yet")
+    if cfg.MODEL.NAME not in AGENTS:
+        raise NotImplementedError(f"MODEL.NAME {cfg.MODEL.NAME!r} ({', '.join(AGENTS)})")
+    if cfg.MODEL.NAME == "TEST" and not args.check_the_code:
+        raise NotImplementedError("MODEL.NAME TEST: the TestAgent follows the teacher and has "
+                                  "no loss_fn to train or decode with; --check-the-code runs it")
 
 
 def build_trainer(cfg, train_env, logger, seed: int = 2020):
@@ -95,6 +99,9 @@ def build_trainer(cfg, train_env, logger, seed: int = 2020):
     if mode == "SELF-PACE":
         logger.info("Using SelfPacedCurriculum trainer")
         return SelfPacedCurriculum.from_config(cfg, train_env)
+    if cfg.TRAIN.CLMODE and cfg.DATA.NAME == "CLR2R":
+        logger.warning("TRAIN.CLMODE %r is none of %s: training the classic loop on CLR2R, as the "
+                       "JAX package's main does", cfg.TRAIN.CLMODE, ", ".join(pipeline.CURRICULA))
     logger.info("Using Classic trainer")
     return ClassicTrainer()
 
@@ -150,7 +157,8 @@ def run(args, cfg, device, logger) -> None:
     logger.info("[2] tokenizer ready, vocab size %d", tok.vocab_size())
     world, train_env, valid_env, feat_dim = pipeline.build_environments(cfg, tok, seed=args.seed,
                                                                         device=device)
-    logger.info("[3] world compiled (%d nodes) and environments created", world.num_nodes)
+    logger.info("[3] world compiled (%d nodes; shortest paths: %s solver) and environments "
+                "created", world.num_nodes, world.solver)
 
     if args.check_the_code:  # (main.py:63-65)
         logger.info("Checking the code (teacher-following agent on val_unseen)")

@@ -32,6 +32,14 @@ from .cuda import pano_fused as _pano_fused
 from .cuda.drop import NO_DROP, DropSpec
 
 
+def _drop(ctx, mask, seeds) -> DropSpec:
+    """The forward's DropSpec, its tensors back from ``save_for_backward``
+    (which frees them after the backward, where an attribute of ctx would
+    keep an ext mask alive as long as the op's outputs)."""
+    mode, keep = ctx.drop_mode
+    return DropSpec(mode, mask=mask, seeds=seeds, keep=keep)
+
+
 class PanoAttend(torch.autograd.Function):
     """(vis, cand_img) of K4, differentiable in tv through K5."""
 
@@ -39,16 +47,16 @@ class PanoAttend(torch.autograd.Function):
     def forward(ctx, tv, node, view, c_view, features, loc_embed, drop):
         vis, alpha, cand = _pano_fused.pano_attend(node, view, c_view, features, loc_embed, tv,
                                                    drop)
-        ctx.save_for_backward(node, view, features, loc_embed, alpha)
-        ctx.drop = drop
+        ctx.save_for_backward(node, view, features, loc_embed, alpha, drop.mask, drop.seeds)
+        ctx.drop_mode = (drop.mode, drop.keep)
         ctx.mark_non_differentiable(cand)  # a copy of gradient-free table rows
         return vis, cand
 
     @staticmethod
     def backward(ctx, g_vis, _g_cand):
-        node, view, features, loc_embed, alpha = ctx.saved_tensors
+        node, view, features, loc_embed, alpha, mask, seeds = ctx.saved_tensors
         d_tv = _pano_fused.pano_attend_bwd(node, view, features, loc_embed, alpha,
-                                           g_vis.contiguous(), ctx.drop)
+                                           g_vis.contiguous(), _drop(ctx, mask, seeds))
         return d_tv, None, None, None, None, None, None
 
 
@@ -57,15 +65,15 @@ class CandAttend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, cand_img, cand_angle, cand_valid, drop):
-        ctx.save_for_backward(cand_img, cand_angle, cand_valid)
-        ctx.drop = drop
+        ctx.save_for_backward(cand_img, cand_angle, cand_valid, drop.mask, drop.seeds)
+        ctx.drop_mode = (drop.mode, drop.keep)
         return _cand_score.cand_score(cand_img, cand_angle, cand_valid, q, drop)
 
     @staticmethod
     def backward(ctx, g):
-        cand_img, cand_angle, cand_valid = ctx.saved_tensors
+        cand_img, cand_angle, cand_valid, mask, seeds = ctx.saved_tensors
         d_q = _cand_score.cand_score_bwd(cand_img, cand_angle, cand_valid, g.contiguous(),
-                                         ctx.drop)
+                                         _drop(ctx, mask, seeds))
         return d_q, None, None, None, None
 
 

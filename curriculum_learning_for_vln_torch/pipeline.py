@@ -125,13 +125,15 @@ def build_real_world(cfg, scans) -> Tuple[WC.CompiledWorld, int]:
     return world, feat_dim
 
 
+CURRICULA = ("NAIVE", "AUTO", "SELF-PACE")
+
+
 def curriculum_mode(cfg) -> str:
-    """TRAIN.CLMODE where it applies (DATA.NAME CLR2R), else "" (classic);
-    raises on an unknown mode."""
+    """TRAIN.CLMODE where it applies (DATA.NAME CLR2R) and is one of
+    CURRICULA, else "" (classic), as the JAX package's pipeline and main
+    read it (pipeline.py:140-152, main.py:102-124)."""
     mode = cfg.TRAIN.CLMODE if cfg.DATA.NAME == "CLR2R" else ""
-    if mode not in ("", "NAIVE", "AUTO", "SELF-PACE"):
-        raise ValueError(f"unknown TRAIN.CLMODE {mode!r}")
-    return mode
+    return mode if mode in CURRICULA else ""
 
 
 def build_environments(cfg, tok: Tokenizer, seed: int = 2020, device=None):

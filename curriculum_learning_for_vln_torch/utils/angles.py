@@ -55,3 +55,28 @@ def all_loc_embeddings(feat_size: int = ANGLE_FEAT_SIZE) -> np.ndarray:
     """(36, 36, feat_size): row v = loc embedding when current viewIndex is v
     (ref: misc.py:316-317)."""
     return np.stack([build_viewpoint_loc_embedding(v, feat_size) for v in range(NUM_VIEWS)])
+
+
+def view_heading(view_index):
+    """Discretized absolute heading of a viewIndex (radians)."""
+    return (view_index % 12) * ANGLE_INC
+
+
+def view_elevation(view_index):
+    """Discretized absolute elevation of a viewIndex: rows are down/level/up."""
+    return (view_index // 12 - 1) * ANGLE_INC
+
+
+def heading_to_view_index(heading: float, elevation: float = 0.0) -> int:
+    """Snap a continuous heading/elevation to the 36-view index, as
+    MatterSim's discretized-viewing-angles episode start does (heading and
+    elevation rounded to the nearest 30 degrees, elevation clamped to the
+    3 rows; angles.py:78-85)."""
+    h_idx = int(round(heading / ANGLE_INC)) % 12
+    e_idx = int(np.clip(round(elevation / ANGLE_INC), -1, 1)) + 1
+    return e_idx * 12 + h_idx
+
+
+def canonical_angle(x):
+    """Wrap an angle into (-pi, pi] (ref: misc.py:328-330)."""
+    return x - 2 * np.pi * np.round(x / (2 * np.pi))

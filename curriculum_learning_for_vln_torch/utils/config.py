@@ -268,9 +268,10 @@ _C.AIDE.SPEAKER.RESUME = ""                # speaker checkpoint path (beam resco
 # --- TPU section of the JAX package: kept so its YAML files load unchanged.
 # The port reads PRECISION (feature-table and compute dtype), MESH_DATA /
 # MESH_MODEL (the data-parallel mesh), OBS_MASKS, the SYNTHETIC_* world,
-# MAX_CANDIDATES, SCAN_EARLY_EXIT, PACKED_RL, IL_BUCKETS, PROFILE_DIR and
-# the BEAM_* keys, and refuses FUSED_BPTT; the other keys configure the
-# JAX package's TPU programs and have no effect here.
+# MAX_CANDIDATES, SCAN_EARLY_EXIT, PACKED_RL, IL_BUCKETS, PROFILE_DIR,
+# FUSED_BPTT (EnvDrop's hand-written rollout backward, ops/bptt.py) and the
+# BEAM_* keys; the other keys configure the JAX package's TPU programs and
+# have no effect here.
 _C.TPU = CfgNode()
 _C.TPU.MESH_DATA = 0
 _C.TPU.MESH_MODEL = 1

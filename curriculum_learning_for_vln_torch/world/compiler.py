@@ -1,9 +1,12 @@
 """World compiler: navigation graphs -> packed device-resident tables.
 
 The port of ``curriculum_learning_for_vln_tpu/world/compiler.py``.  The
-host side is the same numpy code (scipy all-pairs Dijkstra; the native
-C++ solver is not used by the port), so the packed tables are equal
-element for element.  ``device_tables`` returns torch tensors on the
+host side is the same numpy code with the same all-pairs solver: the C++
+Dijkstra of ``native/graphworld.cpp`` (``world/native.py``) by default,
+scipy's where the library cannot be built or ``use_native=False``.  The
+two agree on distances but may break equal-cost ties to another next
+hop, so each choice gives the JAX package's tables element for element
+under the same choice.  ``device_tables`` returns torch tensors on the
 requested device:
 
 * candidate table   — per node: neighbor ids, absolute headings/elevations,
@@ -18,6 +21,7 @@ Index tables are int64, the index type torch's gathers take.
 """
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -27,9 +31,13 @@ import torch
 
 from ..utils.angles import ANGLE_INC, all_loc_embeddings
 from .graph import ScanGraph, shortest_paths
+from .native import native_available, native_build_error, native_shortest_paths
 from .synthetic import synthetic_features
 
 MAX_CANDIDATES_DEFAULT = 16
+
+logger = logging.getLogger(__name__)
+_fallback_warned = False  # the scipy fallback is announced once a process
 
 PRECISIONS = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -98,6 +106,8 @@ class CompiledWorld:
     next_hop: np.ndarray
     features: Optional[np.ndarray] = None
     _id_map: Optional[Dict[str, Dict[str, int]]] = None
+    solver: str = "unknown"                 # what made dist / next_hop: "native", "scipy",
+                                            # "unknown" (a world read from a cache)
 
     # -- lookups ----------------------------------------------------------
     def global_id(self, scan: str, viewpoint: str) -> int:
@@ -194,19 +204,32 @@ def candidate_geometry(src_pos: np.ndarray, dst_pos: np.ndarray):
     return heading.astype(np.float32), elevation.astype(np.float32), view
 
 
+def _warn_fallback() -> None:
+    global _fallback_warned
+    if not _fallback_warned:
+        _fallback_warned = True
+        logger.warning("world compiler: the native graph library did not build (%s); shortest "
+                       "paths from scipy's Dijkstra, whose next hops may differ from the native "
+                       "solver's at equal-cost ties", native_build_error())
+
+
 def compile_world(
     graphs: Dict[str, ScanGraph],
     max_candidates: int = MAX_CANDIDATES_DEFAULT,
     feature_fn: Optional[Callable[[str, str], np.ndarray]] = None,
     feature_dim: int = 2048,
     num_views: int = 36,
+    use_native: bool = True,
 ) -> CompiledWorld:
     """Compile scan graphs into packed tables.
 
     ``feature_fn(scan, viewpoint_id) -> [num_views, feature_dim]`` supplies
     panoramic features (precomputed ResNet TSV rows or synthetic).  When
     None, features are left unattached (attach later via
-    ``attach_features``).  Shortest paths come from scipy's Dijkstra.
+    ``attach_features``).  ``use_native`` takes shortest paths from the C++
+    solver when its library builds, else from scipy's Dijkstra
+    (compiler.py:257-270), with a warning the first time in a process;
+    the world's ``solver`` says which one made its tables.
     """
     scan_ids = sorted(graphs)
     counts = [graphs[s].num_nodes for s in scan_ids]
@@ -230,6 +253,9 @@ def compile_world(
     dist = np.full((N, L), 1e9, dtype=np.float32)
     next_hop = np.zeros((N, L), dtype=np.int32)
 
+    solver = "native" if use_native and native_available() else "scipy"
+    if use_native and solver == "scipy":
+        _warn_fallback()
     for s, scan in enumerate(scan_ids):
         g = graphs[scan]
         off = int(scan_offset[s])
@@ -239,7 +265,7 @@ def compile_world(
         node_local[off : off + V] = np.arange(V)
         pos[off : off + V] = g.pos
 
-        sd, snh = shortest_paths(g)
+        sd, snh = native_shortest_paths(g) if solver == "native" else shortest_paths(g)
         dist[off : off + V, :V] = sd
         next_hop[off : off + V, :V] = snh + off
 
@@ -277,6 +303,7 @@ def compile_world(
         n_cands=n_cands,
         dist=dist,
         next_hop=next_hop,
+        solver=solver,
     )
     if feature_fn is not None:
         attach_features(world, feature_fn, feature_dim=feature_dim, num_views=num_views)

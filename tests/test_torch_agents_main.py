@@ -114,16 +114,20 @@ def test_check_ported_accepts_the_agents_and_refuses_the_rest():
             t_main.check_ported(args, cfg)
     for extra in (["MODEL.FOLLOWER.GLOVE_PATH", "glove.npy"], ["TRAIN.CLMODE", "AUTO"],
                   ["TRAIN.EVAL_TRAIN", "True"], ["TPU.SCAN_EARLY_EXIT", "True"],
-                  ["AGENT.TEACHER", "path"]):  # ported since
+                  ["AGENT.TEACHER", "path"], ["TPU.FUSED_BPTT", "True"]):  # ported since
         args, cfg = t_main.parse_args(["--device", "cpu", "--config-file",
                                        os.path.join(REPO, "configs", CONFIGS[1]), *extra])
         t_main.check_ported(args, cfg)
-    for extra, what in ((["MODEL.NAME", "SPEAKER"], "SPEAKER"),
-                        (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")):
+    # JAX's build_agent raises on SPEAKER; its trainer fails on TEST (no loss_fn)
+    for extra, what in ((["MODEL.NAME", "SPEAKER"], "SPEAKER"), (["MODEL.NAME", "TEST"], "TEST"),
+                        (["--beam", "3", "MODEL.NAME", "TEST"], "TEST")):
         args, cfg = t_main.parse_args(["--device", "cpu", "--config-file",
                                        os.path.join(REPO, "configs", CONFIGS[1]), *extra])
         with pytest.raises(NotImplementedError, match=what):
             t_main.check_ported(args, cfg)
+    args, cfg = t_main.parse_args(["--device", "cpu", "--check-the-code", "--config-file",
+                                   os.path.join(REPO, "configs", CONFIGS[1]), "MODEL.NAME", "TEST"])
+    t_main.check_ported(args, cfg)  # the TestAgent's own mode
 
 
 @pytest.mark.parametrize("config", CONFIGS)

@@ -86,7 +86,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def ctx(synth_world, synth_graphs, synth_dataset, tokenizer):
     data = expand_r2r_items(synth_dataset, tokenizer)
-    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16)
+    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16, use_native=False)
     t_world.features = synth_world.features.copy()
     vocab = tokenizer.vocab_size()
     j_spk = JSpeaker(_cfg(j_config).AIDE.SPEAKER, vocab, feat_dim=FEAT_DIM, episode_len=EP_LEN)
@@ -239,7 +239,7 @@ def test_main_beam_runs_on_the_synthetic_world(tmp_path, capsys):
         assert all(p["listener_scores"] and p["speaker_scores"] for r in full for p in r["paths"])
 
 
-PORTED_SINCE = ("GLOVE", "curriculum", "EVAL_TRAIN", "SCAN_EARLY_EXIT")
+PORTED_SINCE = ("GLOVE", "curriculum", "EVAL_TRAIN", "SCAN_EARLY_EXIT", "FUSED_BPTT")
 
 
 @pytest.mark.parametrize("extra,what", [
@@ -251,7 +251,7 @@ PORTED_SINCE = ("GLOVE", "curriculum", "EVAL_TRAIN", "SCAN_EARLY_EXIT")
     (["TPU.FUSED_BPTT", "True"], "FUSED_BPTT")])
 def test_main_beam_still_refuses_what_is_not_ported(extra, what):
     args, cfg = t_main.parse_args(["--device", "cpu", *BEAM_CLI, *extra])
-    if what in PORTED_SINCE:  # GloVe, AUTO, EVAL_TRAIN and the early exit are ported
+    if what in PORTED_SINCE:  # GloVe, AUTO, EVAL_TRAIN, the early exit and the BPTT are ported
         t_main.check_ported(args, cfg)
         return
     with pytest.raises(NotImplementedError, match=what):

@@ -5,7 +5,7 @@ trainers against one device.
 Each scenario trains 2 epochs x 2 iterations at B = 8 on a tiny synthetic
 world in f32, evaluating every epoch (``tests/torch_dp_workers.py``):
 EnvDrop's classic iteration (sample feedback, dropout and prng env-dropout
-on), SPCL with packed RL as shipped (prng_shared, a pool of 3 batches),
+on), the same through the hand-written rollout BPTT (TPU.FUSED_BPTT), SPCL with packed RL as shipped (prng_shared, a pool of 3 batches),
 the Follower under SPCL (teacher feedback), AUTO's Exp3.S bandit, and the
 Self-Monitor (its BN statistics over every rank's rows), with SGD; and
 ``engine.self_train`` (the speaker's steps, a back-translated iteration).

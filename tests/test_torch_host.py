@@ -28,8 +28,7 @@ def worlds():
     out = []
     for synth, comp in ((j_synth, j_compiler), (t_synth, t_compiler)):
         graphs = synth.make_world_graphs(num_scans=3, nodes_per_scan=24, seed=7)
-        kwargs = {"use_native": False} if comp is j_compiler else {}
-        world = comp.compile_world(graphs, max_candidates=16, **kwargs)
+        world = comp.compile_world(graphs, max_candidates=16, use_native=False)
         comp.attach_synthetic_features(world, feature_dim=64)
         out.append((world, synth.make_r2r_dataset(graphs, num_paths=40, seed=3)))
     return out

@@ -222,3 +222,21 @@ def test_backend_rule(monkeypatch):
     assert M.backend_for(torch.device("cuda", 0), 1) == "nccl"
     assert M.backend_for(torch.device("cuda", 1), 2) == "nccl"
     assert M.backend_for(torch.device("cuda", 0), 4) == "gloo"
+
+
+# slice 11's modules: the rollout BPTT, the native graph library, the
+# sub-instruction models, the region labels and the roofline model
+SLICE11_MODULES = ("ops/bptt.py", "world/native.py", "world/compiler.py", "models/subinstr.py",
+                   "utils/region_label.py", "utils/roofline.py", "utils/__init__.py",
+                   "agents/common.py")
+
+
+def test_slice11_modules_are_scanned_and_import_without_jax():
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(SLICE11_MODULES) <= files
+    mods = ", ".join("curriculum_learning_for_vln_torch." + m[:-3].replace("/", ".")
+                     .removesuffix(".__init__") for m in SLICE11_MODULES)
+    code = (f"import sys, {mods};"
+            f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

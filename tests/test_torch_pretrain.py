@@ -67,7 +67,7 @@ def grounded():
     items = synthetic.make_grounded_dataset(graphs, world, rooms, num_paths=24, seed=1)
     tok = Tokenizer(build_vocab(items, min_count=1), encoding_length=24)
     data = expand_r2r_items(items, tok)
-    t_world = t_compiler.compile_world(graphs, max_candidates=16)
+    t_world = t_compiler.compile_world(graphs, max_candidates=16, use_native=False)
     t_world.features = world.features.copy()
     return world, t_world, rooms, data, tok
 

@@ -60,7 +60,7 @@ B = 6
 
 @pytest.fixture(scope="module")
 def worlds(synth_world, synth_graphs):
-    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16)
+    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16, use_native=False)
     t_world.features = synth_world.features.copy()
     return synth_world, t_world
 

@@ -199,10 +199,13 @@ def test_main_self_train_runs(config, tmp_path, monkeypatch):
 
 
 def test_main_beam_is_still_refused():
-    """--beam is ported; with a mode the port does not run yet it is still
-    refused, before any data is loaded."""
+    """--beam is ported; with what JAX's main cannot run either (an agent
+    its build_agent does not know) it is still refused, before any data is
+    loaded."""
     args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3"])
     t_main.check_ported(args, cfg)
     args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3", "TPU.FUSED_BPTT", "True"])
-    with pytest.raises(NotImplementedError, match="FUSED_BPTT"):
+    t_main.check_ported(args, cfg)  # ported since
+    args, cfg = t_main.parse_args(["--device", "cpu", "--beam", "3", "MODEL.NAME", "SPEAKER"])
+    with pytest.raises(NotImplementedError, match="SPEAKER"):
         t_main.main(args, cfg)

@@ -62,7 +62,7 @@ def _np_tree(tree):
 def setup(synth_world, synth_graphs, synth_dataset, tokenizer):
     """Both packages' worlds (from the same graphs and features), their
     tokenizers, one JAX EnvDrop parameter tree and its conversion."""
-    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16)
+    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16, use_native=False)
     t_world.features = synth_world.features.copy()
     j_tok = type(tokenizer)(tokenizer.vocab, encoding_length=ENC_LEN)
     t_tok = TTokenizer(tokenizer.vocab, encoding_length=ENC_LEN)

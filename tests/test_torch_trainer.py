@@ -14,6 +14,7 @@ trainer and entry point end to end on the CPU.
   it refuses the modes and options it does not port, and it takes the
   shipped configs' curriculum modes and packed RL.
 """
+import logging
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ from curriculum_learning_for_vln_torch import pipeline as t_pipeline
 from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
 from curriculum_learning_for_vln_torch.engine import evaluator as t_eval
 from curriculum_learning_for_vln_torch.engine import trainer as t_trainer
+from curriculum_learning_for_vln_torch.engine.trainer import ClassicTrainer
 from curriculum_learning_for_vln_torch.engine.checkpoint import load_checkpoint
 from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv as TEnv
 from curriculum_learning_for_vln_torch.serve import Navigator
@@ -44,7 +46,7 @@ B = 10
 
 @pytest.fixture(scope="module")
 def host(synth_world, synth_graphs, synth_dataset, tokenizer):
-    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16)
+    t_world = t_compiler.compile_world(synth_graphs, max_candidates=16, use_native=False)
     t_world.features = synth_world.features.copy()
     items = expand_r2r_items(synth_dataset, tokenizer)  # 3 instructions per path
     return synth_world, t_world, items
@@ -138,7 +140,7 @@ def test_classic_trainer_trains_and_serves(tmp_path):
     assert not torch.equal(params3["critic"]["fc1"]["w"], params["critic"]["fc1"]["w"])
 
 
-def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
+def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port(caplog):
     if not torch.cuda.is_available():  # on a GPU host main would train
         cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--config-file",
                "configs/envdrop/envdrop_config.yaml", "TPU.PACKED_RL", "0"]
@@ -147,13 +149,25 @@ def test_main_defaults_to_cuda_and_refuses_what_it_does_not_port():
     t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--self-train"]))  # ported
     t_main.check_ported(*t_main.parse_args(["--device", "cpu", "--beam", "3"]))  # ported
     for extra in (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "AUTO"], ["TRAIN.EVAL_TRAIN", "True"],
-                  ["TPU.SCAN_EARLY_EXIT", "True"]):  # ported since
+                  ["TPU.SCAN_EARLY_EXIT", "True"], ["TPU.FUSED_BPTT", "True"]):  # ported since
         t_main.check_ported(*t_main.parse_args(["--device", "cpu", *extra]))
-    for extra, what in ((["TPU.FUSED_BPTT", "True"], "FUSED_BPTT"),
-                        (["DATA.NAME", "CLR2R", "TRAIN.CLMODE", "RANDOM"], "CLMODE")):
-        args, cfg = t_main.parse_args(["--device", "cpu", *extra])
-        with pytest.raises((NotImplementedError, ValueError), match=what):
-            t_main.check_ported(args, cfg)
+    # an unknown CLMODE trains classic, as JAX's pipeline and main read it, with a warning
+    args, cfg = t_main.parse_args(["--device", "cpu", "DATA.NAME", "CLR2R", "TRAIN.CLMODE",
+                                   "RANDOM"])
+    t_main.check_ported(args, cfg)
+    assert t_pipeline.curriculum_mode(cfg) == ""
+    logger = logging.getLogger("test_torch_trainer.clmode")
+    with caplog.at_level(logging.INFO, logger=logger.name):
+        assert isinstance(t_main.build_trainer(cfg, None, logger), ClassicTrainer)
+    warned = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warned) == 1 and "'RANDOM'" in warned[0].getMessage()
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger=logger.name):  # no CLMODE: no warning
+        t_main.build_trainer(t_main.parse_args(["--device", "cpu", "DATA.NAME", "CLR2R"])[1],
+                             None, logger)
+    assert not [r for r in caplog.records if r.levelno == logging.WARNING]
+    with pytest.raises(NotImplementedError, match="SPEAKER"):
+        t_main.check_ported(*t_main.parse_args(["--device", "cpu", "MODEL.NAME", "SPEAKER"]))
     # the curriculum trainers and packed RL, as the configs ship them, run
     for config, extra in (("envdrop_config.yaml", []), ("envdrop_cl_config.yaml", []),
                           ("envdrop_cl_config.yaml", ["TRAIN.CLMODE", "SELF-PACE",

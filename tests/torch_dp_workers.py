@@ -42,6 +42,9 @@ TINY = ["TPU.SYNTHETIC_WORLD", True, "TPU.SYNTHETIC_SCANS", 3, "TPU.SYNTHETIC_NO
 SCENARIOS = {
     # EnvDrop IL + A2C, sample feedback, dropout and prng env-dropout on
     "classic": ("envdrop/envdrop_config.yaml", ["TPU.PACKED_RL", 0]),
+    # the same through the hand-written rollout BPTT (its backward redraws
+    # the global batch's masks)
+    "bptt": ("envdrop/envdrop_config.yaml", ["TPU.PACKED_RL", 0, "TPU.FUSED_BPTT", True]),
     # SPCL with packed RL as shipped (a pool of 3 batches), prng_shared
     "packed": ("envdrop/envdrop_cl_config.yaml",
                ["TRAIN.CLMODE", "SELF-PACE", "TPU.OBS_MASKS", "prng_shared",
