@@ -4,14 +4,17 @@ paper's curriculum recipe, the Exp3.S curriculum with the per-round
 train evaluation, R4R with the gt-route teacher, the rollout early exit,
 the Follower and Self-Monitor agents (the Follower also with frozen
 GloVe embeddings), the speaker with back-translation, beam search with
-speaker rescoring, the ViLBERT scorer with the CLR2R construction, and
-data-parallel training over several processes, on one GPU.
+speaker rescoring, the ViLBERT scorer with the CLR2R construction,
+data-parallel training over several processes, the rollout BPTT, and the
+plain route without any kernel (TPU.USE_PALLAS False) beside the kernels,
+on one GPU.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel phases only: the
                                            # short first call for a new kernel
     python3 chip_smoke.py --dp-only        # build + the data-parallel phase
     python3 chip_smoke.py --bptt-only      # build + the slice-11 phase (14)
+    python3 chip_smoke.py --slice12-only   # build + the slice-12 phase (15)
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch
    and CUDA versions.
@@ -21,8 +24,9 @@ data-parallel training over several processes, on one GPU.
    (``recurrence_res_kernel`` and ``bwd_recurrence_res_kernel``, which hold
    W_hh in registers), each instantiation printed by name, must show no
    spills and at most 128 registers a thread.
-3. Kernel phases (in a full run, after phase 12, so that their profiler
-   sessions do not come before the timed serve calls), in bf16 and f32:
+3. Kernel phases (in a full run, last, so that their profiler sessions
+   do not come before the timed serve calls, and in a process of their
+   own, fresh as with ``--kernels-only``), in bf16 and f32:
    each kernel on the card at its path's shapes, held against its plain
    PyTorch version on the same inputs and timed beside its plain version,
    one PyTorch library call where there is one, and the least time the
@@ -116,7 +120,8 @@ data-parallel training over several processes, on one GPU.
    (off, on, on, off); (e) the Follower of ``follower_config.yaml`` with
    a GloVe table it writes as ``.npy``: kernels vs plain, one Adam step
    with exact launches, the table unchanged bit for bit; (f) ``main`` as a
-   user runs it, each in a process of its own that prints its launches:
+   user runs it, three processes of their own run together, each printing
+   its launches:
    AUTO with the early exit, EnvDrop on R4R with the path teacher, and
    the Follower with the GloVe table on R4R (the table read back from its
    checkpoint unchanged).  Every kernel K1-K7 must launch on these paths.
@@ -195,9 +200,9 @@ data-parallel training over several processes, on one GPU.
    launches.
 13. Prints one ``{"kernels": [...]}`` line (with each kernel's launches on
    the curriculum-and-data phase's, the Follower's, the Self-Monitor's,
-   the speaker's, the beam's, the ViLBERT, the data-parallel and the
-   BPTT paths), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   the speaker's, the beam's, the ViLBERT, the data-parallel, the BPTT and
+   the slice-12 paths, the plain route's zeros among them), the card's name
+   and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 14. Slice-11 phase (after phase 12, before the kernel phases), on the
    serve world at EnvDrop's full width, B = 64, T = 35, prng: (a) one
    classic iteration with ``TPU.FUSED_BPTT`` on (the hand-written rollout
@@ -217,6 +222,32 @@ data-parallel training over several processes, on one GPU.
    (e) the peak device memory of one bf16 iteration with the flag off and
    on, in prng and ext, at B = 64 and 512 (the BPTT draws its masks again
    and gathers the observations again where autograd stores them).
+15. Slice-12 phase (after phase 14, before the kernel phases): the plain
+   route (TPU.USE_PALLAS False: the encoders' autograd step loop, the
+   agents' unfused decode) against the kernels, on the serve world.  (a)
+   EnvDrop's ``Navigator(use_pallas=False)`` against the default one at
+   full width, f32 and bf16, 64 requests a call: first-step logits within
+   1e-4 of their scale in f32 (1e-2 in bf16, where the plain route
+   contracts the attention in bf16 as JAX's XLA route does), trajectories
+   equal but after a tie (``compare_actions``), launches a call exact
+   (kernels: K3 = 2, K4 = K6 = T; plain: every K 0); bf16 calls timed in
+   turns (kernels, plain, plain, kernels) with each route's device-busy
+   share.  (b) One classic EnvDrop iteration (B = 64, T = 35) and one
+   Follower and one Self-Monitor iteration (their configs' full widths, T =
+   10), each through ``loop.configure_runtime`` with USE_PALLAS True and
+   False, from the same parameters, batch and generator seed, at DROP_RATE
+   (and FEAT_DROP_RATE) 0 with teacher feedback, f32 and bf16: the loss
+   within 1e-5 relative (bf16 1e-3), every gradient leaf within 1e-4 in L2
+   (bf16 1e-2), the leaves whose gradient is 0 within 1e-3 (bf16 1e-2) of
+   the largest, the Self-Monitor's BN statistics within 1e-3; launches
+   exact (EnvDrop's IL: K1 = K2 = 2, K4-K7 = T_il; the agents as phase 8;
+   plain 0); then iterations with the configs' dropout timed in turns with
+   busy shares (EnvDrop sample feedback, prng: kernels as phase 5, plain
+   0).  (c) ``main`` with TPU.CKPT_ASYNC True and False (PACKED_RL 0, 2
+   epochs of 2 iterations, run together on the 6 x 160 world): the same
+   checkpoint files after the rotation, every bundle equal array by array.
+   (d) ``run_eval`` over 32 paths written by ``write_results`` and scored
+   from the file: the same scores as in memory.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device, or without the port beside it, it fails.
@@ -290,6 +321,9 @@ DP_CLR2R_STEPS = 20   # pretraining steps of the data-parallel phase's build_clr
 BPTT_ROUNDS = 2       # rounds of (off, on, on, off) timed iterations of phase 14 (prng)
 BPTT_MAIN_ITERS = 2   # iterations of phase 14's ``main`` run
 BPTT_MEM_BATCHES = (64, 512)  # batches of phase 14's memory reading
+S12_ROUNDS = 2        # rounds of (kernels, plain, plain, kernels) timed calls of phase 15
+S12_MAIN_ITERS = 2    # iterations an epoch of phase 15's two ``main`` runs (2 epochs each)
+S12_EVAL_PATHS = 32   # paths (3 instructions each) of phase 15's results file
 
 # name -> (source, TPU kernel it replaces, launch counter: module, attribute)
 KERNELS = {
@@ -1147,6 +1181,51 @@ def kernel_phases(world, lengths, device):
     return results
 
 
+KERNEL_WRAPPER = """\
+import json, sys
+import chip_smoke
+results, rescore = chip_smoke.kernel_phases_here()
+with open(sys.argv[1], "w") as f:
+    json.dump({"results": {f"{n}/{p}": r for (n, p), r in results.items()}, "rescore": rescore}, f)
+"""
+
+
+def first_lengths(requests, tok, device):
+    """The token lengths of the first micro-batch of requests."""
+    return torch.tensor([tok.encode_sentence(r["instruction"])[1] for r in requests[:BATCH]],
+                        device=device)
+
+
+def kernel_phases_here():
+    """``kernel_phases`` and ``lstm_rescore_phase`` in this process, at the
+    serve world's first micro-batch's lengths, the libraries built."""
+    from curriculum_learning_for_vln_torch.ops.cuda import build
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    build.build()
+    world, _, requests, tok, *_ = build_serving()
+    return (kernel_phases(world, first_lengths(requests, tok, device), device),
+            lstm_rescore_phase(device, torch.Generator(device=device).manual_seed(SEED + 7)))
+
+
+def kernel_phases_apart():
+    """``kernel_phases_here`` in a process of its own, as ``--kernels-only``
+    runs them, so that what the earlier phases leave in this process (the
+    allocator's blocks, the profiler's sessions) does not enter their
+    times.  Their log lines go to this process's output; returns
+    (results, rescore shapes)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kernels.json")
+        sys.stdout.flush()
+        run = subprocess.run([sys.executable, "-c", KERNEL_WRAPPER, path], timeout=900)
+        check(run.returncode == 0, f"the kernel phases' process: rc {run.returncode}")
+        with open(path) as f:
+            data = json.load(f)
+    return {tuple(k.split("/")): r for k, r in data["results"].items()}, data["rescore"]
+
+
 def fmt(x):
     return "None" if x is None else f"{x:.4f}"
 
@@ -1807,23 +1886,36 @@ print("launches " + json.dumps(chip_smoke.launch_counts()))
 """
 
 
-def run_main(what, args, d):
+def start_main(args, d):
     """``main`` with ``args`` in a process of its own, as a user runs it,
-    logging under ``d``; (its launches, its log's lines, seconds)."""
+    logging under ``d``, started; ``finish_main`` collects it."""
     cmd = [sys.executable, "-c", MAIN_WRAPPER, "--seed", str(SEED), *map(str, args),
            "TPU.SYNTHETIC_WORLD", "True", "TPU.SYNTHETIC_SCANS", SYN_SCANS,
            "TPU.SYNTHETIC_NODES", SYN_NODES, "OUTPUT.LOG_DIR", d, "OUTPUT.TSBOARD_DIR", "",
            "OUTPUT.CKPT_DIR", os.path.join(d, "ckpt")]
-    t0 = time.perf_counter()
-    run = subprocess.run([str(c) for c in cmd], capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
+    return subprocess.Popen([str(c) for c in cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_main(what, proc, d):
+    """(launches, the log's trainer and epoch lines, the log) of a started
+    ``main``."""
+    text_out = proc.communicate(timeout=600)[0]
     text = "".join(open(f).read() for f in glob.glob(os.path.join(d, "*.log")))
-    counts = [json.loads(ln.split(" ", 1)[1]) for ln in run.stdout.splitlines()
+    counts = [json.loads(ln.split(" ", 1)[1]) for ln in text_out.splitlines()
               if ln.startswith("launches ")]
-    check(run.returncode == 0 and "Training finished" in text and len(counts) == 1,
-          f"main {what}: rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    check(proc.returncode == 0 and "Training finished" in text and len(counts) == 1,
+          f"main {what}: rc {proc.returncode}\n{text_out[-4000:]}")
     lines = [ln.split(": ", 1)[-1] for ln in text.splitlines() if "Epoch [" in ln or "Using" in ln]
-    return counts[0], lines, secs
+    return counts[0], lines, text
+
+
+def run_main(what, args, d):
+    """``main`` with ``args`` in a process of its own, as a user runs it,
+    logging under ``d``; (its launches, its log's lines, seconds)."""
+    t0 = time.perf_counter()
+    counts, lines, _ = finish_main(what, start_main(args, d), d)
+    return counts, lines, time.perf_counter() - t0
 
 
 def curriculum_data_phase(device, card):
@@ -2174,9 +2266,14 @@ def curriculum_data_phase(device, card):
                   f"MODEL.FOLLOWER.GLOVE_PATH {glove}", "Using Classic trainer"),
     }
     out["main"] = {}
+    # the three run together, each in a process of its own
+    t0 = time.perf_counter()
+    procs = {what: start_main([*args.split(), *small], os.path.join(tmp, f"main_{what}"))
+             for what, (args, _) in runs.items()}
     for what, (args, trainer_line) in runs.items():
         d = os.path.join(tmp, f"main_{what}")
-        counts, lines, secs = run_main(what, [*args.split(), *small], d)
+        counts, lines, _ = finish_main(what, procs[what], d)
+        secs = time.perf_counter() - t0
         iters = 2 * MAIN_ITERS  # K1 = K2 = 4 an iteration for either agent
         check(trainer_line in lines and sum("Epoch [" in ln for ln in lines) == 2,
               f"main {what}: log {lines}")
@@ -2192,8 +2289,9 @@ def curriculum_data_phase(device, card):
                   "main glove: the checkpoint's embedding is the GloVe table")
         launches[f"main_{what}"] = counts
         out["main"][what] = {"s": secs, "log": lines, "launches": counts}
-        log(f"curriculum-data (f): main {args} (2 epochs of {MAIN_ITERS}) in {secs:.1f} s: "
-            f"{' | '.join(lines)}; launches {counts}")
+        log(f"curriculum-data (f): main {args} (2 epochs of {MAIN_ITERS}; the three run "
+            f"together, done {secs:.1f} s after their start): {' | '.join(lines)}; launches "
+            f"{counts}")
 
     ran = {k for c in launches.values() for k in KERNELS if c.get(k, 0) > 0}
     missing = set(KERNELS) - set(OFF_PATH) - ran
@@ -3848,6 +3946,434 @@ def bptt_phase(world, data, requests, tok, cfg, m, params0, device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice-12 phase: the plain route, the asynchronous checkpoints, write_results
+# ---------------------------------------------------------------------------
+
+def set_route(cfg, use_pallas: bool) -> None:
+    """The route of the process, through ``loop.configure_runtime`` as the
+    trainers set it, from ``cfg`` with TPU.USE_PALLAS ``use_pallas``."""
+    from curriculum_learning_for_vln_torch.engine import loop
+
+    c = cfg.clone()
+    c.merge_from_list(["TPU.USE_PALLAS", use_pallas])
+    loop.configure_runtime(c)
+
+
+def turns(fn, rounds: int):
+    """{True: ms, False: ms} of ``fn(on)`` timed in turns (kernels, plain,
+    plain, kernels) ``rounds`` times, each call to a synchronize."""
+    ms = {True: [], False: []}
+    for _ in range(rounds):
+        for on in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(on)
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def route_compare(what, prec, loss_fn, leaves, paths, zero_paths=(), want=None):
+    """``loss_fn()`` -> (loss, model-state leaves) with its backward, on the
+    kernel route and on the plain one from the same inputs: the loss within
+    1e-5 relative in f32 (1e-3 in bf16: the plain route contracts the
+    attention in bf16, as the JAX package's XLA route does, where the
+    kernels accumulate in f32), every gradient leaf within 1e-4 (f32) or
+    1e-2 (bf16) of its own L2 norm, the leaves whose true gradient is 0
+    (``zero_paths``) within 1e-3 (f32) or 1e-2 (bf16: a few bf16 ulps) of
+    the largest element, the model state within 1e-3; the plain run
+    launches nothing, the kernel run ``want``.
+    Returns its readings."""
+    runs = {}
+    for on in (True, False):
+        for p in leaves:
+            p.grad = None
+        reset_launch_counts()
+        loss, state = loss_fn(on)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[on] = (loss.item(), [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                                  for p in leaves], [s.clone() for s in state], launch_counts())
+    for p in leaves:
+        p.grad = None
+    (lk, gk, sk, ck), (lp, gp, sp, cp) = runs[True], runs[False]
+    check(cp == dict.fromkeys(KERNELS, 0), f"{what} {prec}: the plain route launched {cp}")
+    check(want is None or ck == want, f"{what} {prec}: kernel route launches {ck}, expected {want}")
+    loss_rel = abs(lk - lp) / max(abs(lk), 1e-6)
+    loss_tol = 1e-5 if prec == "f32" else 1e-3
+    check(loss_rel <= loss_tol, f"{what} {prec}: loss kernels {lk} plain {lp} ({loss_rel:.3g})")
+    tol = 1e-4 if prec == "f32" else 1e-2
+    top = max(float(g.abs().max()) for g in gk)
+    zero_tol = 1e-3 if prec == "f32" else 1e-2
+    worst, worst_at, zero_worst = 0.0, "", 0.0
+    for path, a, b in zip(paths, gk, gp, strict=True):
+        if path in zero_paths:
+            e = max(float(a.abs().max()), float(b.abs().max()))
+            zero_worst = max(zero_worst, e / top)
+            check(e <= zero_tol * top, f"{what} {prec}: the gradient of {'.'.join(map(str, path))} "
+                                   f"{e:.3g} is not 0 against the largest, {top:.3g}")
+            continue
+        rel = float((b - a).float().norm()) / max(float(a.float().norm()), 1e-12)
+        if rel >= worst:
+            worst, worst_at = rel, ".".join(map(str, path))
+        check(rel <= tol, f"{what} {prec}: gradient {'.'.join(map(str, path))} plain vs kernels "
+                          f"{rel:.3g} in L2 > {tol}")
+    state_err = 0.0
+    for a, b in zip(sk, sp, strict=True):
+        state_err = max(state_err, float((a - b).abs().max()) / max(float(a.abs().max()), 1.0))
+    check(state_err <= 1e-3, f"{what} {prec}: model state |plain - kernels| {state_err:.3g}")
+    log(f"slice12 (b) {what} {prec}: loss kernels {lk:.6f} plain {lp:.6f} (relative "
+        f"{loss_rel:.3g}, tol {loss_tol}); worst leaf |plain - kernels| / |kernels| in L2 "
+        f"{worst:.3g} ({worst_at}; tol {tol}) over {len(leaves) - len(zero_paths)} leaves"
+        + (f", {len(zero_paths)} more 0 up to {zero_worst:.3g} of the largest" if zero_paths
+           else "") + (f"; model state {state_err:.3g}" if sk else "")
+        + f"; launches kernels {ck}, plain 0")
+    return {"loss": [lk, lp], "loss_rel": loss_rel, "worst_leaf_l2": worst,
+            "worst_leaf": worst_at, "state_err": state_err, "launches_kernels": ck}
+
+
+def slice12_serve(world, requests, tok, m, params0, device, card, T):
+    """(a) EnvDrop's Navigator on the plain route against the default one,
+    f32 and bf16, on the same parameters and requests."""
+    from curriculum_learning_for_vln_torch import ops
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.serve import Navigator
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    out, launches = {}, {}
+    batches = [requests[i:i + BATCH] for i in range(0, len(requests), BATCH)]
+    per_call = launches_of(lstm_scan=2, pano_attend=T, cand_score=T)
+    for prec in ("f32", "bf16"):
+        agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                             compute_dtype=PRECISIONS[prec])
+        navs = {on: Navigator(world, agent, params0, tok, max_batch=BATCH, precision=prec,
+                              device=device, use_pallas=None if on else False)
+                for on in (True, False)}
+        for nav in navs.values():  # first calls: kernels loaded, allocator warm
+            nav.navigate_batch(batches[0])
+        # f32: the serve phase's tolerance; bf16: the plain route's attention
+        # contracted in bf16, as JAX's is, against the kernels' f32 sums
+        # (2.29e-3 on the H100 in its first run)
+        tol = 1e-4 if prec == "f32" else 1e-2
+        worst, ties, moves = 0.0, 0, 0
+        for reqs in batches:
+            ep = navs[True].episodes(reqs)
+            res, counts = {}, {}
+            for on in (True, False):
+                reset_launch_counts()
+                res[on] = navs[on].rollout(ep)
+                torch.cuda.synchronize()
+                counts[on] = launch_counts()
+            check(counts[True] == per_call, f"serve {prec} kernels: launches {counts[True]}")
+            check(counts[False] == dict.fromkeys(KERNELS, 0),
+                  f"serve {prec} plain: launches {counts[False]}")
+            l_k, l_p = res[True].steps.logits[0].float(), res[False].steps.logits[0].float()
+            live = l_k > -1e29
+            check(bool(torch.equal(live, l_p > -1e29)), "the same candidate slots are masked")
+            scale = max(float(l_k[live].abs().max()), 1.0)
+            rel = float((l_k - l_p)[live].abs().max()) / scale
+            check(rel <= tol, f"serve {prec}: first-step logits |plain - kernels| / scale "
+                              f"{rel:.3g}")
+            worst = max(worst, rel)
+            ties_b = compare_actions(res[True], res[False], tol * scale)
+            ties += ties_b
+            if ties_b == 0:
+                outs = {on: navs[on].navigate_batch(reqs) for on in (True, False)}
+                check(outs[True] == outs[False], f"serve {prec}: the same trajectories")
+                moves += sum(len(o["trajectory"]) - 1 for o in outs[True])
+        log(f"slice12 (a) serve {prec}: {len(batches)} micro-batches of {BATCH}, first-step logits "
+            f"|plain - kernels| / scale at most {worst:.3g} (tol {tol}); samples cut short by a "
+            f"tie {ties}; trajectories equal elsewhere ({moves} moves); launches a call kernels "
+            f"{per_call}, plain 0")
+        out[prec] = {"logit_rel_err": worst, "tol": tol, "ties": ties}
+        if prec != "bf16":
+            continue
+        ms = turns(lambda on: navs[on].navigate_batch(batches[0]), S12_ROUNDS)
+        for on in (True, False):
+            wall, busy, rows = profile(lambda: navs[on].navigate_batch(batches[0]))
+            print_profile(f"one bf16 serve call, USE_PALLAS {on}", wall, busy, rows)
+            out[f"timed_{on}"] = {"ms": ms[on], "median_ms": statistics.median(ms[on]),
+                                  "busy_pct": 100 * busy / wall, "wall_ms": wall,
+                                  "busy_ms": busy}
+        t_k, t_p = out["timed_True"], out["timed_False"]
+        log(f"slice12 (a) timed bf16 serve call of {BATCH}: kernels {t_k['median_ms']:.2f} ms "
+            f"(busy {t_k['busy_pct']:.1f}%), plain {t_p['median_ms']:.2f} ms (busy "
+            f"{t_p['busy_pct']:.1f}%), medians of {2 * S12_ROUNDS} in turns (kernels, plain, "
+            f"plain, kernels) | {card}")
+    launches["serve_call_kernels"] = per_call
+    launches["serve_call_plain"] = dict.fromkeys(KERNELS, 0)
+    ops.set_kernels(True)
+    return out, launches
+
+
+def slice12_train(world, data, tok, cfg, m, params0, device, card):
+    """(b) One classic EnvDrop iteration, then one Follower and one
+    Self-Monitor iteration, on each route: kernels against plain at zero
+    dropout with teacher feedback (f32 and bf16), then bf16 iterations with
+    dropout on timed in turns."""
+    from curriculum_learning_for_vln_torch import ops
+    from curriculum_learning_for_vln_torch.agents import build_agent, init_agent
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine import loop
+    from curriculum_learning_for_vln_torch.engine.trainer import il_bucket_fn
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    T = cfg.AGENT.MAX_EPISODE_LEN
+    items = expand_r2r_items(data, tok)
+    out, launches = {}, {}
+    m0 = m.clone()
+    m0.DROP_RATE = m0.FEAT_DROP_RATE = 0.0
+    for prec in ("f32", "bf16"):
+        agent0 = EnvDropAgent(m0, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                              compute_dtype=PRECISIONS[prec])
+        tables = world.device_tables(prec, device)
+        env = R2RBatchEnv(world, items, BATCH, tok, seed=SEED + 4, device=device)
+        il_bucket = il_bucket_fn(cfg, agent0)
+        batch = env.next_batch()
+        t_il = il_bucket(env) or T
+        params = tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0)
+        leaves = tree.tree_leaves(params)
+
+        def loss_fn(on):
+            set_route(cfg, on)
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            total, _ = loop.iteration_loss(agent0, "teacher", tables, params, batch, gen,
+                                           il_len=t_il)
+            return total, []
+
+        want = launches_of(lstm_scan_train=2, lstm_scan_bwd=2, pano_attend=t_il,
+                           cand_score=t_il, pano_attend_bwd=t_il, cand_score_bwd=t_il)
+        out[f"envdrop_{prec}"] = route_compare("EnvDrop teacher iteration (IL)", prec, loss_fn,
+                                               leaves, leaf_paths(params), want=want)
+        launches[f"envdrop_teacher_kernels_{prec}"] = want
+        launches[f"envdrop_teacher_plain_{prec}"] = dict.fromkeys(KERNELS, 0)
+        if prec != "bf16":
+            continue
+
+        # timed classic iterations with dropout on (sample feedback, prng)
+        agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                             compute_dtype=PRECISIONS[prec], obs_masks="prng")
+        state = {}
+        for on in (True, False):
+            p = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+            state[on] = (p, loop.make_optimizer(cfg.TRAIN.OPTIM, cfg.TRAIN.LR, p),
+                         torch.Generator(device=device).manual_seed(SEED + 1))
+        seen = {True: [], False: []}
+
+        def iterate(on):
+            set_route(cfg, on)
+            p, opt, gen = state[on]
+            b = env.next_batch()
+            il = il_bucket(env) or T
+            reset_launch_counts()
+            logs = loop.one_iter(agent, opt, "sample", tables, p, b, gen, il_len=il)
+            float(logs["loss"])
+            seen[on].append((launch_counts(), il))
+            return logs
+
+        for on in (True, False):  # warm-up
+            iterate(on)
+        ms = turns(iterate, S12_ROUNDS)
+        for on in (True, False):
+            for counts, il in seen[on]:
+                want = iteration_launches(il, T) if on else dict.fromkeys(KERNELS, 0)
+                check(counts == want, f"timed EnvDrop {prec} USE_PALLAS {on}: launches {counts}, "
+                                      f"expected {want} (T_il {il})")
+        launches["envdrop_iteration_kernels"] = seen[True][-1][0]
+        launches["envdrop_iteration_plain"] = dict.fromkeys(KERNELS, 0)
+        out["envdrop_timed"] = timed_routes(f"one {prec} classic EnvDrop iteration", iterate, ms,
+                                            card)
+    for name, (config, _) in AGENT_CONFIGS.items():
+        key = "FOLLOWER" if name == "FOLLOWER" else "MONITOR"
+        cfg_a = agent_cfg(config)
+        cfg_0 = agent_cfg(config, f"MODEL.{key}.DROP_RATE", 0.0)
+        env = R2RBatchEnv(world, items, BATCH, tok, seed=SEED + 6, device=device)
+        batch = env.next_batch()
+        lamb = cfg_a.TRAIN.PROGMONITOR_WEIGHT
+        for prec in ("f32", "bf16"):
+            cfg_0.merge_from_list(["TPU.PRECISION", prec])
+            agent0 = build_agent(cfg_0, tok.vocab_size(), FEAT_DIM)
+            params0_a, state0 = init_agent(agent0, torch.Generator().manual_seed(SEED))
+            tables = world.device_tables(prec, device)
+            params = tree.tree_map(lambda t: t.to(device).requires_grad_(True), params0_a)
+            mstate = tree.tree_map(lambda t: t.to(device), state0)
+            leaves = tree.tree_leaves(params)
+
+            def loss_fn(on):
+                set_route(cfg_a, on)
+                gen = torch.Generator(device=device).manual_seed(SEED + 7)
+                total, _, new_state = loop.agent_iteration_loss(
+                    agent0, "teacher", tables, params, mstate, batch, gen, lamb=lamb)
+                return total, tree.tree_leaves(new_state)
+
+            want = agent_launches(name, False)
+            out[f"{name.lower()}_{prec}"] = route_compare(
+                f"{name} teacher iteration", prec, loss_fn, leaves, leaf_paths(params),
+                ZERO_GRAD[name], want)
+            launches[f"{name.lower()}_teacher_kernels_{prec}"] = want
+            launches[f"{name.lower()}_teacher_plain_{prec}"] = dict.fromkeys(KERNELS, 0)
+        # timed iterations with the config's dropout and feedback, bf16
+        agent = build_agent(cfg_a, tok.vocab_size(), FEAT_DIM)
+        state = {}
+        for on in (True, False):
+            p = tree.tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+            state[on] = [p, loop.make_optimizer(cfg_a.TRAIN.OPTIM, cfg_a.TRAIN.LR, p),
+                         torch.Generator(device=device).manual_seed(SEED + 1), mstate]
+        tables = world.device_tables(cfg_a.TPU.PRECISION, device)
+        seen = {True: [], False: []}
+
+        def iterate(on):
+            set_route(cfg_a, on)
+            s = state[on]
+            reset_launch_counts()
+            logs, s[3] = loop.agent_one_iter(agent, s[1], cfg_a.AGENT.FEEDBACK, tables, s[0], s[3],
+                                             env.next_batch(), s[2], lamb=lamb)
+            float(logs["loss"])
+            seen[on].append(launch_counts())
+            return logs
+
+        for on in (True, False):
+            iterate(on)
+        ms = turns(iterate, S12_ROUNDS)
+        for on in (True, False):
+            want = agent_launches(name, False) if on else dict.fromkeys(KERNELS, 0)
+            check(all(c == want for c in seen[on]),
+                  f"timed {name} USE_PALLAS {on}: launches {seen[on]}, expected {want}")
+        launches[f"{name.lower()}_iteration_kernels"] = agent_launches(name, False)
+        launches[f"{name.lower()}_iteration_plain"] = dict.fromkeys(KERNELS, 0)
+        out[f"{name.lower()}_timed"] = timed_routes(
+            f"one {cfg_a.TPU.PRECISION} {name} iteration ({cfg_a.AGENT.FEEDBACK})", iterate, ms,
+            card)
+    ops.set_kernels(True)
+    return out, launches
+
+
+def timed_routes(what, iterate, ms, card):
+    """Each route's median of ``ms`` and the device-busy share of one more
+    call of ``iterate`` under the profiler; logged with the card."""
+    timed = {}
+    for on in (True, False):
+        wall, busy, rows = profile(lambda: iterate(on))
+        print_profile(f"{what}, USE_PALLAS {on}", wall, busy, rows)
+        timed[str(on)] = {"ms": ms[on], "median_ms": statistics.median(ms[on]),
+                          "busy_pct": 100 * busy / wall, "wall_ms": wall, "busy_ms": busy}
+    k, p = timed["True"], timed["False"]
+    log(f"slice12 (b) timed {what}: kernels {k['median_ms']:.2f} ms (busy {k['busy_pct']:.1f}%), "
+        f"plain {p['median_ms']:.2f} ms (busy {p['busy_pct']:.1f}%), medians of "
+        f"{len(ms[True])} in turns (kernels, plain, plain, kernels) | {card}")
+    return timed
+
+
+def bundle_arrays(path):
+    """The arrays and numbers of a checkpoint bundle (not its config text)."""
+    from curriculum_learning_for_vln_torch.engine.checkpoint import load_checkpoint
+
+    b = load_checkpoint(path)
+    return {k: b[k] for k in ("params", "opt_state", "model_state", "rng", "curriculum", "epoch")}
+
+
+def trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def slice12_phase(world, data, requests, tok, cfg, m, params0, device, card):
+    """Phase 15: (a) serving and (b) training on the plain route (TPU.USE_PALLAS
+    False) against the kernels, (c) ``main`` with TPU.CKPT_ASYNC against a
+    synchronous run, (d) a results file written by ``write_results`` and
+    scored."""
+    from curriculum_learning_for_vln_torch.agents.envdrop import EnvDropAgent
+    from curriculum_learning_for_vln_torch.data.datasets import expand_r2r_items
+    from curriculum_learning_for_vln_torch.engine import loop
+    from curriculum_learning_for_vln_torch.engine.evaluator import Evaluation
+    from curriculum_learning_for_vln_torch.engine.trainer import dedup_by_path
+    from curriculum_learning_for_vln_torch.env.host_env import R2RBatchEnv
+    from curriculum_learning_for_vln_torch.utils import tree
+    from curriculum_learning_for_vln_torch.world.compiler import PRECISIONS
+
+    t_phase = time.perf_counter()
+    T = cfg.AGENT.MAX_EPISODE_LEN
+    out = {}
+    out["serve"], launches = slice12_serve(world, requests, tok, m, params0, device, card, T)
+    out["train"], train_launches = slice12_train(world, data, tok, cfg, m, params0, device, card)
+    launches.update(train_launches)
+
+    # (c) main with TPU.CKPT_ASYNC and without, two epochs each, run together
+    root = tempfile.mkdtemp(prefix="chip_smoke_s12_")
+    args = ["--config-file", CONFIG, "TPU.PACKED_RL", 0, "TRAIN.MAX_EPOCH", 2,
+            "TRAIN.ITER_PER_EPOCH", S12_MAIN_ITERS, "TRAIN.EVAL_INTERVAL", 1]
+    t0 = time.perf_counter()
+    procs = {a: start_main([*args, "TPU.CKPT_ASYNC", a], os.path.join(root, str(a)))
+             for a in (True, False)}
+
+    # (d) while they run: an evaluation written by write_results, scored from the file
+    agent = EnvDropAgent(m, tok.encoding_length, tok.vocab_size(), FEAT_DIM, T,
+                         compute_dtype=PRECISIONS[cfg.TPU.PRECISION])
+    paths = data[:S12_EVAL_PATHS]
+    henv = R2RBatchEnv(world, expand_r2r_items(paths, tok), BATCH, tok, seed=SEED, name="val",
+                       device=device)
+    params = tree.tree_map(lambda t: t.to(device), params0)
+    reset_launch_counts()
+    results = loop.run_eval(agent, params, world.device_tables(cfg.TPU.PRECISION, device), henv)
+    eval_counts = launch_counts()
+    path = loop.write_results(results, os.path.join(root, "results"), split="val")
+    ev = Evaluation(world, dedup_by_path(henv.data))
+    from_file, _ = ev.score(path)
+    in_memory, _ = ev.score(results)
+    check(from_file == in_memory, f"write_results: scored from the file {from_file}, in memory "
+                                  f"{in_memory}")
+    with open(path) as f:
+        written = json.load(f)
+    check(sorted(r["instr_id"] for r in written) == sorted(it["instr_id"] for it in henv.data),
+          "the results file holds every instruction once")
+    launches["eval_write_results"] = eval_counts
+    out["write_results"] = {"items": len(written), "scores": from_file}
+    log(f"slice12 (d): run_eval over {len(written)} instructions ({len(paths)} paths), "
+        f"write_results -> {os.path.basename(path)}, scored from the file as in memory: SR "
+        f"{from_file['success_rate']:.4f}, SPL {from_file['spl']:.4f}, nDTW "
+        f"{from_file['ndtw']:.4f}; launches {eval_counts}")
+
+    runs = {a: finish_main(f"CKPT_ASYNC {a}", procs[a], os.path.join(root, str(a)))
+            for a in (True, False)}
+    secs = time.perf_counter() - t0
+    files = {}
+    for a in (True, False):
+        found = {}
+        for d, _, names in os.walk(os.path.join(root, str(a), "ckpt")):
+            for n in names:
+                found[n] = os.path.join(d, n)
+        files[a] = found
+    check(sorted(files[True]) == sorted(files[False]),
+          f"the rotation leaves the same files: {sorted(files[True])} / {sorted(files[False])}")
+    check("latest.ckpt" in files[True] and "latest_ep2.ckpt" in files[True]
+          and "latest_ep1.ckpt" not in files[True], f"the rotation ran: {sorted(files[True])}")
+    for n in files[True]:
+        check(trees_equal(bundle_arrays(files[True][n]), bundle_arrays(files[False][n])),
+              f"{n}: the asynchronous bundle equals the synchronous one array by array")
+    for a in (True, False):
+        launches[f"main_ckpt_async_{a}"] = runs[a][0]
+    out["main"] = {"s": secs, "files": sorted(files[True]),
+                   "log": {str(a): runs[a][1] for a in (True, False)}}
+    log(f"slice12 (c): main TPU.CKPT_ASYNC True and False (2 epochs of {S12_MAIN_ITERS} "
+        f"iterations, run together in {secs:.1f} s): the same files {sorted(files[True])}, "
+        f"every bundle equal array by array; {' | '.join(runs[True][1])}; launches "
+        f"{runs[True][0]}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["secs"] = time.perf_counter() - t_phase
+    log(f"slice12: phase 15 in {out['secs']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -3855,6 +4381,7 @@ def main() -> int:
     kernels_only = "--kernels-only" in sys.argv[1:]
     dp_only = "--dp-only" in sys.argv[1:]
     bptt_only = "--bptt-only" in sys.argv[1:]
+    slice12_only = "--slice12-only" in sys.argv[1:]
     from curriculum_learning_for_vln_torch.ops.cuda import build
 
     device = torch.device("cuda")
@@ -3889,8 +4416,7 @@ def main() -> int:
         f"EnvDrop H={m.HIDDEN_SIZE} E={m.WORD_EMB_SIZE} A={m.ACT_EMB_SIZE}, enc len "
         f"{tok.encoding_length}, episode len {cfg.AGENT.MAX_EPISODE_LEN}, precision {precision}, "
         f"set up in {time.perf_counter() - t0:.1f} s")
-    lengths = torch.tensor([tok.encode_sentence(r["instruction"])[1] for r in requests[:BATCH]],
-                           device=device)
+    lengths = first_lengths(requests, tok, device)
     log(f"instruction lengths of the first micro-batch: {int(lengths.min())} to "
         f"{int(lengths.max())} tokens of {tok.encoding_length}")
     if dp_only:
@@ -3904,11 +4430,22 @@ def main() -> int:
         bptt = bptt_phase(world, data, requests, tok, cfg, m, params, device, card)
         log(json.dumps({"bptt_only": {k: bptt[k] for k in ("launches", "memory", "secs")}}))
         return 0
+    if slice12_only:
+        s12 = slice12_phase(world, data, requests, tok, cfg, m, params, device, card)
+        log(json.dumps({"slice12_only": {k: s12[k] for k in ("serve", "train", "launches",
+                                                            "secs")}}))
+        return 0
     if kernels_only:
         results = kernel_phases(world, lengths, device)
         log(json.dumps({"kernels_only": {f"{n}/{p}": {k: v for k, v in r.items()}
                                          for (n, p), r in results.items()}}))
         return 0
+
+    # each phase's seconds, printed before the kernels line
+    marks = [("", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
 
     serve = {}
     for prec in (precision, "f32" if precision != "f32" else "bf16"):
@@ -3925,14 +4462,17 @@ def main() -> int:
     wall, busy, rows = profile(lambda: nav.navigate_batch(serve[precision]["batches"][0]))
     print_profile(f"one {precision} serve call", wall, busy, rows)
     serve_counts = serve[precision]["launches"]
+    mark("serve")
     del serve, nav
 
     train = train_phase(world, data, tok, cfg, m, params, requests, device)
+    mark("train")
     tw, tb = train["busy"]
     log(f"train: {train['median_ms']:.2f} ms per iteration (median of {TRAIN_ITERS}), device "
         f"busy {100 * tb / tw:.1f}% under the profiler | {card}")
 
     cur = curriculum_phase(world, data, tok, params, device)
+    mark("curriculum")
     pk = cur["packed"]
     pw, pb = pk["busy"]
     log(f"curriculum: {pk['median_ms']:.2f} ms per SPCL packed iteration (median of "
@@ -3940,8 +4480,10 @@ def main() -> int:
         f"{100 * pb / pw:.1f}% under the profiler | {card}")
 
     cdata = curriculum_data_phase(device, card)
+    mark("curriculum_data")
 
     agents = agents_phase(world, data, requests, tok, device, card)
+    mark("agents")
     for name in AGENT_CONFIGS:
         a = agents[name]
         sw, sb = a["serve"]["busy"]
@@ -3951,6 +4493,7 @@ def main() -> int:
             f"busy {100 * tb / tw:.1f}%) | {card}")
 
     spk = speaker_phase(world, data, tok, cfg, device, card)
+    mark("speaker")
     sw, sb = spk["train"]["busy"]
     log(f"speaker: {spk['train']['median_ms']:.2f} ms a teacher-forcing step (device busy "
         f"{100 * sb / sw:.1f}%), greedy decode of {cfg.AIDE.SPEAKER.MAX_DECODE} steps "
@@ -3958,27 +4501,36 @@ def main() -> int:
         f"{spk['decode']['back_translate']['ms']:.2f} ms a batch of {BATCH} | {card}")
 
     beam = beam_phase(world, data, tok, cfg, m, params, device, card)
+    mark("beam")
     log(f"beam: {beam['total_ms']:.2f} ms a beam batch of {BATCH} at beam {BEAM_SIZE} "
         f"({beam['iterations']} iterations; decode {beam['decode_ms_median']:.3f} ms and host "
         f"{beam['host_ms_per_iteration']:.3f} ms an iteration; rescoring "
         f"{beam['rescore_ms_median']:.2f} ms an episode) | {card}")
 
     vil = vilbert_phase(world, data, tok, device, card)
+    mark("vilbert")
     vw, vb = vil["train"]["busy"]
     log(f"vilbert: {vil['train']['median_ms']:.2f} ms a pretraining step of {VIL_BATCH} (device "
         f"busy {100 * vb / vw:.1f}%), {vil['score']['items_per_s']:.1f} items scored a second "
         f"| {card}")
 
     dp = dp_phase(card)
+    mark("dp")
     dp_ranks = dp["ranks"]
 
     bptt = bptt_phase(world, data, requests, tok, cfg, m, params, device, card)
+    mark("bptt")
+
+    s12 = slice12_phase(world, data, requests, tok, cfg, m, params, device, card)
+    mark("slice12")
 
     # after the timed path, so that the kernel phases' profiler sessions
     # do not come before the timed serve calls (whether a session leaves
     # host-side launch overhead behind is not settled)
-    results = kernel_phases(world, lengths, device)
-    rescore_shapes = lstm_rescore_phase(device, torch.Generator(device=device).manual_seed(SEED + 7))
+    gc.collect()  # the card's cached blocks back, for the kernel phases' process
+    torch.cuda.empty_cache()
+    results, rescore_shapes = kernel_phases_apart()
+    mark("kernel_phases")
 
     # each kernel's launches on its main path: the serve run for K3, the
     # SPCL packed training run for the others; K8 is on no path.  The
@@ -4019,6 +4571,7 @@ def main() -> int:
                    for k, v in x["launches"].items()},
                 **{f"main_{k}": v[name] for k, v in dp["mains"].items()}},
             "bptt_launches": {k: v[name] for k, v in bptt["launches"].items()},
+            "slice12_launches": {k: v[name] for k, v in s12["launches"].items()},
         }
         if name in cdata["eval_train_b128"]:  # K3, K4, K6 on an EVAL_TRAIN batch of 128
             entry["eval_train_b128"] = cdata["eval_train_b128"][name]
@@ -4053,6 +4606,8 @@ def main() -> int:
             entry["mask_mode"] = "prng (prng_shared on the SPCL path: under modes)"
             entry["modes"] = r["modes"]
         kernels.append(entry)
+    log(json.dumps({"phase_seconds": {name: round(t - marks[i][1], 1)
+                                      for i, (name, t) in enumerate(marks[1:])}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

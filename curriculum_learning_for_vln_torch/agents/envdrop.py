@@ -13,19 +13,31 @@ loop.py:68-71): "prng" (per-sample seeds drawn per step and per site,
 masks made in the kernels), "prng_shared" (the same seeds, one mask per
 group of 8 rows) or "ext" (keep-masks drawn here).  ``rollout_packed``
 (envdrop.py:124-183) is the sampled A2C rollout over an episode pool
-(agents/packed.py).  ``rollout(feat_mask=...)`` is back-translation's
-rollout (envdrop.py:198-230): the shared noise mask on the image dims of
-the gathered features, the unfused decode, no observation kernel;
-``rollout_packed`` takes no mask (the back-translation step does not
-pack).  ``rollout(avoid_cyclic=True)`` masks the candidates that lead
-back to visited viewpoints (envdrop.py:195).
+(agents/packed.py).  ``rollout(feat_mask=...)`` and
+``rollout_packed(feat_mask=...)`` are back-translation's rollouts
+(envdrop.py:132, 198-230): the shared noise mask on the image dims of the
+gathered features, the unfused decode, no observation kernel.
+``rollout(avoid_cyclic=True)`` masks the candidates that lead back to
+visited viewpoints (envdrop.py:195).
+
+The unfused decode (``envdrop_decoder_step`` over the gathered panorama
+and candidates, envdrop.py:111-119) is also the whole route when the
+fused observation path is off (``fused_obs.enabled_for`` False: the
+"plain" backend, TPU.USE_PALLAS False), with the env-dropout drawn
+inside the step from the rollout's generator (``drop_feat_img``, in the
+order of JAX's step: the panorama's, the candidates', then h_tilde's, the
+action embedding's, h1's, h_tilde's).  Then no observation kernel runs,
+the A2C tail's bootstrap step included, and OBS_MASKS is not read: the
+BPTT draws its env-dropout as "ext" keep-masks, as the JAX package's
+plain path does.
 
 With ``use_fused_bptt`` (TPU.FUSED_BPTT, set by ``build_agent``) a
 training rollout runs the hand-written BPTT of ``ops/bptt.py`` instead
 (envdrop.py:235-245): the same forward and draws, the observations
 gathered plainly (no K4-K7 inside it), a backward by hand.  The A2C
-tail's extra decode step runs outside it, through K4 and K6, and the
-packed rollout never takes it (agents/packed.py has no such branch).
+tail's extra decode step runs outside it, through K4 and K6 (the unfused
+decode on the plain route), and the packed rollout never takes it
+(agents/packed.py has no such branch).
 """
 from __future__ import annotations
 
@@ -107,7 +119,7 @@ class EnvDropAgent:
         if not train or rate == 0.0:
             return NO_DROP
         keep = 1.0 - rate
-        if self.obs_masks in ("prng", "prng_shared"):
+        if self.obs_masks in ("prng", "prng_shared") and fused_obs.get_backend() == "cuda":
             seeds = philox.draw_seeds(B, generator, device,
                                       shared=self.obs_masks == "prng_shared")
             return DropSpec(self.obs_masks, seeds=seeds, keep=keep)
@@ -122,33 +134,41 @@ class EnvDropAgent:
         img = feat[..., :-a] * feat_mask
         return torch.cat([img, feat[..., -a:].to(img.dtype)], dim=-1)
 
+    def _fused(self, world: WorldTables, feat_mask: Optional[torch.Tensor]) -> bool:
+        """Whether the decode is the fused one (envdrop.py:153-156, 219-222):
+        not under a feature mask, and not on the plain backend."""
+        return feat_mask is None and fused_obs.enabled_for(world.features, self.compute_dtype)
+
     def _decode(self, dec: dict, world: WorldTables, train: bool,
                 generator: Optional[torch.Generator], feat_mask: Optional[torch.Tensor] = None):
         """One decoder step with the text context passed in — shared by the
         per-batch rollout and the packed one, which gathers its context
         rows per step (envdrop.py:78-121): visual query, observation op
-        (K4), decoder, candidate scorer (K6).  With ``feat_mask`` (the
-        shared noise of back-translation) the step is the unfused one over
-        the gathered features with the mask applied, as the JAX package
-        turns its fused path off then (envdrop.py:213-221): no kernel of
-        the observation path runs."""
+        (K4), decoder, candidate scorer (K6).  Off the fused path
+        (``_fused``) the step is the unfused one over the gathered
+        features (envdrop.py:111-119): with ``feat_mask`` (the shared noise
+        of back-translation) applied in place of the env-dropout, else
+        with the env-dropout drawn inside the step; no kernel of the
+        observation path runs."""
         drop = self.cfg.DROP_RATE
         _, V, Dim = world.features.shape
 
-        if feat_mask is not None:
-            def decode_masked(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
+        if not self._fused(world, feat_mask):
+            def decode_unfused(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
                 _h, c, h_tilde = mc
                 a_t_angle = make_angle_feat(state.heading, state.elevation)
                 # the features in the dtype the metadata was made in
                 pano, cand = E.observe_feats(world, state, meta, meta.cand_angle.dtype)
+                if feat_mask is not None:
+                    pano = self._apply_feat_mask(pano, feat_mask)
+                    cand = self._apply_feat_mask(cand, feat_mask)
                 logits, (h1, c1), h_tilde_new = D.envdrop_decoder_step(
-                    dec, a_t_angle, self._apply_feat_mask(pano, feat_mask),
-                    self._apply_feat_mask(cand, feat_mask), h_tilde, c, ctx, ctx_mask, train,
-                    drop, self.cfg.FEAT_DROP_RATE, self.angle_feat_size, already_dropfeat=True,
-                    generator=generator)
+                    dec, a_t_angle, pano, cand, h_tilde, c, ctx, ctx_mask, train, drop,
+                    self.cfg.FEAT_DROP_RATE, self.angle_feat_size,
+                    already_dropfeat=feat_mask is not None, generator=generator)
                 return logits, (h1, c1, h_tilde_new), h1
 
-            return decode_masked
+            return decode_unfused
 
         def decode(mc, ctx, ctx_mask, meta: E.ObsMeta, state: E.EnvState):
             B = ctx.shape[0]
@@ -174,7 +194,8 @@ class EnvDropAgent:
 
     def rollout_packed(self, params: dict, world: WorldTables, pool: EpisodeBatch,
                        batch_size: int, episode_len: Optional[int] = None,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       feat_mask: Optional[torch.Tensor] = None
                        ) -> Tuple[PackedLosses, PackedResult]:
         """The sampled A2C rollout over an episode pool of N = factor * B
         episodes, ``batch_size`` slots at a time (agents/packed.py): the
@@ -183,7 +204,9 @@ class EnvDropAgent:
         unpacked ``rollout(train_rl=True)`` A2C loss.  In a data-parallel
         step the pool is the global one, which every rank holds and
         encodes whole (its draws are one process's), and a rank runs its
-        ``batch_size`` slots of the global slots (agents/packed.py)."""
+        ``batch_size`` slots of the global slots (agents/packed.py).
+        ``feat_mask`` [D] f32 is back-translation's shared noise, as in
+        ``rollout`` (envdrop.py:132, 152-158)."""
         C.check_dtype(world, self.compute_dtype)
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
@@ -191,14 +214,16 @@ class EnvDropAgent:
         with M.replicated_rows():
             ctx_pool, h0_pool, c0_pool = encoder_apply(params["encoder"], pool.instr_tokens,
                                                        pool.instr_len, True, drop, generator)
-        decode = self._decode(params["decoder"], world, True, generator)
+        decode = self._decode(params["decoder"], world, True, generator, feat_mask)
         result = packed_rollout_scan(world, pool, ctx_pool, ctx_mask_pool, h0_pool, c0_pool,
                                      decode, batch_size, episode_len or self.episode_len,
                                      compute_dtype=self.compute_dtype, generator=generator)
         # A2C tail, as rollout's (ref: envdrop.py:222-264)
         with torch.no_grad():  # one extra decode step bootstraps the return
             final, ids = result.final_state, result.final_slot_ep
-            meta = E.observe_meta(world, final, self.compute_dtype)
+            # f32 for the unfused decode, as JAX observes it (envdrop.py:167)
+            meta = E.observe_meta(world, final, self.compute_dtype
+                                  if self._fused(world, feat_mask) else torch.float32)
             _, _, last_h = decode(result.final_carry, ctx_pool[ids], ctx_mask_pool[ids], meta,
                                   final)
             last_value = D.critic_apply(params["critic"], last_h, True, drop, generator)
@@ -221,7 +246,8 @@ class EnvDropAgent:
         ``generator`` (on the device of the tables) draws the dropout masks
         and the sampled actions.  ``feat_mask`` [D] f32 is back-
         translation's shared noise (envdrop.py:198-230): it replaces the
-        env-dropout, and the decode is the unfused one.  EnvDrop has no
+        env-dropout, and the decode is the unfused one (as it is on the
+        plain backend, with the env-dropout).  EnvDrop has no
         model state: callers that serve any agent may pass one, and it is
         not read."""
         if feedback != C.FEEDBACK_SAMPLE:
@@ -259,8 +285,8 @@ class EnvDropAgent:
                 final = result.final_state
                 # the JAX package observes this step in f32 (envdrop.py:226),
                 # which the unfused decode reads; the fused one reads the table
-                meta = E.observe_meta(world, final, torch.float32 if feat_mask is not None
-                                      else self.compute_dtype)
+                meta = E.observe_meta(world, final, self.compute_dtype
+                                      if self._fused(world, feat_mask) else torch.float32)
                 _, _, last_h = decode(result.model_carry, ctx, ctx_mask, meta, final)
                 last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
             # critic values of all steps, latest first, as one batched call

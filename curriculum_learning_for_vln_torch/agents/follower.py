@@ -6,10 +6,13 @@ as shipped: K3, or K1 and K2 under autograd), then per step the
 observation op (K4, K5 in mask mode none: the Follower has no env
 dropout) on the reparameterised visual query, the decoder and
 ActionScoring, in teacher, argmax or sample feedback, with the CE-vs-
-teacher imitation loss.  ``a_t_prev`` is the chosen candidate's feature,
-taken from the carried candidate rows.  At train=True every dropout site
-draws its mask from the rollout's generator in the order the step runs
-them.  With ``glove`` (a pretrained [vocab, WORD_EMB_SIZE] table,
+teacher imitation loss.  Off the fused observation path (the "plain"
+backend, TPU.USE_PALLAS False: ``fused_obs.enabled_for``) the step is
+``follower_decoder_step`` over the gathered panorama and candidates
+(follower.py:109-114), and no observation kernel runs.  ``a_t_prev`` is
+the chosen candidate's feature, taken from the carried candidate rows.
+At train=True every dropout site draws its mask from the rollout's
+generator in the order the step runs them.  With ``glove`` (a pretrained [vocab, WORD_EMB_SIZE] table,
 ``MODEL.FOLLOWER.GLOVE_PATH``; follower.py:35-51, 78) the encoder's
 embedding is that table, frozen (models/encoder.py).
 """
@@ -80,9 +83,15 @@ class FollowerAgent:
         B = ep.instr_tokens.shape[0]
         a_prev0 = torch.zeros((B, self.action_emb_size), dtype=self.compute_dtype,
                               device=ctx.device)
+        fused = fused_obs.enabled_for(world.features, self.compute_dtype)
 
         def model_step(mc, meta: E.ObsMeta, state: E.EnvState, t):
             h, c, a_prev, _ = mc
+            if not fused:
+                pano, cand_feat = E.observe_feats(world, state, meta, self.compute_dtype)
+                logits, (h1, c1), _ = D.follower_decoder_step(
+                    dec, pano, a_prev, cand_feat, h, c, ctx, ctx_mask, train, drop, generator)
+                return logits, (h1, c1, a_prev, cand_feat), h1, None
             tv = D.follower_visual_query(dec, h)
             vis, cand_img = fused_obs.pano_attend_cands(state.node, state.view_idx, meta.cand_view,
                                                         world.features, world.loc_embed, tv)

@@ -4,12 +4,13 @@ The port of ``curriculum_learning_for_vln_tpu/agents/monitor.py`` (ref:
 tasks/R2R-judy/src/agent/monitor.py:21-258): the encoder (one LSTM layer
 at H = 512 as shipped: K3, or K1 and K2 under autograd), then per step
 the observation op for the candidate rows alone (K4 on a zero query, no
-K5: ``fused_obs.pano_cands``), the MonitorDecoder with its BatchNorm
-running statistics carried through the steps, and a joint loss of the
-action CE and the progress monitor's MSE: t = 0 contributes the CE alone;
-t > 0 contributes lamb * MSE(progress, target) + (1 - lamb) * CE, the
-target being the normalised distance reduction, 1 within 3 m of the goal,
-and frozen (no loss) for ended episodes (ref: monitor.py:148-165).
+K5: ``fused_obs.pano_cands``; on the "plain" backend, TPU.USE_PALLAS
+False, the rows gathered plainly and no kernel), the MonitorDecoder with
+its BatchNorm running statistics carried through the steps, and a joint
+loss of the action CE and the progress monitor's MSE: t = 0 contributes
+the CE alone; t > 0 contributes lamb * MSE(progress, target) + (1 - lamb)
+* CE, the target being the normalised distance reduction, 1 within 3 m of
+the goal, and frozen (no loss) for ended episodes (ref: monitor.py:148-165).
 """
 from __future__ import annotations
 
@@ -84,12 +85,16 @@ class SelfMonitorAgent:
         B = ep.instr_tokens.shape[0]
         a_prev0 = torch.zeros((B, self.action_emb_size), dtype=self.compute_dtype,
                               device=ctx.device)
+        fused = fused_obs.enabled_for(world.features, self.compute_dtype)
 
         def model_step(mc, meta: E.ObsMeta, state: E.EnvState, t):
             h, c, a_prev, bn, _ = mc
-            cand_img = fused_obs.pano_cands(state.node, state.view_idx, meta.cand_view,
-                                            world.features, world.loc_embed)
-            cand_feat = E.assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
+            if fused:
+                cand_img = fused_obs.pano_cands(state.node, state.view_idx, meta.cand_view,
+                                                world.features, world.loc_embed)
+                cand_feat = E.assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
+            else:  # the candidate rows gathered plainly (monitor.py:106-107)
+                cand_feat = E.observe_cand_feat(world, state, meta, self.compute_dtype)
             (logits, progress), (h1, c1), bn2, _ = D.monitor_decoder_step(
                 dec, bn, a_prev, cand_feat, meta.cand_mask, h, c, ctx, ctx_mask, train, drop,
                 generator)

@@ -19,7 +19,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .engine.checkpoint import load_checkpoint, to_numpy
 from .utils.tree import tree_map
 
 _ENCODER_KEYS = (("encoder", "embedding", "w"), ("encoder", "enc2dec", "w"),
@@ -108,6 +107,8 @@ def params_to_jax(params: dict) -> dict:
     """The inverse of ``params_from_jax``: the tree of numpy f32 arrays in the
     JAX layout (what the JAX package's checkpoint bundle holds): the port
     keeps that layout, so only the array type changes."""
+    from .engine.checkpoint import to_numpy  # engine's trainers import this module
+
     return to_numpy(params)
 
 
@@ -122,12 +123,16 @@ def model_state_from_jax(state: dict) -> dict:
 
 def model_state_to_jax(state: dict) -> dict:
     """The inverse of ``model_state_from_jax``."""
+    from .engine.checkpoint import to_numpy
+
     return to_numpy(state or {})
 
 
 def load_jax_checkpoint(path: str) -> dict:
     """{"params", "model_state"} of a JAX checkpoint bundle, read without
     jax or optax (engine/checkpoint.py), both converted to the port's."""
+    from .engine.checkpoint import load_checkpoint
+
     bundle = load_checkpoint(path)
     return {"params": params_from_jax(bundle["params"]),
             "model_state": model_state_from_jax(bundle.get("model_state") or {})}

@@ -7,7 +7,8 @@ Reads the reference's precomputed ResNet-152 TSV format
 (`tasks/R2R-judy/src/utils/misc.py:245-279`): one row per
 scan_viewpoint with base64 float32 (36, 2048) features, validated
 against the 640x480 VFOV-60 camera constants.  Returns a dict usable as
-the world compiler's ``feature_fn``.
+the world compiler's ``feature_fn``.  ``write_feature_tsv`` writes the
+same format.
 """
 from __future__ import annotations
 
@@ -53,3 +54,16 @@ def feature_fn_from_dict(features: Dict[str, np.ndarray]) -> Callable[[str, str]
 
 def featurized_scans(features: Dict[str, np.ndarray]) -> set:
     return {key.split("_")[0] for key in features}
+
+
+def write_feature_tsv(path: str, features: Dict[str, np.ndarray]) -> None:
+    """Write ``<scan>_<viewpoint>`` -> (views, D) features in the reference
+    TSV format that ``read_feature_tsv`` reads (for tests and interop)."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, delimiter="\t")
+        for long_id, feat in features.items():
+            scan, viewpoint = long_id.split("_", 1)
+            writer.writerow([
+                scan, viewpoint, IMAGE_W, IMAGE_H, VFOV,
+                base64.b64encode(feat.astype(np.float32).tobytes()).decode("ascii"),
+            ])

@@ -120,6 +120,10 @@ class SelfPacedCurriculum(ClassicTrainer):
                    miu=sp.MIU, interval=sp.INTERVAL, strategy=sp.STRATEGY,
                    burn_in=sp.BURN_IN, device=device)
 
+    # JAX's SelfPacedCurriculum.train writes its checkpoints synchronously
+    # whatever TPU.CKPT_ASYNC says (curriculum.py:140-350)
+    async_checkpoints = False
+
     def train(self, cfg, agent, tsboard_dir, train_env, valid_env, seed: int = 2020,
               device=None, **kwargs):
         # a run starts from an empty loss record (or the checkpoint's)

@@ -21,8 +21,11 @@ rl_loss_per_episode).
 optax's form, then Adam) and, unclipped, the ViLBERT pretrainer's.
 Parameters are nested dicts of leaf tensors (``utils/tree.py``).  The
 scanned (``SCAN_ITERS``) iteration is a TPU dispatch device and is not
-ported.  ``configure_runtime`` sets the rollout's early exit from the
-config, as the trainers' first step (loop.py:26-72).
+ported.  ``configure_runtime`` sets the rollout's early exit and the
+route (TPU.USE_PALLAS: the kernels or none of them) from the config, as
+the trainers' first step (loop.py:26-72).  ``write_results`` writes an
+evaluation's trajectories as the reference's results JSON (loop.py:
+466-481), which ``Evaluation.score`` reads back.
 
 Data parallelism: given a ``mesh`` of more than one rank, an iteration
 runs this rank's rows of the global batch as its part of the global
@@ -35,6 +38,9 @@ process on the whole batch does (JAX's SPMD step, mesh.py:79-101).
 """
 from __future__ import annotations
 
+import json
+import logging
+import os
 from typing import Callable, Dict, Optional
 
 import torch
@@ -42,16 +48,31 @@ import torch
 from ..agents.common import (FEEDBACK_ARGMAX, FEEDBACK_IDS, FEEDBACK_SAMPLE, FEEDBACK_TEACHER,
                              assemble_trajectories, set_early_exit)
 from ..env.env import EpisodeBatch
+from ..ops import set_kernels
 from ..parallel import mesh as M
 from ..utils.tree import tree_leaves
 from ..world.compiler import WorldTables
 
 
+logger = logging.getLogger("main.loop")
+
+
 def configure_runtime(cfg) -> None:
-    """The runtime knobs of cfg.TPU the port reads: ``SCAN_EARLY_EXIT``, set
-    whatever its value, so that a second run in one process does not keep
-    an earlier run's (loop.py:56-59)."""
+    """The runtime knobs of cfg.TPU the port reads, each set whatever its
+    value, so that a second run in one process does not keep an earlier
+    run's (loop.py:56-59): ``SCAN_EARLY_EXIT``, and ``USE_PALLAS``, which
+    sets the LSTM and the observation backends to the kernels ("cuda") or
+    to none of them ("plain": the autograd step loop and the agents'
+    unfused decode).  The JAX package sets its backends only when the knob
+    is True (loop.py:60-71) and leaves them otherwise; the port sets them
+    in both directions.  Off, ``OBS_MASKS`` is not read, as in JAX."""
     set_early_exit(bool(cfg.TPU.SCAN_EARLY_EXIT))
+    use_kernels = bool(cfg.TPU.USE_PALLAS)
+    set_kernels(use_kernels)
+    if not use_kernels:
+        logger.info("TPU.USE_PALLAS False: the plain route, K1-K8 not launched (the encoders' "
+                    "autograd step loop, the agents' unfused decode); TPU.OBS_MASKS %r is "
+                    "ignored", cfg.TPU.OBS_MASKS)
 
 
 class RMSprop(torch.optim.Optimizer):
@@ -357,6 +378,23 @@ def build_eval_rollout(agent) -> Callable:
                              generator=generator, model_state=model_state)[1]
 
     return roll
+
+
+def write_results(results, results_dir: str, split: str = "train") -> str:
+    """Write ``results`` ({"instr_id", "trajectory": [(viewpoint, heading,
+    elevation), ...]} each) as ``<results_dir>/<split>.json``, the JSON the
+    JAX package writes byte for byte (ref: base.py:32-37; the submission
+    format of evaluator.py:12-18).  Returns the path."""
+    os.makedirs(results_dir, exist_ok=True)
+    path = os.path.join(results_dir, f"{split}.json")
+    serializable = [
+        {"instr_id": r["instr_id"],
+         "trajectory": [[v, float(h), float(e)] for v, h, e in r["trajectory"]]}
+        for r in results
+    ]
+    with open(path, "w") as f:
+        json.dump(serializable, f)
+    return path
 
 
 def run_eval(agent, params: dict, tables: WorldTables, henv,

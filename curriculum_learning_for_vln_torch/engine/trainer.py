@@ -7,6 +7,12 @@ on val_seen/val_unseen with argmax feedback, best-SR checkpoints per split
 with superseded-file cleanup, a rotating "latest" checkpoint, scalar
 logging, and ``OUTPUT.RESUME``.  Checkpoints hold the optimizer and
 generator state too, and the curriculum state of a curriculum trainer.
+With ``TPU.CKPT_ASYNC`` they are written by one background worker while
+the next epoch trains, each rotation delete queued just before its write,
+and ``train`` waits for them before it returns (trainer.py:159-160,
+385-412); NAIVE and AUTO inherit this, and SPCL writes synchronously, as
+the JAX package's ``SelfPacedCurriculum.train`` does (``async_checkpoints``).
+``TPU.CKPT_BACKEND`` other than pickle warns once (engine/checkpoint.py).
 With ``TPU.PACKED_RL`` >= 2 (the shipped EnvDrop configs set 3) each
 iteration draws that many batches: IL on the first, the packed A2C
 rollout over all of them (trainer.py:204-216, 279-298).  With
@@ -62,7 +68,8 @@ from ..utils import profiling
 from ..utils.logging_utils import ScalarWriter, clean_dir, prettyprint
 from ..utils.tree import tree_map
 from ..world.compiler import resolve_device
-from .checkpoint import load_checkpoint, restore_training_state, save_checkpoint
+from .checkpoint import (load_checkpoint, restore_training_state, save_checkpoint,
+                         wait_for_checkpoints)
 from .evaluator import Evaluation
 from .loop import (agent_one_iter, build_eval_rollout, check_pool_valid, concat_batches,
                    configure_runtime, make_optimizer, one_iter, packed_one_iter, run_eval)
@@ -190,6 +197,9 @@ class ClassicTrainer:
     def end_epoch(self, ep: int, writer: ScalarWriter) -> None:
         """After the epoch's evaluation, before its latest checkpoint."""
 
+    # whether TPU.CKPT_ASYNC applies to this trainer's checkpoints
+    async_checkpoints = True
+
     def train(self, cfg, agent, tsboard_dir, train_env, valid_env, seed: int = 2020,
               device=None, eval_train: bool = False, eval_train_env: Optional[dict] = None):
         """Train for TRAIN.MAX_EPOCH epochs on ``device`` (default CUDA).
@@ -251,10 +261,17 @@ class ClassicTrainer:
             os.makedirs(output_ckpt_dir, exist_ok=True)
             logger.info("Checkpoints at %s", output_ckpt_dir)
 
-        def save(path, ep):
+        ckpt_async = bool(cfg.TPU.CKPT_ASYNC) and self.async_checkpoints
+
+        def save(path, ep, clean_key=None):
+            """Rank 0 writes; ``clean_key``'s older files go just before."""
             if is_main:
+                pre = (() if clean_key is None else
+                       (lambda: clean_dir(output_ckpt_dir, clean_key=clean_key),))
                 save_checkpoint(path, params, optimizer, generator, ep, cfg_yaml=cfg.dump(),
-                                curriculum=self.curriculum_state(), model_state=model_state)
+                                curriculum=self.curriculum_state(), model_state=model_state,
+                                backend=cfg.TPU.CKPT_BACKEND, async_write=ckpt_async,
+                                pre_tasks=pre)
 
         start_time = last_time = time.time()
         iters = train_cfg.ITER_PER_EPOCH
@@ -369,23 +386,24 @@ class ClassicTrainer:
                         best_val[key] = dict(scores)
                         path = osp.join(output_ckpt_dir,
                                         f"best_{key}_SR:{scores['success_rate']:.4f}.ckpt")
+                        save(path, ep, clean_key=f"best_{key}")
                         if is_main:
-                            clean_dir(output_ckpt_dir, clean_key=f"best_{key}")
                             logger.info("Saved best %s SR=%.4f -> %s", key,
                                         scores["success_rate"], path)
-                        save(path, ep)
                 if is_main:
                     prettyprint(summary)
                 timer.stop("eval")
             timer.write_scalars(writer, ep)  # perf/train_epoch_mean_ms, perf/eval_mean_ms
 
             self.end_epoch(ep, writer)
-            if is_main:
-                clean_dir(output_ckpt_dir, clean_key="latest_ep")
-            save(osp.join(output_ckpt_dir, f"latest_ep{ep}.ckpt"), ep)
+            save(osp.join(output_ckpt_dir, f"latest_ep{ep}.ckpt"), ep, clean_key="latest_ep")
             save(osp.join(ckpt_root, "latest.ckpt"), ep)  # stable "latest" for OUTPUT.RESUME
-            M.barrier()  # the other ranks read no checkpoint before rank 0 has written it
+            # the other ranks read no checkpoint before rank 0 has written it
+            # (with TPU.CKPT_ASYNC: has queued it)
+            M.barrier()
             last_time = time.time()
 
+        if ckpt_async:
+            wait_for_checkpoints()
         writer.close()
         return params, best_val

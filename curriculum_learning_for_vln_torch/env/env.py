@@ -197,6 +197,15 @@ def observe_feats(world: WorldTables, state: EnvState, meta: ObsMeta,
     return pano, assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
 
 
+def observe_cand_feat(world: WorldTables, state: EnvState, meta: ObsMeta,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """cand_feat [B, MC+1, D+128] of ``observe_feats`` alone, its rows
+    gathered straight from the table (no panorama)."""
+    c_view = meta.cand_view
+    cand_img = world.features[state.node[:, None], c_view].to(compute_dtype)  # [B, MC, D]
+    return assemble_cand_feat(cand_img, meta.cand_angle, meta.cand_valid)
+
+
 def observe(world: WorldTables, state: EnvState, compute_dtype=torch.float32) -> Observation:
     """The full observation with plain gathers (the unfused reference for
     the observation kernel):

@@ -29,7 +29,8 @@ for TRAIN.MAX_EPOCH epochs of TRAIN.ITER_PER_EPOCH iterations; or, with
 rescoring over the validation splits (``engine.beam_eval``; the agent
 from OUTPUT.RESUME, the speaker from AIDE.SPEAKER.RESUME).  EnvDrop
 trains through the hand-written rollout BPTT with ``TPU.FUSED_BPTT``
-(ops/bptt.py).  ``MODEL.NAME TEST`` is refused but with
+(ops/bptt.py), and with ``TPU.USE_PALLAS False`` every mode runs the plain
+route, launching none of the kernels.  ``MODEL.NAME TEST`` is refused but with
 ``--check-the-code``: the model-free teacher-follower has no loss, and
 the JAX package's trainer fails on it in its first iteration.
 
@@ -59,6 +60,7 @@ from .data import datasets as DS
 from .engine.auto_curriculum import AutoCurriculum
 from .engine.beam_eval import run_beam_eval
 from .engine.curriculum import NaiveCurriculum, SelfPacedCurriculum
+from .engine.loop import configure_runtime
 from .engine.self_train import self_train
 from .engine.trainer import ClassicTrainer, check_the_code
 from .env.host_env import R2RBatchEnv
@@ -144,10 +146,26 @@ def main(args, cfg) -> None:
             M.dist.destroy_process_group()
 
 
-def run(args, cfg, device, logger) -> None:
-    if cfg.TPU.SCAN_ITERS > 1:
+def log_tpu_knobs(cfg, logger) -> None:
+    """One line for each TPU/XLA knob set to what would act in the JAX
+    package: each has no effect here (ROADMAP, what the port does not
+    copy)."""
+    tpu = cfg.TPU
+    if tpu.SCAN_ITERS > 1:
         logger.info("TPU.SCAN_ITERS %d is a TPU dispatch knob; it has no effect here",
-                    cfg.TPU.SCAN_ITERS)
+                    tpu.SCAN_ITERS)
+    for key, on in (("SCAN_UNROLL", tpu.SCAN_UNROLL != 1),
+                    ("COMPILATION_CACHE", bool(tpu.COMPILATION_CACHE)),
+                    ("PARALLEL_WARMUP", bool(tpu.PARALLEL_WARMUP))):
+        if on:
+            logger.info("TPU.%s %r is a TPU/XLA knob, no effect here", key, tpu[key])
+
+
+def run(args, cfg, device, logger) -> None:
+    log_tpu_knobs(cfg, logger)
+    # the route (TPU.USE_PALLAS) and the early exit for every mode below,
+    # --self-train and --beam included; the trainers set them again
+    configure_runtime(cfg)
     random.seed(args.seed)
     np.random.seed(args.seed)
     pipeline.setup_vocab(cfg)

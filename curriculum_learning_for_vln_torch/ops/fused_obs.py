@@ -15,7 +15,11 @@ none — and what is saved is the attention weights [B, 36], the indices,
 and the external mask or the prng seeds (``DropSpec``): nothing
 image-sized.  The backward regenerates the forward's mask.  Each op runs
 its CUDA kernels for tensors on the card and their plain twins on the
-CPU; there is no backend switch and no gate that could skip a kernel.
+CPU.  The process-wide backend (``set_backend``, fused_obs.py:47-68) does
+not reach inside the ops: it tells the agents whether to call them
+(``enabled_for``).  Under "plain" (TPU.USE_PALLAS False) the agents take
+their unfused decode over gathered features instead, and no observation
+kernel launches.
 The masks follow the ``DropSpec``'s mode: "none", "ext", "prng" or
 "prng_shared" (ops/cuda/drop.py).  ``pano_cands`` is the Self-Monitor's
 ``cands_only`` use (fused_obs.py:116-128, 140-141): K4 on a zero query
@@ -30,6 +34,30 @@ import torch
 from .cuda import cand_score as _cand_score
 from .cuda import pano_fused as _pano_fused
 from .cuda.drop import NO_DROP, DropSpec
+
+BACKENDS = ("cuda", "plain")
+_BACKEND = "cuda"
+
+
+def set_backend(name: str) -> None:
+    """"cuda" (the agents run these ops: K4-K7 on the card) or "plain" (the
+    agents' unfused decode).  The mask mode is the agent's
+    (TPU.OBS_MASKS), not the backend's as in the JAX package."""
+    global _BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"fused_obs backend {name!r} is none of {BACKENDS}")
+    _BACKEND = name
+
+
+def get_backend() -> str:
+    return _BACKEND
+
+
+def enabled_for(features: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+    """Whether an agent takes the fused observation path: the "cuda"
+    backend, over a feature table stored in the compute dtype (the agents
+    raise on any other table first: ``agents.common.check_dtype``)."""
+    return _BACKEND == "cuda" and features.dtype == compute_dtype
 
 
 def _drop(ctx, mask, seeds) -> DropSpec:

@@ -3,8 +3,11 @@
 The port of ``curriculum_learning_for_vln_tpu/ops/rnn.py``.  ``lstm_cell``
 (one step) stays plain torch, as the JAX package keeps it plain XLA even
 under its Pallas backend (rnn.py:59-67).  ``masked_lstm`` (a whole
-packed-semantics sequence) runs the LSTM scan kernels
-(ops/cuda/lstm_scan.py) on the card and their plain twins on the CPU:
+packed-semantics sequence) follows the process-wide backend
+(``set_backend``, rnn.py:20-30; ``engine.loop.configure_runtime`` sets it
+from TPU.USE_PALLAS).  Under "cuda", the default, it runs the LSTM scan
+kernels (ops/cuda/lstm_scan.py) on the card and their plain twins on the
+CPU:
 
 * with autograd recording (grad mode on and an input that requires grad)
   it is ``MaskedLSTM``, a ``torch.autograd.Function`` with the residual
@@ -14,8 +17,10 @@ packed-semantics sequence) runs the LSTM scan kernels
 * otherwise (``torch.no_grad()``, or nothing to differentiate) it is the
   inference forward K3.
 
-The JAX package's VMEM gate (``_fused_fits``) is a TPU budget and is not
-carried over.
+Under "plain" it is ``masked_lstm_plain``, the counterpart of JAX's
+``masked_lstm_xla`` (rnn.py:72-97): a step loop of ``lstm_cell`` with f32
+state, differentiated by autograd; no kernel launches.  The JAX package's
+VMEM gate (``_fused_fits``) is a TPU budget and is not carried over.
 """
 from __future__ import annotations
 
@@ -24,6 +29,22 @@ from typing import Tuple
 import torch
 
 from .cuda import lstm_scan as _lstm_scan
+
+BACKENDS = ("cuda", "plain")
+_BACKEND = "cuda"
+
+
+def set_backend(name: str) -> None:
+    """"cuda" (K1-K3 on a CUDA tensor, their plain twins on a CPU one) or
+    "plain" (the autograd step loop everywhere)."""
+    global _BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"rnn backend {name!r} is none of {BACKENDS}")
+    _BACKEND = name
+
+
+def get_backend() -> str:
+    return _BACKEND
 
 
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -64,10 +85,32 @@ class MaskedLSTM(torch.autograd.Function):
                 None)
 
 
+def masked_lstm_plain(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
+                      w_hh: torch.Tensor, b: torch.Tensor, reverse: bool = False):
+    """The masked LSTM as a loop of ``lstm_cell`` over the L steps (in
+    reverse order with ``reverse``), from a zero f32 state: a step past a
+    row's length keeps its state and outputs zeros (rnn.py:72-97)."""
+    B, L, _ = xs.shape
+    H = w_hh.shape[0]
+    h = torch.zeros((B, H), dtype=torch.float32, device=xs.device)
+    c = torch.zeros_like(h)
+    outs = [None] * L
+    for t in range(L):
+        idx = L - 1 - t if reverse else t
+        h_new, c_new = lstm_cell(xs[:, idx], h, c, w_ih, w_hh, b)
+        valid = (idx < lengths)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        outs[idx] = torch.where(valid, h_new, 0.0)
+    return torch.stack(outs, dim=1), (h, c)
+
+
 def masked_lstm(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
                 w_hh: torch.Tensor, b: torch.Tensor, reverse: bool = False):
     """Packed-sequence LSTM over xs [B, L, D]; see models.core.masked_lstm.
     Returns (outs [B, L, H], (hT, cT) [B, H]), all f32."""
+    if _BACKEND == "plain":
+        return masked_lstm_plain(xs, lengths, w_ih, w_hh, b, reverse=reverse)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, w_ih, w_hh, b)):
         outs, hT, cT = MaskedLSTM.apply(xs, lengths, w_ih, w_hh, b, reverse)
         return outs, (hT, cT)

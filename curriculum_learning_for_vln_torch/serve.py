@@ -6,7 +6,10 @@ holds a compiled world's tables and an agent's weights and model state
 device and runs one argmax rollout per micro-batch of requests (padded to
 ``max_batch`` slots, padding slots born ended).  On the card the rollout
 runs the port's CUDA kernels (encoder LSTM scan, observation step, and
-EnvDrop's candidate scoring); there is no backend switch.
+EnvDrop's candidate scoring); ``use_pallas=False`` serves without any of
+them (the plain route: the encoders' step loop and the agents' unfused
+decode), as JAX's ``Navigator(use_pallas=False)`` serves on XLA
+(serve.py:35-60).
 
     nav = Navigator.from_checkpoint(world, agent, "ckpt/best_val_unseen.ckpt", tok,
                                     max_batch=64, precision="bf16")
@@ -25,6 +28,7 @@ import torch
 from .agents.common import FEEDBACK_ARGMAX, RolloutResult, assemble_trajectories, cast_compute_params
 from .convert import load_jax_checkpoint
 from .env.env import EpisodeBatch
+from .ops import set_kernels
 from .utils.tokenizer import Tokenizer
 from .utils.tree import tree_map
 from .world.compiler import CompiledWorld, resolve_device
@@ -37,11 +41,16 @@ class Navigator:
     is asked for and absent.  ``precision`` ("f32" | "bf16") is the
     feature table's dtype and must equal ``agent.compute_dtype``.
     ``model_state`` is the agent's (the Self-Monitor's BN statistics; {}
-    for the others), as JAX's serve.py:33-73 holds it."""
+    for the others), as JAX's serve.py:33-73 holds it.  ``use_pallas``
+    picks the route: the kernels (None or True; their plain twins on a
+    CPU device) or none of them (False).  Both backends are process-wide:
+    the constructor sets them in both directions (serve.py:44-56), and so
+    does each rollout, so that two Navigators in one process each serve
+    on their own route (and leave it set)."""
 
     def __init__(self, world: CompiledWorld, agent, params: dict, tokenizer: Tokenizer,
                  max_batch: int = 8, precision: str = "f32", device=None,
-                 model_state: Optional[dict] = None):
+                 model_state: Optional[dict] = None, use_pallas: Optional[bool] = None):
         self.device = resolve_device(device)
         self.world = world
         self.agent = agent
@@ -54,6 +63,8 @@ class Navigator:
         self.params = tree_map(lambda t: t.to(self.device),
                                cast_compute_params(params, agent.compute_dtype))
         self.model_state = tree_map(lambda t: t.to(self.device), model_state or {})
+        self.use_pallas = True if use_pallas is None else bool(use_pallas)
+        set_kernels(self.use_pallas)
 
     @classmethod
     def from_checkpoint(cls, world: CompiledWorld, agent, ckpt_path: str,
@@ -100,6 +111,7 @@ class Navigator:
 
     @torch.inference_mode()
     def rollout(self, ep: EpisodeBatch) -> RolloutResult:
+        set_kernels(self.use_pallas)
         return self.agent.rollout(self.params, self.tables, ep, FEEDBACK_ARGMAX, train=False,
                                   model_state=self.model_state)[1]
 

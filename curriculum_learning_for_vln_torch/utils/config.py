@@ -267,11 +267,14 @@ _C.AIDE.SPEAKER.RESUME = ""                # speaker checkpoint path (beam resco
 
 # --- TPU section of the JAX package: kept so its YAML files load unchanged.
 # The port reads PRECISION (feature-table and compute dtype), MESH_DATA /
-# MESH_MODEL (the data-parallel mesh), OBS_MASKS, the SYNTHETIC_* world,
-# MAX_CANDIDATES, SCAN_EARLY_EXIT, PACKED_RL, IL_BUCKETS, PROFILE_DIR,
-# FUSED_BPTT (EnvDrop's hand-written rollout backward, ops/bptt.py) and the
-# BEAM_* keys; the other keys configure the JAX package's TPU programs and
-# have no effect here.
+# MESH_MODEL (the data-parallel mesh), USE_PALLAS (the kernels, or the plain
+# route without any), OBS_MASKS, the SYNTHETIC_* world, MAX_CANDIDATES,
+# SCAN_EARLY_EXIT, PACKED_RL, IL_BUCKETS, PROFILE_DIR, FUSED_BPTT (EnvDrop's
+# hand-written rollout backward, ops/bptt.py), CKPT_ASYNC (the background
+# checkpoint writer), CKPT_BACKEND (anything but pickle warns: the orbax
+# format needs jax) and the BEAM_* keys; the other keys (SCAN_ITERS,
+# SCAN_UNROLL, COMPILATION_CACHE, PARALLEL_WARMUP) configure the JAX
+# package's TPU programs and have no effect here: main logs them.
 _C.TPU = CfgNode()
 _C.TPU.MESH_DATA = 0
 _C.TPU.MESH_MODEL = 1

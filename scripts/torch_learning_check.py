@@ -10,13 +10,19 @@ shipped (``TPU.PACKED_RL 3``):
 RUN names one of the runs below (default: the first four, EnvDrop's,
 in this order; ``follower`` and ``monitor`` name the Follower's and the
 Self-Monitor's classic, NAIVE and SPCL runs at seed 7, at the recipe of
-the JAX package's parity matrix, ``AGENT_RECIPE``).  Each run's output goes to ``DIR/<run>.log`` (default
+the JAX package's parity matrix, ``AGENT_RECIPE``; ``follower_naive``
+the Follower's NAIVE runs on the matrix's schedule, a round every
+epochs // 5 epochs: seed 7 on the kernels and on the plain route,
+TPU.USE_PALLAS False, the route the JAX matrix itself ran, and seeds 0
+and 1 on the kernels; ``follower_seeds`` those two and the classic runs
+at the same seeds).  A run of ``NAIVE_SWITCH`` starts ``main`` with
+``NaiveCurriculum(switch_epoch=N)`` in place of its default 20 (JAX
+scripts/parity_matrix.py:116-117).  Each run's output goes to ``DIR/<run>.log`` (default
 ``build/learning_check_logs``) and its checkpoints under
 ``build/learning_check/<run>``; the script prints one line per run with
 its val_unseen success rate at each evaluation, then the card's name and
-power limit, then one JSON object of each run's final and best rates (the
-JAX matrix reports the best).  It exits non-zero
-if a run fails.
+power limit, then one JSON object of each run's final and best rates
+(the JAX matrix reports the best). It exits non-zero if a run fails.
 """
 from __future__ import annotations
 
@@ -70,6 +76,30 @@ for _agent, _stem, _epochs in (("follower", "follower/follower", 50),
         RUNS[f"{_agent}_{_mode}_seed7"] = (f"configs/{_stem}{_config}.yaml", 7,
                                            _budget + _clmode, AGENT_RECIPE)
     GROUPS[_agent] = tuple(f"{_agent}_{m}_seed7" for m in ("classic", "naive", "spcl"))
+# the Follower's NAIVE run on the matrix's schedule: 50 epochs, a round
+# every 50 // 5 = 10 (parity_matrix.py:116-117); seed 7 on both routes,
+# seeds 0 and 1 on the kernels (the matrix's means are over seeds)
+_config, _, _extra, _recipe = RUNS["follower_naive_seed7"]
+NAIVE_SWITCH = {}
+for _seed, _plain in ((7, False), (7, True), (0, False), (1, False)):
+    _name = f"follower_naive_seed{_seed}_switch10" + ("_plain" if _plain else "")
+    RUNS[_name] = (_config, _seed, _extra + (["TPU.USE_PALLAS", "False"] if _plain else []),
+                   _recipe)
+    NAIVE_SWITCH[_name] = 10
+# their yardstick in the port: the classic run at seeds 0 and 1 (seed 7 is
+# follower_classic_seed7)
+for _seed in (0, 1):
+    _config, _, _extra, _recipe = RUNS["follower_classic_seed7"]
+    RUNS[f"follower_classic_seed{_seed}"] = (_config, _seed, _extra, _recipe)
+GROUPS["follower_naive"] = tuple(NAIVE_SWITCH)
+GROUPS["follower_seeds"] = ("follower_naive_seed0_switch10", "follower_naive_seed1_switch10",
+                            "follower_classic_seed0", "follower_classic_seed1")
+# ``main`` with the NAIVE trainer's switch epoch taken from its first argument
+SWITCH_MAIN = ("import functools, sys\n"
+               "from curriculum_learning_for_vln_torch import main\n"
+               "main.NaiveCurriculum = functools.partial(main.NaiveCurriculum, "
+               "switch_epoch=int(sys.argv.pop(1)))\n"
+               "main.main(*main.parse_args(sys.argv[1:]))\n")
 DEFAULT_RUNS = ("spcl_seed7", "spcl_seed0", "naive_seed7", "classic_seed7")
 ROW = re.compile(r"^\|\s*val_unseen\s*\|(.*)\|\s*$")
 
@@ -93,11 +123,13 @@ def main() -> int:
     final = {}
     for name in runs:
         config, seed, extra, *recipe = RUNS[name]
-        cmd = [sys.executable, "-m", "curriculum_learning_for_vln_torch.main", "--config-file",
+        entry = (["-c", SWITCH_MAIN, str(NAIVE_SWITCH[name])] if name in NAIVE_SWITCH
+                 else ["-m", "curriculum_learning_for_vln_torch.main"])
+        cmd = [sys.executable, *entry, "--config-file",
                config, "--seed", str(seed), *(recipe[0] if recipe else RECIPE), *extra,
                "OUTPUT.CKPT_DIR", os.path.join("build", "learning_check", name),
                "OUTPUT.LOG_DIR", os.path.join(args.out, name)]
-        print("$ " + " ".join(c if c else '""' for c in cmd[1:]), flush=True)
+        print("$ " + " ".join(c if c else '""' for c in cmd[1:] if c != SWITCH_MAIN), flush=True)
         run = subprocess.run(cmd, capture_output=True, text=True)
         with open(os.path.join(args.out, f"{name}.log"), "w") as f:
             f.write(run.stdout + run.stderr)
