@@ -380,8 +380,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def kernel_label(name: str) -> str:
     """A device event's kernel name without its namespace, template
-    arguments and parameter list: "dw_gemm_kernel<float>(...)" ->
-    "dw_gemm_kernel"."""
+    arguments and parameter list: "bwd_recurrence_kernel<float>(...)" ->
+    "bwd_recurrence_kernel"."""
     base = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     base = base.split("(")[0].split("<")[0].rsplit("::", 1)[-1].strip()
     return base or name
@@ -665,7 +665,32 @@ def lstm_phases(dtype, device, gen, lengths, iters=20, D=256, H=256, L=80):
     if dtype == torch.bfloat16:
         check(differ < 0.01, f"K2: bf16 d_xs differs from plain in {differ:.3%} of its elements")
         out[-1]["d_xs_differ"] = differ
+    out[-1]["gemm_rates"] = k2_gemm_rates(out[-1]["device_split"], bounds["valid_steps"], D, H,
+                                          dtype)
     return out
+
+
+def k2_gemm_rates(split, steps, D, H, dtype):
+    """{launch: {device ms, useful TFLOP/s, issued TFLOP/s}} of K2's two
+    input-side GEMM launches, from a call's device split: useful, the
+    products the function needs at the valid steps (d_xs 2 steps 4H D; dW
+    2 steps 4H (D + H)); issued, those the launch runs on the tensor cores
+    (bf16: three terms of da for d_xs and dW_ih, six term products for
+    dW_hh; f32: each split-TF32 product counted once)."""
+    useful = {"dx": 2 * steps * 4 * H * D, "dw": 2 * steps * 4 * H * (D + H)}
+    if dtype == torch.bfloat16:
+        names = {"dx": "dx_wgmma_kernel", "dw": "dw_wgmma_kernel"}
+        issued = {"dx": 3 * useful["dx"], "dw": 2 * steps * 4 * H * (3 * D + 6 * H)}
+    else:
+        names = {"dx": "dx_gemm_kernel", "dw": "dw_gemm_kernel"}
+        issued = useful
+    rates = {}
+    for k, name in names.items():
+        ms = split.get(name, (None,))[0]
+        rates[name] = {"device_ms": ms,
+                       "useful_tflops": useful[k] / ms / 1e9 if ms else None,
+                       "issued_tflops": issued[k] / ms / 1e9 if ms else None}
+    return rates
 
 
 def lstm_bounds(xs, lengths, w_ih, w_hh, b):
@@ -1156,6 +1181,11 @@ def kernel_phases(world, lengths, device):
                 if "d_xs_differ" in r:
                     log(f"{'':16s} {prec:4s} d_xs differs from plain in {r['d_xs_differ']:.4%} "
                         f"of its valid elements (limit 1%)")
+                for k, g in r.get("gemm_rates", {}).items():
+                    if g["device_ms"]:
+                        log(f"{'':16s} {prec:4s} {k}: {g['device_ms']:.4f} ms, "
+                            f"{g['useful_tflops']:.1f} TFLOP/s useful, "
+                            f"{g['issued_tflops']:.1f} issued on the tensor cores")
                 for part, c in r["checks"].items():
                     check(c["max_abs_err"] <= c["tol"],
                           f"{name} {prec} {part} agrees with its plain version")
@@ -4583,12 +4613,15 @@ def main() -> int:
             entry["f32"].update(checks=r32["checks"], device_split=r32["device_split"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
+            if "gemm_rates" in r:  # K2's input-side GEMM launches
+                entry["gemm_rates"] = {precision: r["gemm_rates"], "f32": r32["gemm_rates"]}
             # the Follower's, the Self-Monitor's and the speaker's encoder layers
             for group, labels in (("agent_shapes", AGENT_LSTM_SHAPES),
                                   ("speaker_shapes", SPEAKER_LSTM_SHAPES)):
                 entry[group] = {
                     label: {prec: {k: x[group][label][k]
-                                   for k in ("shape", *keys, "max_abs_err", "ragged", "plans")
+                                   for k in ("shape", *keys, "max_abs_err", "ragged", "plans",
+                                             "gemm_rates")
                                    if k in x[group][label]}
                             for prec, x in ((precision, r), ("f32", r32))}
                     for label in labels}

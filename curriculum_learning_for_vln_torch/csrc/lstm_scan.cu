@@ -41,7 +41,8 @@
 //    gate pre-activations x . W_ih + b + h . W_hh: the backward reads them
 //    instead of recomputing both products.
 //
-// Backward (K2): one C call, three launches.  The first design (a
+// Backward (K2): one C call, three launches (f32) or four (bf16: the walk,
+// then K2.0-K2.3 below, the GEMMs on wgmma fed by TMA).  The first design (a
 // transposed W_hh slice in shared memory and a SIMT loop of 128 dependent
 // shared-memory loads a thread for the step's product; then SIMT GEMMs
 // that walked all B*L padded rows in 16-row chunks, and a bias sum) took
@@ -69,9 +70,9 @@
 //    the data it reads, and stores its da and starts its loads while the
 //    partials travel.  It writes da [B, L, 4H] at valid steps only, and
 //    the cluster's column sums of da.
-// 2. dx_gemm: d_xs = DA . W_ih^T at the valid steps, in the dtype of xs, and
-//    0 at the padded steps (the grid's later blocks).
-// 3. dw_gemm: dW_ih = X^T . DA, dW_hh = Hprev^T . DA and db.  Each output
+// 2. dx_gemm (f32): d_xs = DA . W_ih^T at the valid steps, and 0 at the
+//    padded steps (the grid's later blocks).
+// 3. dw_gemm (f32): dW_ih = X^T . DA, dW_hh = Hprev^T . DA and db.  Each output
 //    tile is reduced by a cluster of 8 blocks, one a contiguous eighth of
 //    the valid steps (512 blocks, two at a time an SM); the eighths'
 //    partial tiles are summed in rank order through distributed shared
@@ -79,14 +80,15 @@
 // The GEMMs visit only the valid steps: they number them row by row (row
 // b's valid steps are the contiguous run t < len[b]), every block taking
 // the rows' starts from lengths on the device, so no host synchronisation
-// reads them.  K2's stream their operands through a 3-stage cp.async ring
-// into mma.sync m16n8k8 in TF32.  A plain TF32 product (~1e-3 relative)
-// fails the backward's tolerances, so an f32 operand is split into two
-// TF32 halves and a product takes three MMAs; a bf16 operand is exact in
-// TF32 and takes two.  da is f32 in both dtypes, and is split everywhere:
-// d_xs = da . W_ih^T in bf16 takes two MMAs, and rounds to bf16 once
-// (scripts/torch_tf32_error.py measures the error of plain and split
-// TF32).  No atomics anywhere: the gradients are the same from run to run.
+// reads them.  In f32 K2's stream their operands through a 3-stage cp.async
+// ring into mma.sync m16n8k8 in TF32.  A plain TF32 product (~1e-3
+// relative) fails the backward's tolerances, so an f32 operand is split
+// into two TF32 halves and a product takes three MMAs (scripts/
+// torch_tf32_error.py measures the error of plain and split TF32).  In bf16
+// the pack launch numbers the valid steps alike and packs the operands by
+// them, da (f32) as three bf16 terms, and the GEMMs run on wgmma (K2.0-K2.3
+// below); d_xs rounds to bf16 once.  No atomics anywhere: the gradients
+// are the same from run to run.
 //
 // Bound on the H100: at the path's shapes (B = 64, L = 80, D = H = 256)
 // the forward is ~5.4 GFLOP at most (2 x 5,120 steps x (D + H) x 4H) and
@@ -123,11 +125,6 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // ---------------------------------------------------------------------------
 // Tensor cores in f32 accuracy: mma.sync m16n8k8 in TF32 with split operands.
@@ -1697,42 +1694,30 @@ bwd_recurrence_kernel(const float* __restrict__ gates, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// K2.2 d_xs[m] = da[m] . W_ih^T for every valid step m (in the dtype of xs),
-//      0 at every padded step.  Block (n tile, y): y < ceil(Mv / DX_TM) takes
-//      valid steps [y * DX_TM, +DX_TM) and columns [n0, n0 + DX_TN); later y
-//      write the zeros of the padded steps, DX_TM at a time.  K = 4H streams
-//      through a ring of DX_STAGES cp.async stages of DX_KC columns; four
-//      warps of 16 rows x 32 columns each run m16n8k8 TF32 MMAs.  da (f32)
-//      is split in both dtypes, as the reference's f32 product needs: three
-//      MMAs a product in f32 (W_ih split too), two in bf16 (W_ih exact in
-//      TF32); d_xs is rounded to bf16 once, from the f32 sums.
+// K2.2 (f32; bf16 takes dx_wgmma_kernel below) d_xs[m] = da[m] . W_ih^T
+//      for every valid step m, 0 at every padded step.  Block (n tile, y):
+//      y < ceil(Mv / DX_TM) takes valid steps [y * DX_TM, +DX_TM) and
+//      columns [n0, n0 + DX_TN); later y write the zeros of the padded
+//      steps, DX_TM at a time.  K = 4H streams through a ring of DX_STAGES
+//      cp.async stages of DX_KC columns; four warps of 16 rows x 32 columns
+//      each run m16n8k8 TF32 MMAs, three a product: da and W_ih split.
 // ---------------------------------------------------------------------------
 constexpr int DX_TM = 32, DX_TN = 64, DX_KC = 32, DX_STAGES = 3, DX_THREADS = 128;
-constexpr int DX_AS = DX_KC + 4;  // f32 row stride of a da stage: conflict-free fragments
+constexpr int DX_AS = DX_KC + 4;  // row stride of a da or W_ih stage: conflict-free fragments
 
-template <typename T>
-__host__ __device__ constexpr int dx_ws() {  // row stride (elements) of a W_ih stage
-  return DX_KC + (sizeof(T) == 4 ? 4 : 8);
-}
-
-template <typename T>
 size_t dx_smem(int B) {
-  return (size_t)(starts_ints(B) + DX_TM) * 4 +
-         (size_t)DX_STAGES * (DX_TM * DX_AS * 4 + DX_TN * dx_ws<T>() * sizeof(T));
+  return (size_t)(starts_ints(B) + DX_TM) * 4 + (size_t)DX_STAGES * (DX_TM + DX_TN) * DX_AS * 4;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(DX_THREADS)
-dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
-               const int64_t* __restrict__ lengths, T* __restrict__ dx, int B, int L, int D,
+dx_gemm_kernel(const float* __restrict__ da, const float* __restrict__ w,
+               const int64_t* __restrict__ lengths, float* __restrict__ dx, int B, int L, int D,
                int K) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int WS = dx_ws<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* starts = reinterpret_cast<int*>(smem_raw);
   int* rows = starts + starts_ints(B);
   float* a_s = reinterpret_cast<float*>(rows + DX_TM);
-  T* w_s = reinterpret_cast<T*>(a_s + DX_STAGES * DX_TM * DX_AS);
+  float* w_s = a_s + DX_STAGES * DX_TM * DX_AS;
   const int tid = threadIdx.x;
   valid_starts(lengths, B, L, starts);
   const int Mv = starts[B], vt = (Mv + DX_TM - 1) / DX_TM;
@@ -1753,7 +1738,7 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
     __syncthreads();
     for (int i = tid; i < DX_TM * DX_TN; i += DX_THREADS) {
       const int m = rows[i / DX_TN], n = n0 + i % DX_TN;
-      if (m >= 0 && n < D) store_as(dx + (size_t)m * D + n, 0.f);
+      if (m >= 0 && n < D) dx[(size_t)m * D + n] = 0.f;
     }
     return;
   }
@@ -1770,11 +1755,10 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
       const int r = i / (DX_KC / 4), q = i % (DX_KC / 4), m = rows[r];
       cp_async16(as + r * DX_AS + 4 * q, da + (size_t)max(m, 0) * K + k0 + 4 * q, m >= 0);
     }
-    constexpr int EPC = 16 / sizeof(T), WC = DX_KC / EPC;  // elements, chunks of a row
-    T* ws = w_s + st * DX_TN * WS;
-    for (int i = tid; i < DX_TN * WC; i += DX_THREADS) {
-      const int r = i / WC, q = i % WC, n = n0 + r;
-      cp_async16(ws + r * WS + EPC * q, w + (size_t)min(n, D - 1) * K + k0 + EPC * q, n < D);
+    float* ws = w_s + st * DX_TN * DX_AS;
+    for (int i = tid; i < DX_TN * (DX_KC / 4); i += DX_THREADS) {
+      const int r = i / (DX_KC / 4), q = i % (DX_KC / 4), n = n0 + r;
+      cp_async16(ws + r * DX_AS + 4 * q, w + (size_t)min(n, D - 1) * K + k0 + 4 * q, n < D);
     }
   };
 
@@ -1795,7 +1779,7 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
     if (kn < nk) load_stage(kn % DX_STAGES, kn * DX_KC);
     cp_async_commit();
     const float* as = a_s + (kc % DX_STAGES) * DX_TM * DX_AS + wm * 16 * DX_AS;
-    const T* ws = w_s + (kc % DX_STAGES) * DX_TN * WS + wn * 32 * WS;
+    const float* ws = w_s + (kc % DX_STAGES) * DX_TN * DX_AS + wn * 32 * DX_AS;
 #pragma unroll
     for (int kk = 0; kk < DX_KC; kk += 8) {
       uint32_t ah[4], al[4];
@@ -1806,16 +1790,14 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        tf32_split<F32>(to_f32(ws[(nt * 8 + g8) * WS + kk + q4]), bh[nt][0], bl[nt][0]);
-        tf32_split<F32>(to_f32(ws[(nt * 8 + g8) * WS + kk + q4 + 4]), bh[nt][1], bl[nt][1]);
+        tf32_split<true>(ws[(nt * 8 + g8) * DX_AS + kk + q4], bh[nt][0], bl[nt][0]);
+        tf32_split<true>(ws[(nt * 8 + g8) * DX_AS + kk + q4 + 4], bh[nt][1], bl[nt][1]);
       }
       // term by term: back-to-back MMAs never feed each other
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], al, bh[nt][0], bh[nt][1]);
-      if (F32) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], ah, bl[nt][0], bl[nt][1]);
-      }
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], ah, bl[nt][0], bl[nt][1]);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[nt], ah, bh[nt][0], bh[nt][1]);
     }
@@ -1830,31 +1812,26 @@ dx_gemm_kernel(const float* __restrict__ da, const T* __restrict__ w,
     for (int nt = 0; nt < 4; ++nt) {
       const int n = n0 + wn * 32 + nt * 8 + 2 * q4;
       if (n >= D) continue;
-      T* p = dx + (size_t)m * D + n;
-      if constexpr (F32) {
-        *reinterpret_cast<float2*>(p) = make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      }
+      *reinterpret_cast<float2*>(dx + (size_t)m * D + n) =
+          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2.3 dW[i, j] = sum over valid steps m of a(m, i) da[m, j], j < J = 4H, and
-//      db.  blockIdx.z = mat * DW_SPLITS + split: mat 0 takes a = xs [B, L, D]
-//      (T) into dW_ih [D, 4H], mat 1 a = hprev [L, B, H] (f32, time-major)
-//      into dW_hh [H, 4H].  The DW_SPLITS blocks of one output tile (DW_TI x
-//      DW_TJ) form a cluster; split s reduces valid steps [s Mv / S, (s + 1)
-//      Mv / S) in order, DW_KC at a time through a ring of cp.async stages,
-//      with eight warps of 32 x 32 outputs on m16n8k8 TF32 MMAs (da always
-//      split, a split in f32).  Then each block puts its partial tile in
-//      shared memory, and after one cluster barrier block s sums rows [s
-//      DW_TI / S, ..) of the tile over the cluster's blocks in rank order:
-//      no atomics, the same sums every run.  The cluster of tile (j, 0) of
-//      dW_hh also writes db[j..] as the sum over the recurrence's clusters,
-//      in order, of their column sums.
+// K2.3 (f32; bf16 takes dw_wgmma_kernel below) dW[i, j] = sum over valid
+//      steps m of a(m, i) da[m, j], j < J = 4H, and db.  blockIdx.z = mat *
+//      DW_SPLITS + split: mat 0 takes a = xs [B, L, D] into dW_ih [D, 4H],
+//      mat 1 a = hprev [L, B, H] (time-major) into dW_hh [H, 4H].  The
+//      DW_SPLITS blocks of one output tile (DW_TI x DW_TJ) form a cluster;
+//      split s reduces valid steps [s Mv / S, (s + 1) Mv / S) in order,
+//      DW_KC at a time through a ring of cp.async stages, with eight warps
+//      of 32 x 32 outputs on m16n8k8 TF32 MMAs (both operands split).  Then
+//      each block puts its partial tile in shared memory, and after one
+//      cluster barrier block s sums rows [s DW_TI / S, ..) of the tile over
+//      the cluster's blocks in rank order: no atomics, the same sums every
+//      run.  The cluster of tile (j, 0) of dW_hh also writes db[j..] as the
+//      sum over the recurrence's clusters, in order, of their column sums.
 // ---------------------------------------------------------------------------
 constexpr int DW_TI = 64, DW_TJ = 128, DW_KC = 32, DW_STAGES = 3, DW_THREADS = 256;
 constexpr int DW_SPLITS = 8;
@@ -1868,21 +1845,18 @@ size_t dw_smem(int B) {
   return (size_t)starts_ints(B) * 4 + (ring > tile ? ring : tile);
 }
 
-// One split of one tile: the partial dW tile of a (TA: T for xs, f32 for
-// hprev) in acc, as mma D fragments of the warp's 2 x 4 tiles.
-template <typename TA>
-__device__ __forceinline__ void dw_tile(const TA* __restrict__ a, const float* __restrict__ da,
+// One split of one tile: the partial dW tile of a (xs or hprev) in acc,
+// as mma D fragments of the warp's 2 x 4 tiles.
+__device__ __forceinline__ void dw_tile(const float* __restrict__ a, const float* __restrict__ da,
                                         const int* starts, unsigned char* stages, int B, int L,
                                         int I, int J, int i0, int j0, bool time_major, int v0,
                                         int v1, float (&acc)[2][4][4]) {
-  constexpr bool F32 = std::is_same<TA, float>::value;
-  constexpr int EPC = 16 / sizeof(TA);  // elements of a 16-byte chunk of a
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, q4 = lane & 3;
   const int wi = warp >> 2, wj = warp & 3;  // 32 x 32 outputs a warp
   const int rr = tid / 8, sub = tid % 8;    // the stage row and the chunks this thread loads
 
   auto load_stage = [&](int st, int v) {
-    TA* as = reinterpret_cast<TA*>(stages + st * DW_STAGE_BYTES);
+    float* as = reinterpret_cast<float*>(stages + st * DW_STAGE_BYTES);
     float* bs = reinterpret_cast<float*>(stages + st * DW_STAGE_BYTES + DW_KC * DW_AS * 4);
     const int vv = v + rr;
     const bool ok = vv < v1;
@@ -1892,12 +1866,12 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, const float* _
       t = vv - starts[b];
     }
     const size_t m = (size_t)b * L + t;
-    const TA* ap = a + (time_major ? ((size_t)t * B + b) * I : m * I) + i0;
+    const float* ap = a + (time_major ? ((size_t)t * B + b) * I : m * I) + i0;
     // the 8 threads of a row take neighbouring chunks: conflict-free stores
 #pragma unroll
-    for (int c = sub; c < DW_TI / EPC; c += 8)
-      cp_async16(as + rr * DW_AS + c * EPC, ap + (ok && i0 + c * EPC < I ? c * EPC : 0),
-                 ok && i0 + c * EPC < I);
+    for (int c = sub; c < DW_TI / 4; c += 8)
+      cp_async16(as + rr * DW_AS + c * 4, ap + (ok && i0 + c * 4 < I ? c * 4 : 0),
+                 ok && i0 + c * 4 < I);
     const float* bp = da + m * J + j0;
 #pragma unroll
     for (int c = sub; c < DW_TJ / 4; c += 8) cp_async16(bs + rr * DW_BS + 4 * c, bp + 4 * c, ok);
@@ -1916,7 +1890,7 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, const float* _
     if (kn < nk) load_stage(kn % DW_STAGES, v0 + kn * DW_KC);
     cp_async_commit();
     const unsigned char* st = stages + (kc % DW_STAGES) * DW_STAGE_BYTES;
-    const TA* as = reinterpret_cast<const TA*>(st) + wi * 32;
+    const float* as = reinterpret_cast<const float*>(st) + wi * 32;
     const float* bs = reinterpret_cast<const float*>(st + DW_KC * DW_AS * 4) + wj * 32;
 #pragma unroll
     for (int kk = 0; kk < DW_KC; kk += 8) {
@@ -1929,19 +1903,17 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, const float* _
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const TA* ap = as + mt * 16 + g8;
-        tf32_split<F32>(to_f32(ap[(kk + q4) * DW_AS]), ah[mt][0], al[mt][0]);
-        tf32_split<F32>(to_f32(ap[(kk + q4) * DW_AS + 8]), ah[mt][1], al[mt][1]);
-        tf32_split<F32>(to_f32(ap[(kk + q4 + 4) * DW_AS]), ah[mt][2], al[mt][2]);
-        tf32_split<F32>(to_f32(ap[(kk + q4 + 4) * DW_AS + 8]), ah[mt][3], al[mt][3]);
+        const float* ap = as + mt * 16 + g8;
+        tf32_split<true>(ap[(kk + q4) * DW_AS], ah[mt][0], al[mt][0]);
+        tf32_split<true>(ap[(kk + q4) * DW_AS + 8], ah[mt][1], al[mt][1]);
+        tf32_split<true>(ap[(kk + q4 + 4) * DW_AS], ah[mt][2], al[mt][2]);
+        tf32_split<true>(ap[(kk + q4 + 4) * DW_AS + 8], ah[mt][3], al[mt][3]);
       }
       // term by term: back-to-back MMAs never feed each other
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (F32) mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-        }
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1956,9 +1928,8 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, const float* _
   __syncthreads();  // every stage is read: the caller reuses the memory
 }
 
-template <typename T>
 __global__ void __cluster_dims__(1, 1, DW_SPLITS) __launch_bounds__(DW_THREADS, 2)
-dw_gemm_kernel(const T* __restrict__ xs, const float* __restrict__ hprev,
+dw_gemm_kernel(const float* __restrict__ xs, const float* __restrict__ hprev,
                const float* __restrict__ da, const int64_t* __restrict__ lengths,
                const float* __restrict__ db_part, float* __restrict__ dw_ih,
                float* __restrict__ dw_hh, float* __restrict__ db, int B, int L, int D, int H,
@@ -1979,9 +1950,9 @@ dw_gemm_kernel(const T* __restrict__ xs, const float* __restrict__ hprev,
 
   float acc[2][4][4] = {};
   if (hh)
-    dw_tile<float>(hprev, da, starts, stages, B, L, I, J, i0, j0, true, v0, v1, acc);
+    dw_tile(hprev, da, starts, stages, B, L, I, J, i0, j0, true, v0, v1, acc);
   else
-    dw_tile<T>(xs, da, starts, stages, B, L, I, J, i0, j0, false, v0, v1, acc);
+    dw_tile(xs, da, starts, stages, B, L, I, J, i0, j0, false, v0, v1, acc);
 
   // the partial tile into shared memory, then the cluster's sum in rank order
   float* red = reinterpret_cast<float*>(stages);
@@ -2557,12 +2528,620 @@ cudaError_t launch_bwd_res(const float* gates, const float* cprev, const float* 
                             lengths, w_hh, da, db_part, B, L, rows, reverse);
 }
 
+// ---------------------------------------------------------------------------
+// K2.2 and K2.3 on the bf16 route: wgmma GEMMs fed by TMA.
+//
+// dx_gemm and dw_gemm above took 0.1808 and 0.2398 ms of K2's 0.5269 ms at
+// the speaker's first layer (D = 2176, H = 256, 2,240 valid steps; cuDNN's
+// backward 0.3853) in bf16 on the H100: about 5% of the card's bf16 rate.
+// They run mma.sync in TF32 with da split into two halves (two MMAs a
+// product), in small tiles that load and split the same da rows again for
+// every column tile, through cp.async rings that every thread issues.  The
+// f32 route keeps them; in bf16:
+// 0. bwd_pack_kernel packs every GEMM operand by valid step v (numbered as
+//    above) into plain 2-D matrices: X [P, D] (bf16, exact), Hprev as three
+//    bf16 terms [3][P, H] and da as three [3][P, 4H] (split3_bf16x2: the
+//    sum of the terms is within 2^-24 of the f32 value), P = B L rows, of
+//    which [0, Mv) hold the valid steps and [Mv, Mv rounded up to WG_DW_K)
+//    zeros.  So no TMA box straddles two batch rows, and no padded step is
+//    multiplied.  It also writes d_xs's zeros at the padded steps.
+// 1. dx_wgmma_kernel: d_xs[v] = sum_k (t3 + t2 + t1)[v][k] W_ih[n][k] on
+//    tiles of WG_M valid steps x WG_N columns.  Both operands are K-major
+//    (K = 4H): wgmma m64n128k16 reads them from 128-byte-swizzled shared
+//    memory as they are, three a k16 step (the smallest term first) into
+//    f32 accumulators; the sums are rounded to bf16 once and scattered to
+//    the valid step's row of [B, L, D].  Where the tiles are few (D = 256)
+//    K is split S ways (dx_splits) and a tile's S blocks sum their partial
+//    tiles in rank order through distributed shared memory, as dW's do:
+//    without (dx_S1) EnvDrop's and the Self-Monitor's shapes took 14-36%
+//    more time; the speaker's second layer in bf16 (on no path: it runs in
+//    f32), whose 72 tiles of whole rows split past a wave, 37% less.
+// 2. dw_wgmma_kernel: dW_ih[i][j] = sum_v X[v][i] da[v][j] and dW_hh[i][j]
+//    = sum_v Hp[v][i] da[v][j] on tiles of WG_M x WG_N outputs, K = the
+//    valid steps.  Both operands are MN-major, which bf16 wgmma takes
+//    through its transpose bits (TF32 wgmma takes K-major operands only:
+//    the reason for bf16 terms rather than TF32 halves).  dW_ih takes the
+//    three terms of da; dW_hh the six term products Hp_i da_j with i + j
+//    <= 4 (each of the three left out is below 2^-25 of |Hp da|).  The
+//    steps are split S ways (dw_splits); a tile's S blocks form a cluster
+//    and sum their partial tiles in rank order through distributed shared
+//    memory: no atomics, the same sums every run.  db sums the walk's
+//    cluster column sums in order.
+// Both GEMM kernels run two consumer warpgroups of 64 output rows each and
+// one producer warp, whose lane 0 keeps a ring of TMA boxes (64 bf16 wide,
+// 128-byte rows) in flight on mbarriers; a consumer warpgroup releases a
+// stage once the wgmma group that read it has completed (wgmma.wait_group
+// 1), so loads, products and the release of stages overlap.  Both are
+// bound by moving their operands from L2 (the three terms triple the da
+// operand): dw_wgmma without its products took 68-87% of its time at the
+// path shapes on the H100 (scripts/torch_k2_wgmma_variants.py,
+// dw_no_products).  So dw_wgmma takes K-tiles of 32 steps and a ring half
+// dx_wgmma's, and two of its blocks share an SM, one's loads running under
+// the other's products and reduction: with K-tiles of 64 at one block an
+// SM (dw_k64) it took 17-41% more time at every path shape.
+// Bound: the speaker's useful products are 2 x 2240 x 1024 x 2176 = 10.0
+// GFLOP for d_xs and as many for dW_ih (10 us each at the card's 989
+// TFLOP/s); the terms make them 30 GFLOP of bf16 wgmma each, with 7 more
+// for dW_hh's six products.
+// ---------------------------------------------------------------------------
+constexpr int WG_M = 128, WG_N = 128;  // a GEMM's output tile
+constexpr int WG_THREADS = 288;        // two consumer warpgroups, one producer warp
+// K-tiles: dx's of 64 gate columns, dw's of 32 valid steps.  A TMA box is
+// 64 bf16 wide (128-byte rows) and a K-tile deep, a slot one operand
+// term's 128-row tile (two boxes), a ring 12 slots: 3 stages of 4 (three
+// da terms and W_ih; X and three da terms) or 2 of 6 (three Hprev terms
+// and three da terms)
+constexpr int WG_DX_K = 64, WG_DW_K = 32;
+constexpr int WG_DX_BOX = 64 * WG_DX_K * 2, WG_DW_BOX = 64 * WG_DW_K * 2;
+constexpr int WG_DX_SLOT = 2 * WG_DX_BOX, WG_DW_SLOT = 2 * WG_DW_BOX;
+constexpr int WG_DX_RING = 12 * WG_DX_SLOT, WG_DW_RING = 12 * WG_DW_SLOT;
+constexpr int WG_RS = WG_N + 4;  // f32 row stride of dw's partial tile
+constexpr int WG_SMS = 132;      // the H100's SMs, which dx_splits and dw_splits fill
+constexpr int PACK_WARPS = 8;    // sequence rows a pack block, one a warp
+
+// Dynamic shared memory of a wgmma GEMM block: starts, 4 full and 4 empty
+// mbarriers, up to 1 KB to align the ring (the 128-byte swizzle repeats
+// every 1024 bytes), the ring.
+size_t wg_smem(int B, int ring) { return (size_t)starts_ints(B) * 4 + 64 + 1024 + ring; }
+
+// dx_wgmma's splits of K = 4H: the smallest S in {1, 2, 4, 8} whose tiles
+// x S blocks, the tiles counted for B L valid steps, fill 70% of a wave of
+// one block an SM, at most 8 and the nk K-tiles; short step counts (11-20
+// tokens of 80) leave most of those tiles empty, so a split still fills
+// more SMs (ops/cuda/lstm_scan.py::dx_splits).
+int dx_splits(int tiles, int nk) {
+  int s = 1;
+  while (s < 8 && 2 * s <= nk && tiles * s * 10 < 7 * WG_SMS) s *= 2;
+  return s;
+}
+
+// dw_wgmma's splits of the steps: the smallest S in {1, 2, 4, 8} whose
+// tiles x S blocks fill 70% of a wave of two blocks an SM, doubled once
+// more where that leaves a second wave under half full; fewer blocks
+// leave SMs idle, more pay more reductions (the fastest of the four at
+// the path shapes on the H100 but at EnvDrop's 11-20 tokens, where 4 beat
+// 8 by 0.003 ms: scripts/torch_k2_wgmma_variants.py;
+// ops/cuda/lstm_scan.py::dw_splits).
+int dw_splits(int tiles) {
+  const int wave = 2 * WG_SMS;
+  int s = 1;
+  while (s < 8 && tiles * s * 10 < 7 * wave) s *= 2;
+  if (s < 8 && tiles * s > wave && 2 * tiles * s <= 3 * wave) s *= 2;
+  return s;
+}
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor of a 128-byte-swizzled operand
+// at shared address addr, with leading and stride byte offsets lbo and sbo.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products that own them.
+template <int N>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A . B^T on one m64n128k16 step, both operands K-major, f32 d: warp
+// w of the warpgroup holds rows 16 w + l / 4 (d[4 j], d[4 j + 1]) and + 8
+// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 (l % 4) and + 1, j < 16;
+// d0 holds j < 8 (columns 0-63), d1 the rest.
+__device__ __forceinline__ void wgmma_kk(float (&d0)[32], float (&d1)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A . B on one m64n128k16 step, both operands MN-major (transposed),
+// in wgmma_kk's layout: columns 0-63 in d0, 64-127 in d1 (B's two swizzle
+// atoms of 64 columns, the descriptor's leading byte offset apart).
+__device__ __forceinline__ void wgmma_mn(float (&d0)[32], float (&d1)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// K2.0 (bf16): warp w of block x packs sequence row m = x PACK_WARPS + w.
+__global__ void __launch_bounds__(PACK_WARPS * 32)
+bwd_pack_kernel(const __nv_bfloat16* __restrict__ xs, const float* __restrict__ hprev,
+                const float* __restrict__ da, const int64_t* __restrict__ lengths,
+                __nv_bfloat16* __restrict__ xp, __nv_bfloat16* __restrict__ hp,
+                __nv_bfloat16* __restrict__ dap, __nv_bfloat16* __restrict__ d_xs, int B, int L,
+                int D, int H) {
+  extern __shared__ int pack_starts[];
+  valid_starts(lengths, B, L, pack_starts);
+  const int P = B * L, Mv = pack_starts[B];
+  const int Mz = min(P, (Mv + WG_DW_K - 1) / WG_DW_K * WG_DW_K);  // packed rows [Mv, Mz): zeros
+  const int lane = threadIdx.x & 31, m = blockIdx.x * PACK_WARPS + (threadIdx.x >> 5);
+  if (m >= P) return;
+  const int b = m / L, t = m % L, len = pack_starts[b + 1] - pack_starts[b];
+  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
+  const bool valid = t < len;
+  // the packed row: valid step v, or padded step number q's zero row Mv + q
+  const int v = valid ? pack_starts[b] + t : Mv + b * L - pack_starts[b] + t - len;
+  if (!valid) {
+    uint4* dz = reinterpret_cast<uint4*>(d_xs + (size_t)m * D);
+    for (int c = lane; c < D / 8; c += 32) dz[c] = z4;
+    if (v >= Mz) return;
+  }
+  const uint4* xsrc = reinterpret_cast<const uint4*>(xs + (size_t)m * D);
+  uint4* xdst = reinterpret_cast<uint4*>(xp + (size_t)v * D);
+  for (int c = lane; c < D / 8; c += 32) xdst[c] = valid ? xsrc[c] : z4;
+  // a row of n f32 as three bf16 terms, term a at dst + a P n
+  auto split_row = [&](const float* src, __nv_bfloat16* dst, int n) {
+    for (int c = lane; c < n / 4; c += 32) {
+      const float4 f = valid ? reinterpret_cast<const float4*>(src)[c] : make_float4(0, 0, 0, 0);
+      uint32_t lo[3], hi[3];
+      split3_bf16x2(f.x, f.y, lo);
+      split3_bf16x2(f.z, f.w, hi);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        reinterpret_cast<uint2*>(dst + (size_t)a * P * n)[c] = make_uint2(lo[a], hi[a]);
+    }
+  };
+  split_row(hprev + ((size_t)t * B + b) * H, hp + (size_t)v * H, H);
+  split_row(da + (size_t)m * 4 * H, dap + (size_t)v * 4 * H, 4 * H);
+}
+
+// The shared-memory layout of a wgmma GEMM block: starts, then the full
+// [4] and empty [4] mbarriers, then the ring at the next 1024-byte
+// boundary (its shared address).
+struct WgSmem {
+  int* starts;
+  uint64_t* bars;
+  uint32_t ring;
+  unsigned char* ring_ptr;
+};
+__device__ __forceinline__ WgSmem wg_layout(unsigned char* raw, int B) {
+  WgSmem s;
+  s.starts = reinterpret_cast<int*>(raw);
+  s.bars = reinterpret_cast<uint64_t*>(raw + starts_ints(B) * 4);
+  const uint32_t base = smem_u32(raw), head = base + starts_ints(B) * 4 + 64;
+  s.ring = (head + 1023u) & ~1023u;
+  s.ring_ptr = raw + (s.ring - base);
+  return s;
+}
+
+// Full barriers (one arrival: the producer's, and the boxes' bytes) and
+// empty ones (one arrival a consumer warpgroup) of ST stages.
+__device__ __forceinline__ void wg_init_bars(uint64_t* bars, int ST) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init_count(smem_u32(&bars[s]), 1);
+      mbar_init_count(smem_u32(&bars[4 + s]), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A consumer warpgroup's partial tile (64 rows x 128 columns in acc0 and
+// acc1, wgmma_kk's layout) into the f32 tile red [WG_M][WG_RS].
+__device__ __forceinline__ void wg_stage_partial(float* red, const float (&acc0)[32],
+                                                 const float (&acc1)[32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = red + (r0 + 8 * h) * WG_RS + 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(p) = make_float2(acc0[4 * j + 2 * h], acc0[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(p + 64) =
+          make_float2(acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1]);
+    }
+}
+
+// Block `split` of a cluster of S sums rows [split M / S, (split + 1) M / S)
+// of the cluster's partial tiles red over the blocks in rank order (no
+// atomics: the same sums every run), four columns at a time: put(row,
+// column, sums).
+template <typename Put>
+__device__ __forceinline__ void wg_cluster_sum(cg::cluster_group& cluster, float* red, int S,
+                                               int split, Put put) {
+  const int rows = WG_M / S;
+  for (int e = threadIdx.x; e < rows * (WG_N / 4); e += WG_THREADS) {
+    const int ri = split * rows + e / (WG_N / 4), c = 4 * (e % (WG_N / 4));
+    float4 s = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, 0) + ri * WG_RS + c);
+    for (int q = 1; q < S; ++q) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + ri * WG_RS + c);
+      s.x += p.x, s.y += p.y, s.z += p.z, s.w += p.w;
+    }
+    put(ri, c, s);
+  }
+}
+
+// K2.2 (bf16): block (n tile, m tile, split); the S = gridDim.z splits of
+// a tile form a cluster, split z taking K-tiles [nk z / S, nk (z + 1) / S)
+// (dx_splits; S = 1 stores from the registers).  m_da: da's terms
+// [3][P][4H]; m_w: W_ih [D][4H]; both in boxes of {64, WG_DX_K}.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dx_wgmma_kernel(const __grid_constant__ CUtensorMap m_da, const __grid_constant__ CUtensorMap m_w,
+                const int64_t* __restrict__ lengths, __nv_bfloat16* __restrict__ d_xs, int B,
+                int L, int D, int K) {
+  constexpr int ST = 3, SLOTS = 4;  // a stage: da's three terms, then W_ih's tile
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WgSmem sm = wg_layout(smem_raw, B);
+  valid_starts(lengths, B, L, sm.starts);
+  const int Mv = sm.starts[B], m0 = blockIdx.y * WG_M, n0 = blockIdx.x * WG_N;
+  if (m0 >= Mv) return;  // the whole cluster: a tile past the valid steps
+  wg_init_bars(sm.bars, ST);
+  const int split = blockIdx.z, S = gridDim.z, nk = K / WG_DX_K;
+  const int kt0 = nk * split / S, n = nk * (split + 1) / S - kt0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  float acc0[32], acc1[32];
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      for (int q = 0; q < n; ++q) {
+        const int s = q % ST, u = q / ST, k0 = (kt0 + q) * WG_DX_K;
+        if (u > 0) mbar_wait(smem_u32(&sm.bars[4 + s]), (u - 1) & 1);
+        const uint32_t st = sm.ring + s * SLOTS * WG_DX_SLOT, full = smem_u32(&sm.bars[s]);
+        mbar_expect_tx(full, SLOTS * WG_DX_SLOT);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            tma_3d(st + a * WG_DX_SLOT + h * WG_DX_BOX, &m_da, k0, m0 + 64 * h, a, full);
+          tma_3d(st + 3 * WG_DX_SLOT + h * WG_DX_BOX, &m_w, k0, n0 + 64 * h, 0, full);
+        }
+      }
+    }
+    __syncwarp();  // whole again before the block's barriers
+  } else {
+    const int wg = warp >> 2;  // rows [64 wg, 64 wg + 64) of the tile
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+    wg_fence_acc(acc0);
+    wg_fence_acc(acc1);
+    for (int q = 0; q < n; ++q) {
+      const int s = q % ST;
+      mbar_wait(smem_u32(&sm.bars[s]), (q / ST) & 1);
+      __syncwarp();  // the wgmma instructions need the whole warp
+      const uint32_t st = sm.ring + s * SLOTS * WG_DX_SLOT;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_DX_K / 16; ++kk) {  // 32 bytes of K a step in the 128-byte rows
+        const uint64_t bd = wg_desc(st + 3 * WG_DX_SLOT + kk * 32, 16, 1024);
+#pragma unroll
+        for (int a = 2; a >= 0; --a)
+          wgmma_kk(acc0, acc1, wg_desc(st + a * WG_DX_SLOT + wg * WG_DX_BOX + kk * 32, 16, 1024),
+                   bd);
+      }
+      wg_commit();
+      wg_wait<1>();  // the stage before this one is read: release it
+      if (q > 0 && (tid & 127) == 0) mbar_arrive(smem_u32(&sm.bars[4 + (q - 1) % ST]));
+    }
+    wg_wait<0>();
+    wg_fence_acc(acc0);
+    wg_fence_acc(acc1);
+    if (S == 1) {  // round once and store the rows of the valid steps
+      const int w4 = warp & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = m0 + wg * 64 + w4 * 16 + (lane >> 2) + 8 * h;
+        if (v >= Mv) continue;
+        __nv_bfloat16* row = d_xs + (size_t)valid_row(sm.starts, B, L, v) * D;
+#pragma unroll
+        for (int j = 0; j < WG_N / 8; ++j) {
+          const int c = n0 + 8 * j + 2 * (lane & 3);
+          const float* d = j < 8 ? acc0 + 4 * j : acc1 + 4 * (j - 8);
+          if (c < D)
+            *reinterpret_cast<__nv_bfloat162*>(row + c) =
+                __floats2bfloat162_rn(d[2 * h], d[2 * h + 1]);
+        }
+      }
+    }
+  }
+  if (S == 1) return;
+  __syncthreads();  // every product has read the ring: it takes the partial tile
+  float* red = reinterpret_cast<float*>(sm.ring_ptr);
+  if (threadIdx.x < 256) wg_stage_partial(red, acc0, acc1);  // the consumers'
+  cluster.sync();
+  wg_cluster_sum(cluster, red, S, split, [&](int ri, int c, float4 s) {
+    const int v = m0 + ri;
+    if (v >= Mv || n0 + c >= D) return;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+        d_xs + (size_t)valid_row(sm.starts, B, L, v) * D + n0 + c);
+    p[0] = __floats2bfloat162_rn(s.x, s.y);
+    p[1] = __floats2bfloat162_rn(s.z, s.w);
+  });
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// dw's term products p = 0 .. NP - 1, the smallest first, as (A term, da
+// term), counted from 0: dW_ih's (X, da_3), (X, da_2), (X, da_1); dW_hh's
+// (Hp_i, da_j) with i + j <= 4 counted from 1 (ops/cuda/lstm_scan.py::
+// DW_TERM_PRODUCTS).
+__host__ __device__ constexpr int dw_term_a(int na, int p) {
+  return na == 1 ? 0 : p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0;
+}
+__host__ __device__ constexpr int dw_term_b(int na, int p) {
+  return na == 1 ? 2 - p : p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0;
+}
+
+// One dw tile's partial over K-tiles [kt0, kt1) of the steps, producer and
+// consumers: A's NA terms (1: X, 3: Hprev) from m_a at rows i0.., da's
+// three from m_b at columns j0..; a consumer warpgroup's 64 rows x 128
+// columns in acc0 (columns 0-63) and acc1 (64-127).
+template <int NA>
+__device__ __forceinline__ void dw_partial(const CUtensorMap* m_a, const CUtensorMap* m_b,
+                                           const WgSmem& sm, int i0, int j0, int kt0, int kt1,
+                                           float (&acc0)[32], float (&acc1)[32]) {
+  constexpr int SLOTS = NA + 3, ST = WG_DW_RING / (SLOTS * WG_DW_SLOT), NP = NA == 1 ? 3 : 6;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n = kt1 - kt0;
+  if (warp == 8) {  // the producer
+    if ((tid & 31) == 0) {
+      for (int q = 0; q < n; ++q) {
+        const int s = q % ST, u = q / ST, v0 = (kt0 + q) * WG_DW_K;
+        if (u > 0) mbar_wait(smem_u32(&sm.bars[4 + s]), (u - 1) & 1);
+        const uint32_t st = sm.ring + s * SLOTS * WG_DW_SLOT, full = smem_u32(&sm.bars[s]);
+        mbar_expect_tx(full, SLOTS * WG_DW_SLOT);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int a = 0; a < NA; ++a)
+            tma_3d(st + a * WG_DW_SLOT + h * WG_DW_BOX, m_a, i0 + 64 * h, v0, a, full);
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            tma_3d(st + (NA + a) * WG_DW_SLOT + h * WG_DW_BOX, m_b, j0 + 64 * h, v0, a, full);
+        }
+      }
+    }
+    __syncwarp();  // whole again before the block's barrier
+    return;
+  }
+  const int wg = warp >> 2;
+  for (int q = 0; q < n; ++q) {
+    const int s = q % ST;
+    mbar_wait(smem_u32(&sm.bars[s]), (q / ST) & 1);
+    __syncwarp();  // the wgmma instructions need the whole warp
+    const uint32_t st = sm.ring + s * SLOTS * WG_DW_SLOT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_DW_K / 16; ++kk) {  // 16 steps = 16 rows of 128 bytes a k16 step
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const uint64_t ad = wg_desc(st + dw_term_a(NA, p) * WG_DW_SLOT + wg * WG_DW_BOX + kk * 2048,
+                                    WG_DW_BOX, 1024);
+        const uint32_t b = st + (NA + dw_term_b(NA, p)) * WG_DW_SLOT + kk * 2048;
+        wgmma_mn(acc0, acc1, ad, wg_desc(b, WG_DW_BOX, 1024));
+      }
+    }
+    wg_commit();
+    wg_wait<1>();
+    if (q > 0 && (tid & 127) == 0) mbar_arrive(smem_u32(&sm.bars[4 + (q - 1) % ST]));
+  }
+  wg_wait<0>();
+}
+
+// K2.3 (bf16): block (tile, split); the tile's S = gridDim.y splits form a
+// cluster.  Tiles [0, TIh TJ) are dW_hh's (i tile = tile / TJ), the rest
+// dW_ih's: dW_hh's take twice the products a step, so they go first and
+// the last wave holds short blocks; m_x: X [P][D]; m_h: Hprev's terms
+// [3][P][H]; m_da: da's terms [3][P][4H]; boxes of {64, WG_DW_K}.
+__global__ void __launch_bounds__(WG_THREADS, 2)
+dw_wgmma_kernel(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_h,
+                const __grid_constant__ CUtensorMap m_da, const int64_t* __restrict__ lengths,
+                const float* __restrict__ db_part, float* __restrict__ dw_ih,
+                float* __restrict__ dw_hh, float* __restrict__ db, int B, int L, int D, int H,
+                int clusters) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int J = 4 * H, TJ = J / WG_N, tih = (H + WG_M - 1) / WG_M;
+  const bool hh = (int)blockIdx.x < tih * TJ;
+  const int tile = hh ? (int)blockIdx.x : (int)blockIdx.x - tih * TJ;
+  const int I = hh ? H : D, i0 = (tile / TJ) * WG_M, j0 = (tile % TJ) * WG_N;
+  const int split = blockIdx.y, S = gridDim.y;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WgSmem sm = wg_layout(smem_raw, B);
+  valid_starts(lengths, B, L, sm.starts);
+  const int nkt = (sm.starts[B] + WG_DW_K - 1) / WG_DW_K;
+  const int kt0 = nkt * split / S, kt1 = nkt * (split + 1) / S;
+  wg_init_bars(sm.bars, hh ? 2 : 3);
+
+  float acc0[32], acc1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  wg_fence_acc(acc0);
+  wg_fence_acc(acc1);
+  if (hh)
+    dw_partial<3>(&m_h, &m_da, sm, i0, j0, kt0, kt1, acc0, acc1);
+  else
+    dw_partial<1>(&m_x, &m_da, sm, i0, j0, kt0, kt1, acc0, acc1);
+  wg_fence_acc(acc0);
+  wg_fence_acc(acc1);
+  __syncthreads();  // every product has read the ring: it takes the partial tile
+
+  float* red = reinterpret_cast<float*>(sm.ring_ptr);
+  if (threadIdx.x < 256) wg_stage_partial(red, acc0, acc1);  // the consumers'
+  cluster.sync();
+  float* dw = hh ? dw_hh : dw_ih;
+  wg_cluster_sum(cluster, red, S, split, [&](int ri, int c, float4 s) {
+    if (i0 + ri < I) *reinterpret_cast<float4*>(dw + (size_t)(i0 + ri) * J + j0 + c) = s;
+  });
+  if (hh && i0 == 0 && split == 0) {
+    for (int j = threadIdx.x; j < WG_N; j += WG_THREADS) {
+      float s = 0.f;
+      for (int q = 0; q < clusters; ++q) s += db_part[(size_t)q * J + j0 + j];
+      db[j0 + j] = s;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// A bf16 tensor [terms][rows][cols] (row-major, cols * 2 bytes a multiple
+// of 16) as a TMA map of 128-byte-swizzled boxes of {64, box_rows, 1};
+// boxes past the rows or columns read zeros.
+bool encode_terms(EncodeTiled enc, CUtensorMap* m, const void* p, int cols, int rows, int terms,
+                  int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)terms};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, one[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K2.0, K2.2 and K2.3 on the bf16 route, after the walk has written da and
+// db_part (`clusters` rows).  pack: bf16 scratch of P (D + 15 H) elements.
+cudaError_t launch_bwd_wgmma(const __nv_bfloat16* xs, const int64_t* lengths,
+                             const __nv_bfloat16* w_ih, const float* hprev, const float* da,
+                             const float* db_part, __nv_bfloat16* pack, __nv_bfloat16* d_xs,
+                             float* dw_ih, float* dw_hh, float* db, int B, int L, int D, int H,
+                             int clusters, cudaStream_t stream) {
+  const int P = B * L, H4 = 4 * H;
+  __nv_bfloat16* xp = pack;
+  __nv_bfloat16* hp = xp + (size_t)P * D;
+  __nv_bfloat16* dap = hp + (size_t)3 * P * H;
+  bwd_pack_kernel<<<(P + PACK_WARPS - 1) / PACK_WARPS, PACK_WARPS * 32, starts_ints(B) * 4,
+                    stream>>>(xs, hprev, da, lengths, xp, hp, dap, d_xs, B, L, D, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const EncodeTiled enc = encoder();
+  if (!enc) return cudaErrorNotSupported;
+  CUtensorMap m_da, m_w, m_x, m_h, m_da_dw;
+  if (!encode_terms(enc, &m_da, dap, H4, P, 3, WG_DX_K) ||
+      !encode_terms(enc, &m_w, w_ih, H4, D, 1, WG_DX_K) ||
+      !encode_terms(enc, &m_x, xp, D, P, 1, WG_DW_K) ||
+      !encode_terms(enc, &m_h, hp, H, P, 3, WG_DW_K) ||
+      !encode_terms(enc, &m_da_dw, dap, H4, P, 3, WG_DW_K))
+    return cudaErrorInvalidValue;
+
+  const size_t xsm = wg_smem(B, WG_DX_RING);
+  if ((e = cudaFuncSetAttribute(dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)xsm)) != cudaSuccess)
+    return e;
+  const dim3 xgrid((D + WG_N - 1) / WG_N, (P + WG_M - 1) / WG_M);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(xgrid.x, xgrid.y, dx_splits(xgrid.x * xgrid.y, H4 / WG_DX_K));
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = xsm;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cfg.gridDim.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, dx_wgmma_kernel, m_da, m_w, lengths, d_xs, B, L, D, H4)) !=
+          cudaSuccess ||
+      (e = cudaGetLastError()) != cudaSuccess)
+    return e;
+
+  const int tiles = ((D + WG_M - 1) / WG_M + (H + WG_M - 1) / WG_M) * (H4 / WG_N);
+  const int S = dw_splits(tiles);
+  const size_t wsm = wg_smem(B, WG_DW_RING);
+  if ((e = cudaFuncSetAttribute(dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)wsm)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(dw_wgmma_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return e;
+  cfg.gridDim = dim3(tiles, S, 1);
+  cfg.dynamicSmemBytes = wsm;
+  attr[0].val.clusterDim.y = S;
+  attr[0].val.clusterDim.z = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, dw_wgmma_kernel, m_x, m_h, m_da_dw, lengths, db_part, dw_ih,
+                              dw_hh, db, B, L, D, H, clusters)) != cudaSuccess)
+    return e;
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, const void* w_hh,
                        const void* gates, const void* hprev, const void* cprev,
                        const void* d_out, const void* dhT, const void* dcT, void* da,
                        void* db_part, void* d_xs, void* dw_ih, void* dw_hh, void* db,
-                       void* wpack, int B, int L, int D, int H, int reverse,
+                       void* wpack, void* pack, int B, int L, int D, int H, int reverse,
                        cudaStream_t stream) {
   const int H4 = 4 * H;
   int clusters = (B + R - 1) / R;  // the recurrence's, which db_part has rows for
@@ -2606,28 +3185,37 @@ cudaError_t launch_bwd(const void* xs, const void* lengths, const void* w_ih, co
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  // ops/cuda/lstm_scan.py::lstm_scan_bwd_plan
-  const size_t xsm = dx_smem<T>(B);
-  if ((e = cudaFuncSetAttribute(dx_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)xsm)) != cudaSuccess)
-    return e;
-  dim3 xgrid((D + DX_TN - 1) / DX_TN, (B * L + DX_TM - 1) / DX_TM + 1);
-  dx_gemm_kernel<T><<<xgrid, DX_THREADS, xsm, stream>>>(
-      static_cast<const float*>(da), static_cast<const T*>(w_ih),
-      static_cast<const int64_t*>(lengths), static_cast<T*>(d_xs), B, L, D, H4);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // ops/cuda/lstm_scan.py::lstm_scan_bwd_plan: bf16 on wgmma, f32 on split-TF32 mma.sync
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_bwd_wgmma(static_cast<const T*>(xs), static_cast<const int64_t*>(lengths),
+                            static_cast<const T*>(w_ih), static_cast<const float*>(hprev),
+                            static_cast<const float*>(da), static_cast<const float*>(db_part),
+                            static_cast<T*>(pack), static_cast<T*>(d_xs),
+                            static_cast<float*>(dw_ih), static_cast<float*>(dw_hh),
+                            static_cast<float*>(db), B, L, D, H, clusters, stream);
+  } else {
+    const size_t xsm = dx_smem(B);
+    if ((e = cudaFuncSetAttribute(dx_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)xsm)) != cudaSuccess)
+      return e;
+    dim3 xgrid((D + DX_TN - 1) / DX_TN, (B * L + DX_TM - 1) / DX_TM + 1);
+    dx_gemm_kernel<<<xgrid, DX_THREADS, xsm, stream>>>(
+        static_cast<const float*>(da), static_cast<const float*>(w_ih),
+        static_cast<const int64_t*>(lengths), static_cast<float*>(d_xs), B, L, D, H4);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t wsm = dw_smem(B);
-  if ((e = cudaFuncSetAttribute(dw_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)wsm)) != cudaSuccess)
-    return e;
-  dim3 wgrid(H4 / DW_TJ, (max(D, H) + DW_TI - 1) / DW_TI, 2 * DW_SPLITS);
-  dw_gemm_kernel<T><<<wgrid, DW_THREADS, wsm, stream>>>(
-      static_cast<const T*>(xs), static_cast<const float*>(hprev), static_cast<const float*>(da),
-      static_cast<const int64_t*>(lengths), static_cast<const float*>(db_part),
-      static_cast<float*>(dw_ih), static_cast<float*>(dw_hh), static_cast<float*>(db), B, L, D,
-      H, clusters);
-  return cudaGetLastError();
+    const size_t wsm = dw_smem(B);
+    if ((e = cudaFuncSetAttribute(dw_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)wsm)) != cudaSuccess)
+      return e;
+    dim3 wgrid(H4 / DW_TJ, (max(D, H) + DW_TI - 1) / DW_TI, 2 * DW_SPLITS);
+    dw_gemm_kernel<<<wgrid, DW_THREADS, wsm, stream>>>(
+        static_cast<const float*>(xs), static_cast<const float*>(hprev),
+        static_cast<const float*>(da), static_cast<const int64_t*>(lengths),
+        static_cast<const float*>(db_part), static_cast<float*>(dw_ih),
+        static_cast<float*>(dw_hh), static_cast<float*>(db), B, L, D, H, clusters);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -2674,24 +3262,25 @@ extern "C" int lstm_scan_train(const void* xs, const void* lengths, const void* 
 // cotangents d_out [B, L, H], dhT and dcT [B, H] (f32): d_xs [B, L, D] in
 // the dtype of xs, dw_ih [D, 4H], dw_hh [H, 4H] and db [4H] f32.  da
 // [B, L, 4H] and db_part [the walk's clusters, 4H] (f32: ceil(B / 8)
-// clusters, or the resident walk's ceil(B / rows), lstm_scan_bwd_plan_query)
-// and wpack (4H * H of the dtype for the streaming walk, else unused) are
-// scratch.
+// clusters, or the resident walk's ceil(B / rows), lstm_scan_bwd_plan_query),
+// wpack (4H * H of the dtype for the streaming walk, else unused) and pack
+// (bf16: B L (D + 15 H) elements of the wgmma GEMMs' operands; f32: unused)
+// are scratch.
 extern "C" int lstm_scan_bwd(const void* xs, const void* lengths, const void* w_ih,
                              const void* w_hh, const void* gates, const void* hprev,
                              const void* cprev, const void* d_out, const void* dhT,
                              const void* dcT, void* da, void* db_part, void* d_xs, void* dw_ih,
-                             void* dw_hh, void* db, void* wpack, int B, int L, int D, int H,
-                             int reverse, int dtype, void* stream) {
+                             void* dw_hh, void* db, void* wpack, void* pack, int B, int L, int D,
+                             int H, int reverse, int dtype, void* stream) {
   if (H % 32 != 0 || H > 512 || (D * (dtype == DTYPE_BF16 ? 2 : 4)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
     return launch_bwd<__nv_bfloat16>(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT,
-                                     dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H,
-                                     reverse, s);
+                                     dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack, pack, B, L,
+                                     D, H, reverse, s);
   return launch_bwd<float>(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT, da,
-                           db_part, d_xs, dw_ih, dw_hh, db, wpack, B, L, D, H, reverse, s);
+                           db_part, d_xs, dw_ih, dw_hh, db, wpack, pack, B, L, D, H, reverse, s);
 }
 
 // A walk's plan at (B, H, dtype), as launch_fwd (bwd = 0) or launch_bwd

@@ -9,12 +9,16 @@ valid steps only, then the recurrence on clusters of 8 blocks, each warp
 holding its W_hh columns as tensor-core fragments in registers and
 sending its units' new h to every block by st.async (no barrier a step);
 K1 also writes the pre-step carries and keeps the gate pre-activations
-as residuals.  K2 is one C call of three launches: the reverse-time
-recurrence on the same cluster layout (its per-step product on the
-tensor cores), then tensor-core GEMMs for d_xs and for dW_ih, dW_hh and
-db over the valid steps only, in a fixed order (no atomics).  Every
-product with an f32 operand runs in TF32 with that operand split in two
-halves, which keeps f32 accuracy; bf16 operands are exact there.  Up
+as residuals.  K2 is one C call: the reverse-time recurrence on the
+same cluster layout (its per-step product on the tensor cores), then
+GEMMs for d_xs and for dW_ih, dW_hh and db over the valid steps only, in
+a fixed order (no atomics): in f32 two mma.sync launches, in bf16 a
+launch that packs the operands by valid step (da and hprev as three
+bf16 terms, ``split_bf16x3``) and two wgmma launches fed by TMA
+(``lstm_scan_bwd_plan``; ``_wgmma_gemms`` emulates their sums).  Every
+mma.sync product with an f32 operand runs in TF32 with that operand
+split in two halves, which keeps f32 accuracy; bf16 operands are exact
+there.  Up
 to H = 256 both walks keep their block's eighth of W_hh in registers (and
 the f32 low halves in shared memory).  Both bf16 walks at H = 512 (the
 Self-Monitor's encoder; the resident walks) take clusters of 16 blocks,
@@ -56,7 +60,7 @@ bwd_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _TRAIN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -74,6 +78,23 @@ GX_TM, GX_TN, GX_STAGES, GX_THREADS, GX_YMAX = 64, 64, 3, 128, 32
 FKS_MAX, GT_S = 32, 20
 DX_TM, DX_TN, DX_KC, DX_STAGES, DX_THREADS = 32, 64, 32, 3, 128
 DW_TI, DW_TJ, DW_KC, DW_STAGES, DW_THREADS, DW_SPLITS = 64, 128, 32, 3, 256, 8
+# K2's GEMMs on the bf16 route (wgmma fed by TMA): output tiles of WG_M x
+# WG_N, WG_THREADS threads a block (two consumer warpgroups, one producer
+# warp); d_xs's K-tiles of WG_DX_K gate columns through a ring of
+# WG_DX_RING bytes (one block an SM), dW's of WG_DW_K valid steps through
+# one of WG_DW_RING (two blocks an SM), its steps split over up to 8
+# blocks a tile (``dw_splits``, from the H100's WG_SMS); the pack launch
+# takes PACK_WARPS sequence rows a block
+WG_M, WG_N, WG_THREADS, WG_SMS = 128, 128, 288, 132
+WG_DX_K, WG_DW_K = 64, 32
+WG_DX_RING, WG_DW_RING = 12 * 2 * 64 * WG_DX_K * 2, 12 * 2 * 64 * WG_DW_K * 2
+PACK_WARPS = 8
+# dW's term products (A term, da term), terms counted from 0 (t1 the
+# largest), in the order the kernel sums them (the smallest first): dW_ih
+# the three of X and da, dW_hh the six of Hprev's and da's terms with
+# i + j <= 4 counted from 1
+DW_TERM_PRODUCTS = {1: ((0, 2), (0, 1), (0, 0)),
+                    3: ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
 # The wide walks (256 < H <= 512): WT threads a block, each warp streaming
 # its W_hh fragments (packed by pack_whh_kernel into 4H * H elements)
 # through a ring of WSTAGES groups, a group WFQ k-steps of one m-tile
@@ -100,11 +121,19 @@ class BwdPlan(NamedTuple):
     W_hh sits in registers and shared memory) from a packed copy of
     ``w_pack`` elements; ``w_where`` says where W_hh sits during the walk.
     Each cluster writes one row of db's partial sums (``clusters`` rows).
+    ``gemm`` names the input-side GEMMs' route.  "mma.sync" (f32):
     dx_gemm's grid (D tiles, step tiles + 1: blocks past the valid steps'
     tiles write the padded steps' zeros) with ``dx_smem``; dw_gemm's grid
     (4H tiles, max(D, H) tiles, 2 matrices x ``splits``, clusters of
     ``splits`` along z) with ``dw_smem``, ``dw_blocks_per_sm`` of which
-    fit an SM."""
+    fit an SM.  "wgmma" (bf16): the pack launch's ``pack_grid`` blocks
+    (``PACK_WARPS`` sequence rows each) fill ``pack_elems`` bf16 of
+    packed operands and d_xs's zeros at the padded steps; dx_wgmma's grid
+    (D tiles, B L step tiles: those past the valid steps leave at once,
+    ``dx_splits`` splits of K, clusters of them along z) with ``dx_smem``,
+    one block an SM; dw_wgmma's grid (the tiles of dW_hh
+    then of dW_ih, ``splits``, clusters of ``splits`` along y) with
+    ``dw_smem``, ``dw_blocks_per_sm`` = 2 blocks an SM."""
     rec_grid: int
     rec_smem: int
     dx_grid: Tuple[int, int]
@@ -119,6 +148,9 @@ class BwdPlan(NamedTuple):
     cluster: int
     rows: int
     w_where: str
+    gemm: str = "mma.sync"
+    pack_grid: int = 0
+    pack_elems: int = 0
 
     @property
     def clusters(self) -> int:
@@ -299,15 +331,116 @@ def lstm_scan_bwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
                "registers" if elem_size == 2 else
                "registers (TF32 high halves) and shared memory (low halves)")
     rec_grid, rec_smem, *rest = rec
-    w_stride = DX_KC + (4 if elem_size == 4 else 8)
-    dx_smem = starts + DX_TM * 4 + DX_STAGES * (DX_TM * (DX_KC + 4) * 4
-                                                + DX_TN * w_stride * elem_size)
+    if elem_size == 2:
+        tiles, nx, ny = dw_tiles(D, H), _ceil_div(D, WG_N), _ceil_div(B * L, WG_M)
+        return BwdPlan(rec_grid, rec_smem, (nx, ny, dx_splits(nx * ny, 4 * H // WG_DX_K)),
+                       wg_smem(B, WG_DX_RING), (tiles, dw_splits(tiles), 1),
+                       wg_smem(B, WG_DW_RING), 2, dw_splits(tiles), *rest,
+                       gemm="wgmma", pack_grid=_ceil_div(B * L, PACK_WARPS),
+                       pack_elems=B * L * (D + 15 * H))
+    # f32: da's and W_ih's stages, rows padded by 4 floats
+    dx_smem = starts + DX_TM * 4 + DX_STAGES * (DX_TM + DX_TN) * (DX_KC + 4) * 4
     dw_smem = starts + max(DW_STAGES * DW_KC * (DW_TI + 8 + DW_TJ + 8) * 4,
                            DW_TI * (DW_TJ + 4) * 4)
     return BwdPlan(rec_grid, rec_smem,
                    (_ceil_div(D, DX_TN), _ceil_div(B * L, DX_TM) + 1), dx_smem,
                    (4 * H // DW_TJ, _ceil_div(max(D, H), DW_TI), 2 * DW_SPLITS), dw_smem,
                    min(MAX_SMEM // dw_smem, 2048 // DW_THREADS), DW_SPLITS, *rest)
+
+
+def wg_smem(B: int, ring: int) -> int:
+    """Shared memory of a wgmma GEMM block: starts [B + 1] ints (rounded up
+    to 16 bytes), 4 full and 4 empty mbarriers, up to 1 KB to align the
+    ring to the 128-byte swizzle's 1024-byte period, the ring."""
+    return ((B + 4) & ~3) * 4 + 64 + 1024 + ring
+
+
+def dw_tiles(D: int, H: int) -> int:
+    """dw_wgmma's output tiles: dW_hh's [H, 4H] then dW_ih's [D, 4H]."""
+    return (_ceil_div(D, WG_M) + _ceil_div(H, WG_M)) * (4 * H // WG_N)
+
+
+def dx_splits(tiles: int, nk: int, sms: int = WG_SMS) -> int:
+    """dx_wgmma's splits of K: the smallest S in {1, 2, 4, 8} whose tiles x
+    S blocks (the tiles counted for B L valid steps) fill 70% of a wave of
+    one block an SM, at most 8 and the ``nk`` K-tiles.  Short step counts
+    leave most of those tiles empty (11-20 tokens of 80), so a split still
+    fills more SMs."""
+    s = 1
+    while s < 8 and 2 * s <= nk and tiles * s * 10 < 7 * sms:
+        s *= 2
+    return s
+
+
+def dw_splits(tiles: int, sms: int = WG_SMS) -> int:
+    """The smallest S in {1, 2, 4, 8} whose tiles x S blocks fill 70% of a
+    wave of two blocks an SM, doubled once more where that leaves a second
+    wave under half full: fewer blocks leave SMs idle, more pay more
+    reductions (``scripts/torch_k2_wgmma_variants.py``)."""
+    wave, s = 2 * sms, 1
+    while s < 8 and tiles * s * 10 < 7 * wave:
+        s *= 2
+    if s < 8 and wave < tiles * s and 2 * tiles * s <= 3 * wave:
+        s *= 2
+    return s
+
+
+def wg_split_bounds(Mv: int, splits: int) -> List[Tuple[int, int]]:
+    """dw_wgmma's split s reduces the valid steps of K-tiles [n s / S,
+    n (s + 1) / S) of the n = ceil(Mv / WG_DW_K) tiles of WG_DW_K steps, in
+    order (cut back to Mv); the cluster then sums the splits' partials in
+    rank order."""
+    n = _ceil_div(Mv, WG_DW_K)
+    return [(min(Mv, n * s // splits * WG_DW_K), min(Mv, n * (s + 1) // splits * WG_DW_K))
+            for s in range(splits)]
+
+
+def packed_rows(lengths, L: int) -> List[int]:
+    """The packed row that the pack launch fills from sequence row m = b L
+    + t, in m's order: valid step v (``valid_steps``' numbering) where t <
+    len[b], else Mv + q for padded step number q (row by row), whose row is
+    zeroed only below Mv rounded up to dW's K-tile (the rest is never
+    read)."""
+    lens = [max(0, min(int(n), L)) for n in lengths]
+    Mv = sum(lens)
+    out, v, q = [], 0, 0
+    for n in lens:
+        for t in range(L):
+            if t < n:
+                out.append(v)
+                v += 1
+            else:
+                out.append(Mv + q)
+                q += 1
+    return out
+
+
+def wg_tma_boxes(B: int, L: int, D: int, H: int, Mv: int):
+    """The TMA boxes (map, (c0, c1, term)) that K2's wgmma launches ask for,
+    and each map's dims (cols, rows, terms, box rows): every box is {64,
+    box rows, 1} (a box's part past the cols or rows reads zeros).  d_xs's
+    maps ("da", "w_ih") take boxes of WG_DX_K rows, dW's ("x", "hprev",
+    "da_dw": da's terms again) of WG_DW_K."""
+    P, H4 = B * L, 4 * H
+    dims = {"da": (H4, P, 3, WG_DX_K), "w_ih": (H4, D, 1, WG_DX_K), "x": (D, P, 1, WG_DW_K),
+            "hprev": (H, P, 3, WG_DW_K), "da_dw": (H4, P, 3, WG_DW_K)}
+    boxes = []
+    for mt in range(_ceil_div(D, WG_N)):
+        for st in range(_ceil_div(Mv, WG_M)):
+            for kt in range(H4 // WG_DX_K):
+                for h in range(2):
+                    boxes += [("da", (kt * WG_DX_K, st * WG_M + 64 * h, a)) for a in range(3)]
+                    boxes.append(("w_ih", (kt * WG_DX_K, mt * WG_N + 64 * h, 0)))
+    S = dw_splits(dw_tiles(D, H))
+    for name, I, na in (("hprev", H, 3), ("x", D, 1)):
+        for it in range(_ceil_div(I, WG_M)):
+            for jt in range(H4 // WG_N):
+                for v0, v1 in wg_split_bounds(Mv, S):
+                    for v in range(v0, v1, WG_DW_K):
+                        for h in range(2):
+                            boxes += [(name, (it * WG_M + 64 * h, v, a)) for a in range(na)]
+                            boxes += [("da_dw", (jt * WG_N + 64 * h, v, a)) for a in range(3)]
+    return dims, boxes
 
 
 def whh_pack_order(H: int, bwd: bool) -> torch.Tensor:
@@ -545,22 +678,59 @@ def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
     return outs, (h, c), hprev, cprev, gates
 
 
+def _wgmma_gemms(xv, hv, dav, w_ih, rows: int):
+    """K2's bf16 GEMMs as the wgmma launches cut them, from the valid
+    steps' rows (``valid_steps``' order) of xs [Mv, D], hprev [Mv, H] and
+    da [Mv, 4H]: da and hprev as three bf16 terms (``split_bf16x3``), X
+    and W_ih exact; every product exact, summed in f32.  d_xs [Mv, D] f32
+    = the terms' products with W_ih^T, the smallest term first, over
+    ``dx_splits``' splits of K = 4H (whole K-tiles) summed in rank order
+    (its tiles counted for ``rows`` = B L steps); dW_ih and dW_hh over
+    ``wg_split_bounds``' splits of the steps, each split the
+    ``DW_TERM_PRODUCTS`` in order, the splits summed in rank order."""
+    D, H = xv.shape[1], hv.shape[1]
+    terms = [t.float() for t in split_bf16x3(dav)]
+    wih = w_ih.float().t()
+    nk = 4 * H // WG_DX_K
+    S = dx_splits(_ceil_div(D, WG_N) * _ceil_div(rows, WG_M), nk)
+    d_xs = None
+    for s in range(S):
+        ks = slice(nk * s // S * WG_DX_K, nk * (s + 1) // S * WG_DX_K)
+        part = terms[2][:, ks] @ wih[ks] + terms[1][:, ks] @ wih[ks] + terms[0][:, ks] @ wih[ks]
+        d_xs = part if d_xs is None else d_xs + part
+    bounds = wg_split_bounds(dav.shape[0], dw_splits(dw_tiles(D, H)))
+    dws = []
+    for a_terms in ([xv.float()], [t.float() for t in split_bf16x3(hv)]):
+        dw = None
+        for v0, v1 in bounds:
+            part = None
+            for ia, ib in DW_TERM_PRODUCTS[len(a_terms)]:
+                p = a_terms[ia][v0:v1].t() @ terms[ib][v0:v1]
+                part = p if part is None else part + p
+            dw = part if dw is None else dw + part
+        dws.append(dw)
+    return d_xs, dws
+
+
 def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT, dcT,
                            reverse: bool = False, split: bool = True,
                            clusters_at_once: Optional[int] = None):
     """K2's arithmetic in plain torch on the CPU, as ``csrc/lstm_scan.cu``
     and its plan cut it: the recurrence's step product da . W_hh^T on the
     tensor cores per block of the cluster (its G4 columns) and summed over
-    the blocks in rank order; d_xs = da . W_ih^T; dW_ih, dW_hh as
-    ``split_bounds``' partial sums over ``valid_steps``, summed in rank
-    order; db over the recurrence's clusters in order.  Every product is
-    in TF32 with the operands the kernel splits split (``split=False``:
-    none, plain TF32, for comparison): da always, as f32 operands are;
-    bf16 operands are exact in TF32 and never split.  On the resident
-    walk (``resident``) the step product is ``_res_bwd_product`` (16
-    blocks, da as three bf16 terms, whatever ``split``) and db's clusters take
-    ``res_rows(B, clusters_at_once)`` rows each (default: the H100's
-    ``H100_RES_CLUSTERS``).  Returns what ``lstm_scan_bwd`` returns."""
+    the blocks in rank order; d_xs = da . W_ih^T; dW_ih, dW_hh as partial
+    sums over ``valid_steps``, summed in rank order; db over the
+    recurrence's clusters in order.  In f32 the GEMMs take
+    ``split_bounds``' splits, and every product there and in the walk is in
+    TF32 with the operands the kernel splits split (``split=False``: none,
+    plain TF32, for comparison): da always, as f32 operands are; bf16
+    operands are exact in TF32 and never split.  In bf16 the GEMMs are the
+    wgmma launches' (``_wgmma_gemms``: bf16 terms, whatever ``split``).  On
+    the resident walk (``resident``) the step product is
+    ``_res_bwd_product`` (16 blocks, da as three bf16 terms, whatever
+    ``split``) and db's clusters take ``res_rows(B, clusters_at_once)``
+    rows each (default: the H100's ``H100_RES_CLUSTERS``).  Returns what
+    ``lstm_scan_bwd`` returns."""
     B, L, D = xs.shape
     H = w_hh.shape[0]
     f32 = xs.dtype == torch.float32
@@ -598,14 +768,17 @@ def lstm_scan_bwd_emulated(xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, 
     ts = torch.tensor([t for _, t in steps], dtype=torch.long)
     dav = da[bs, ts]
     d_xs = torch.zeros((B, L, D))
-    d_xs[bs, ts] = _tf32_mm(dav, w_ih.float().t(), split, split and f32)
-    dws = []
-    for a, split_a in ((xs[bs, ts].float(), split and f32), (hprev[ts, bs].float(), split)):
-        dw = None
-        for v0, v1 in split_bounds(len(steps), DW_SPLITS):
-            part = _tf32_mm(a[v0:v1].t(), dav[v0:v1], split_a, split)
-            dw = part if dw is None else dw + part
-        dws.append(dw)
+    if not f32:
+        d_xs[bs, ts], dws = _wgmma_gemms(xs[bs, ts], hprev[ts, bs].float(), dav, w_ih, B * L)
+    else:
+        d_xs[bs, ts] = _tf32_mm(dav, w_ih.float().t(), split, split)
+        dws = []
+        for a, split_a in ((xs[bs, ts].float(), split), (hprev[ts, bs].float(), split)):
+            dw = None
+            for v0, v1 in split_bounds(len(steps), DW_SPLITS):
+                part = _tf32_mm(a[v0:v1].t(), dav[v0:v1], split_a, split)
+                dw = part if dw is None else dw + part
+            dws.append(dw)
     db = None
     for q in range(_ceil_div(B, rows)):
         part = da[q * rows:(q + 1) * rows].sum(dim=(0, 1))
@@ -697,7 +870,8 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
                        w_hh: torch.Tensor, gates: torch.Tensor, hprev: torch.Tensor,
                        cprev: torch.Tensor, d_out: torch.Tensor, dhT: torch.Tensor,
                        dcT: torch.Tensor, reverse: bool = False):
-    """``lstm_scan_bwd_plain`` as one call of K2 (three launches)."""
+    """``lstm_scan_bwd_plain`` as one call of K2: the walk, then in f32
+    the two mma.sync GEMMs, in bf16 the pack and the two wgmma GEMMs."""
     global bwd_launches
     B, L, D0 = xs.shape
     H = w_hh.shape[0]
@@ -720,9 +894,10 @@ def lstm_scan_bwd_cuda(xs: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tens
     dw_ih, dw_hh = torch.empty((D, 4 * H), **dev), torch.empty((H, 4 * H), **dev)
     db = torch.empty((4 * H,), **dev)
     wpack = torch.empty((plan.w_pack,), dtype=xs.dtype, device=xs.device)  # the wide walk's
+    pack = torch.empty((plan.pack_elems,), dtype=xs.dtype, device=xs.device)  # bf16: the GEMMs'
     fn = build.kernel_function("lstm_scan", "lstm_scan_bwd", _BWD_ARGTYPES)
     err = fn(*(t.data_ptr() for t in (xs, lengths, w_ih, w_hh, gates, hprev, cprev, d_out, dhT,
-                                      dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack)),
+                                      dcT, da, db_part, d_xs, dw_ih, dw_hh, db, wpack, pack)),
              B, L, D, H, int(reverse), build.DTYPE_CODES[xs.dtype], build.stream_handle(xs))
     build.check_launch(err, "lstm_scan_bwd")
     bwd_launches += 1

@@ -33,7 +33,10 @@ checkout's plain version (the tolerances of chip_smoke.py).
   then all three at the Self-Monitor's encoder shape, D = 256, H = 512, at
   17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch,
   or in bf16 the resident walks, whose backward may write more rows of db's
-  partial sums than clusters of 8 rows would: the scratch holds the larger).
+  partial sums than clusters of 8 rows would: the scratch holds the larger),
+  and at the speaker's first layer, D = 2176, H = 256, L = 35 at full
+  lengths ("speaker D=2176"; K2's bf16 GEMMs there run on wgmma, fed from
+  a packed-operand scratch that a tree before them does not take).
 
 Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
 summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
@@ -47,6 +50,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -89,7 +93,9 @@ def build_tree(tag: str, tree: Path, names):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {tag}/{name}:\n{log}")
         libs[name] = ctypes.CDLL(str(src / f"{name}.so"))
-        libs[name].takes_wpack = "void* wpack" in (src / f"{name}.cu").read_text()
+        text = (src / f"{name}.cu").read_text()
+        libs[name].takes_wpack = "void* wpack" in text
+        libs[name].takes_pack = re.search(r"void\* pack\b", text) is not None
     return libs
 
 
@@ -100,28 +106,34 @@ def entry(lib, symbol, argtypes):
     return fn
 
 
-def lstm_entry(lib, symbol, argtypes, wpack):
+def lstm_entry(lib, symbol, argtypes, wpack, pack=None):
     """An LSTM scan's entry point and the extra pointers it takes after the
-    tensors: the packed-W_hh scratch ``wpack`` (its data pointer), or nothing
-    for a tree whose signature predates it (H = 256 only)."""
-    if lib.takes_wpack:
-        return entry(lib, symbol, argtypes), [wpack.data_ptr()]
-    return entry(lib, symbol, argtypes[:-8] + argtypes[-7:]), []
+    tensors: the packed-W_hh scratch ``wpack`` and, for K2 (``pack`` given),
+    the bf16 GEMMs' packed-operand scratch ``pack`` (their data pointers),
+    each only where the tree's signature takes it (a tree before the wide
+    walks: H = 256 only; one before the wgmma GEMMs takes no ``pack``)."""
+    extra = [wpack.data_ptr()] if lib.takes_wpack else []
+    if pack is not None and lib.takes_pack:
+        extra.append(pack.data_ptr())
+    ptrs = argtypes.index(ctypes.c_int)  # the pointers before the ints
+    tensors = ptrs - (1 if pack is None else 2)
+    return entry(lib, symbol, [ctypes.c_void_p] * (tensors + len(extra)) + argtypes[ptrs:]), extra
 
 
 def lstm_cases(dtype, dev, gen):
     full = torch.full((64,), 80, device=dev)
-    cases = [(label, 256, lengths) for label, lengths in (
+    cases = [(label, 256, 256, 80, lengths) for label, lengths in (
         ("11-20 tokens", torch.randint(11, 21, (64,), generator=gen, device=dev)),
         ("17-80 tokens", cs.long_lengths(64, gen, dev)),
         # K3 and K1 only: the forward's fixed cost (no step valid) and its
         # full walk (every step valid)
         ("0 tokens", torch.zeros_like(full)), ("80 tokens", full))]
-    cases.append(("H=512 17-80 tokens", 512, None))  # the Self-Monitor's encoder
-    for label, H, lengths in cases:
+    cases.append(("H=512 17-80 tokens", 256, 512, 80, None))  # the Self-Monitor's encoder
+    cases.append(("speaker D=2176", 2176, 256, 35, torch.full((64,), 35, device=dev)))
+    for label, D, H, L, lengths in cases:
         if lengths is None:
             lengths = cs.long_lengths(64, gen, dev)
-        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, 64, H=H)
+        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, 64, L=L, D=D, H=H)
         wpack = torch.empty((4 * H * H,), dtype=dtype, device=dev)  # the wide walks' scratch
         B, L, D = xs.shape
         H = w_hh.shape[0]
@@ -178,9 +190,12 @@ def lstm_cases(dtype, dev, gen):
         # rows or the resident walk's (this tree's plan); the larger serves both
         db_rows = max(-(-B // 8), kl.bwd_plan_query(B, H, dtype)[2])
         scratch = (torch.empty((B, L, 4 * H), **f32), torch.empty((db_rows, 4 * H), **f32))
+        # this tree's bf16 GEMM operands, packed by valid step (f32: none)
+        pack = torch.empty((B * L * (D + 15 * H) if dtype == torch.bfloat16 else 0,),
+                           dtype=dtype, device=dev)
 
-        def call(lib, wpack=wpack):
-            fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES, wpack)
+        def call(lib, wpack=wpack, pack=pack):
+            fn, extra = lstm_entry(lib, "lstm_scan_bwd", kl._BWD_ARGTYPES, wpack, pack)
 
             def run(i):
                 err = fn(*(t.data_ptr() for t in (*res, *scratch, *outs)), *extra, B, L, D, H, 0,

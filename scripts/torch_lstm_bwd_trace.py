@@ -23,7 +23,7 @@ follows the source it ships with), into ``build/variants/``:
 Every variant is first held against the plain version at B = 64 and 40
 (chip_smoke.py's tolerances), then timed in turns (each variant, then
 the same in reverse order) at D = 256, H = 512, B = 64, L = 80 and 17-80
-tokens: device ms of the walk's kernel and of K2's three launches
+tokens: device ms of the walk's kernel and of all K2's launches
 (``chip_smoke.kernel_times``).  The traces print each phase's mean
 cycles a group step at B = 64 (two row groups) and B = 40 (one), and the
 period of a group step.  Ends with the card's name, power limit and SM

@@ -10,9 +10,11 @@ the kernel to:
 
 B = 64, L = 80, D = H = 256, inputs drawn as chip_smoke.py draws them
 (``lstm_inputs``), token lengths 11-20 and 16-80 (one row at 80), bf16 and
-f32.  Prints one line per (dtype, lengths, arithmetic) with each output's
-max |error| and its tolerance, and "ok" or "FAILS".  An arithmetic error
-measured here, no device time.
+f32.  In bf16 only the walk's product has TF32 operands to split: its
+input-side GEMMs multiply bf16 terms, whatever the split.  Prints one
+line per (dtype, lengths, arithmetic) with each output's max |error| and
+its tolerance, and "ok" or "FAILS".  An arithmetic error measured here,
+no device time.
 """
 from __future__ import annotations
 

@@ -234,10 +234,12 @@ LENGTH_SETS = {
 def test_lstm_scan_bwd_plan_covers_valid_steps_once(name, reverse):
     """K2's GEMMs number the valid steps row by row; the walk of either
     direction visits exactly those; the device's search maps each number
-    back to its (b, t); dw_gemm's splits cut the numbers into contiguous
-    runs in order, each step in one split; dx_gemm's grid holds the
-    valid steps' tiles and then the padded steps' zero tiles, each padded
-    step in one."""
+    back to its (b, t); dw_gemm's splits (f32) and dw_wgmma's (bf16, on
+    K-tile boundaries) cut the numbers into contiguous runs in order, each
+    step in one split; dx_gemm's grid holds the valid steps' tiles and then
+    the padded steps' zero tiles, each padded step in one; dx_wgmma's holds
+    the valid steps' tiles (the pack launch writes the padded steps'
+    zeros)."""
     lengths, L = LENGTH_SETS[name], 80
     B = len(lengths)
     lens = [max(0, min(n, L)) for n in lengths]
@@ -248,17 +250,21 @@ def test_lstm_scan_bwd_plan_covers_valid_steps_once(name, reverse):
     starts = np.concatenate([[0], np.cumsum(lens)]).tolist()
     for v, (b, t) in enumerate(steps):
         assert _row_of(starts, B, L, v, False) == b and v - starts[b] == t
-    plan = t_lstm.lstm_scan_bwd_plan(B, L, 256, 256, 2)
+    plan = t_lstm.lstm_scan_bwd_plan(B, L, 256, 256, 4)
+    wg = t_lstm.lstm_scan_bwd_plan(B, L, 256, 256, 2)
     Mv, Mp = len(steps), B * L - len(steps)
-    bounds = t_lstm.split_bounds(Mv, plan.splits)
-    assert len(bounds) == plan.splits == plan.dw_grid[2] // 2
-    assert bounds[0][0] == 0 and bounds[-1][1] == Mv
-    assert all(a1 == b0 and a0 <= a1 for (a0, a1), (b0, _) in zip(bounds, bounds[1:]))
-    covered = np.zeros(Mv, np.int64)
-    for v0, v1 in bounds:
-        covered[v0:v1] += 1
-    assert (covered == 1).all()
+    for bounds, splits in ((t_lstm.split_bounds(Mv, plan.splits), plan.dw_grid[2] // 2),
+                           (t_lstm.wg_split_bounds(Mv, wg.splits), wg.dw_grid[1])):
+        assert len(bounds) == splits
+        assert bounds[0][0] == 0 and bounds[-1][1] == Mv
+        assert all(a1 == b0 and a0 <= a1 for (a0, a1), (b0, _) in zip(bounds, bounds[1:]))
+        covered = np.zeros(Mv, np.int64)
+        for v0, v1 in bounds:
+            covered[v0:v1] += 1
+        assert (covered == 1).all()
+    assert all(v0 % t_lstm.WG_DW_K == 0 for v0, _ in t_lstm.wg_split_bounds(Mv, wg.splits))
     assert -(-Mv // t_lstm.DX_TM) + -(-Mp // t_lstm.DX_TM) <= plan.dx_grid[1]
+    assert -(-Mv // t_lstm.WG_M) <= wg.dx_grid[1]
     pads = set()
     for v in range(Mp):
         b = _row_of(starts, B, L, v, True)
@@ -270,15 +276,33 @@ def test_lstm_scan_bwd_plan_covers_valid_steps_once(name, reverse):
 
 @pytest.mark.parametrize("prec", ["bf16", "f32"])
 def test_lstm_scan_bwd_plan_at_the_path_shape(prec):
-    """B = 64, L = 80, D = H = 256: 8 clusters of 8 for the recurrence;
-    d_xs in 4 column tiles of 64 by 161 step tiles of 32 (160 over the
-    5,120 steps, one for the tile that valid and padded steps split);
+    """B = 64, L = 80, D = H = 256: 8 clusters of 8 for the recurrence.
+    f32: d_xs in 4 column tiles of 64 by 161 step tiles of 32 (160 over
+    the 5,120 steps, one for the tile that valid and padded steps split);
     dW_ih and dW_hh in 64 tiles of 64 x 128, each reduced by a cluster of 8
-    splits: 512 blocks at 2 an SM, more than a wave on 132 SMs."""
+    splits: 512 blocks at 2 an SM, more than a wave on 132 SMs.  bf16: the
+    pack launch's 640 blocks of 8 sequence rows; d_xs in 2 column tiles of
+    128 by 40 step tiles of 128, K split 2 ways, one block an SM (80
+    tiles fill under 70% of a wave: the 11-20-token mix leaves 16 of them
+    any valid step); dW_ih and dW_hh in 32
+    tiles of 128 x 128, each reduced by a cluster of 8 splits: 256 blocks,
+    one wave of two blocks an SM."""
     plan = t_lstm.lstm_scan_bwd_plan(64, 80, 256, 256, ELEM[prec])
-    assert plan.rec_grid == 64 and plan.dx_grid == (4, 161) and plan.dw_grid == (8, 4, 16)
-    assert plan.dw_blocks_per_sm == 2 and plan.splits == 8  # the portable cluster size
-    assert np.prod(plan.dw_grid) >= SMS
+    assert plan.rec_grid == 64
+    if prec == "f32":
+        assert plan.gemm == "mma.sync" and plan.pack_elems == 0
+        assert plan.dx_grid == (4, 161) and plan.dw_grid == (8, 4, 16)
+        assert plan.dw_blocks_per_sm == 2 and plan.splits == 8  # the portable cluster size
+        assert np.prod(plan.dw_grid) >= SMS
+    else:
+        assert plan.gemm == "wgmma" and plan.pack_grid == 640
+        assert plan.pack_elems == 64 * 80 * (256 + 15 * 256)
+        assert plan.dx_grid == (2, 40, 2) and plan.dw_grid == (32, 8, 1)
+        assert plan.dw_blocks_per_sm == 2 and plan.splits == 8
+        assert np.prod(plan.dw_grid) <= 2 * SMS
+        assert plan.dx_smem == 68 * 4 + 64 + 1024 + 12 * 16384
+        assert plan.dw_smem == 68 * 4 + 64 + 1024 + 12 * 8192
+        assert 2 * plan.dw_smem <= MAX_SMEM < 2 * plan.dx_smem
     assert max(plan.rec_smem, plan.dx_smem, plan.dw_smem) <= MAX_SMEM
 
 
@@ -288,7 +312,10 @@ def test_lstm_scan_bwd_plan_fits_shared_memory(B, H):
     for elem in (2, 4):
         plan = t_lstm.lstm_scan_bwd_plan(B, 80, 64, H, elem)
         assert max(plan.rec_smem, plan.dx_smem, plan.dw_smem) <= MAX_SMEM
-        assert plan.dw_grid[0] * 128 == 4 * H and plan.dw_grid[1] * 64 >= max(64, H)
+        if elem == 4:
+            assert plan.dw_grid[0] * 128 == 4 * H and plan.dw_grid[1] * 64 >= max(64, H)
+        else:  # dW_ih's one row of tiles, then dW_hh's
+            assert plan.dw_grid[0] == (1 + -(-H // 128)) * (4 * H // 128)
 
 
 def _bwd_emulated_and_jax(prec, reverse, B, L, D, H, lengths, seed=11):
@@ -323,13 +350,15 @@ def _bwd_emulated_and_jax(prec, reverse, B, L, D, H, lengths, seed=11):
 @pytest.mark.parametrize("prec", ["bf16", "f32"])
 def test_lstm_bwd_split_tf32_matches_jax(prec, reverse):
     """K2's arithmetic as its kernels cut it (``lstm_scan_bwd_emulated``):
-    TF32 products with split operands on the tensor cores, the
-    recurrence's per-block partials summed in rank order, dW over the
-    plan's splits in rank order, against the Pallas backward in interpret
-    mode from the same inputs: d_xs within 1e-3 in bf16 (da split, as the
-    reference's f32 product needs: one bf16 ulp, 2^-8 relative, is 3.9e-3;
-    da unsplit gave 1.95e-3 here) and 1e-4 in f32, dW_ih, dW_hh and db
-    1e-4, each times max(1, max |JAX|)."""
+    the walk's TF32 products with split operands on the tensor cores and
+    its per-block partials summed in rank order; the GEMMs in f32 as split
+    TF32 products, in bf16 as the wgmma launches' exact products of bf16
+    terms (da and hprev as three); dW over the plan's splits in rank
+    order; against the Pallas backward in interpret mode from the same
+    inputs: d_xs within 1e-3 in bf16 (da split, as the reference's f32
+    product needs: one bf16 ulp, 2^-8 relative, is 3.9e-3; da unsplit gave
+    1.95e-3 here) and 1e-4 in f32, dW_ih, dW_hh and db 1e-4, each times
+    max(1, max |JAX|)."""
     lengths = np.array([7, 1, 4, 0, 6], np.int64)
     got, want = _bwd_emulated_and_jax(prec, reverse, 5, 7, 32, 32, lengths)
     rtols = (1e-3 if prec == "bf16" else 1e-4, 1e-4, 1e-4, 1e-4)

@@ -91,7 +91,16 @@ def test_speaker_shape_plans(B, elem):
         assert (f.gx_smem, f.rec_smem, b.dx_smem, b.dw_smem) == (
             base_f.gx_smem, base_f.rec_smem, base_b.dx_smem, base_b.dw_smem)
         assert f.gx_grid == base_f.gx_grid and f.w_where == base_f.w_where
-        assert b.dx_grid == (-(-D // t_lstm.DX_TN), base_b.dx_grid[1])
-        assert b.dw_grid == (4 * H // t_lstm.DW_TJ, -(-D // t_lstm.DW_TI), 2 * t_lstm.DW_SPLITS)
+        if elem == 4:
+            assert b.dx_grid == (-(-D // t_lstm.DX_TN), base_b.dx_grid[1])
+            assert b.dw_grid == (4 * H // t_lstm.DW_TJ, -(-D // t_lstm.DW_TI),
+                                 2 * t_lstm.DW_SPLITS)
+        else:
+            assert b.dx_grid[:2] == (-(-D // t_lstm.WG_N), base_b.dx_grid[1])
+            tiles = (-(-D // t_lstm.WG_M) + -(-H // t_lstm.WG_M)) * (4 * H // t_lstm.WG_N)
+            assert b.dw_grid == (tiles, t_lstm.dw_splits(tiles), 1)
     big = t_lstm.lstm_scan_bwd_plan(B, T, 2176, H, elem)
-    assert big.dx_grid[0] == 34 and big.dw_grid[1] == 34
+    if elem == 4:
+        assert big.dx_grid[0] == 34 and big.dw_grid[1] == 34
+    else:  # 17 x 8 tiles of dW_ih and 2 x 8 of dW_hh, each split 4 ways: 608 blocks
+        assert big.dx_grid[0] == 17 and big.dw_grid == (152, 4, 1)
