@@ -62,7 +62,10 @@ on one GPU.
    row group; K2's bf16 d_xs differing from plain in under 1% there too),
    each beside cuDNN's ``nn.LSTM`` and its bound, and the speaker
    encoder's layers ((D, H) = (2176, 256) and (512, 256)) at L = 35 full
-   lengths and at B = 61 over ragged ones; K3 also at the beam's
+   lengths and at B = 61 over ragged ones, the first layer also timed at B
+   = 64 over ragged lengths 1-35 (the bf16 gates_x's tiles of valid steps
+   then straddle batch rows); each K1/K3 row with its gates_x launch's
+   useful TFLOP/s beside K2's GEMMs' (``gemm_rates``); K3 also at the beam's
    rescoring shapes (bf16 (2176, 256) and f32 (512, 256), B = 30, ragged
    lengths up to 16) beside cuDNN and its bound.  The forward and the
    backward walks' plans at the Self-Monitor's shape (B = 64, 61 and 1,
@@ -294,6 +297,9 @@ SPEAKER_T = 35     # envdrop_config.yaml's MAX_EPISODE_LEN: the speaker's steps,
 # (D, H) of the speaker encoder's layers (K1-K3): the BiLSTM over the chosen
 # candidates' 2048 + 128 features, and the post-LSTM over its 2 x 256 outputs
 SPEAKER_LSTM_SHAPES = {"speaker_l1": (FEAT_DIM + 128, 256), "speaker_post": (512, 256)}
+# the first layer again at B = 64 over ragged lengths (1-35 tokens, a 35): the
+# bf16 gates_x's tiles of valid steps then straddle batch rows
+SPEAKER_RAGGED = "speaker_l1_ragged"
 BEAM_SIZE = 30        # the default of BeamSearch.beam_rollout / beam_search (JAX beam.py:315-316)
 BEAM_MAX_ITERS = 500  # BeamSearch's default expansion budget
 # K3 at the beam's rescoring shapes: the speaker encoder's first layer (bf16,
@@ -667,7 +673,21 @@ def lstm_phases(dtype, device, gen, lengths, iters=20, D=256, H=256, L=80):
         out[-1]["d_xs_differ"] = differ
     out[-1]["gemm_rates"] = k2_gemm_rates(out[-1]["device_split"], bounds["valid_steps"], D, H,
                                           dtype)
+    for r in out[:2]:
+        r["gemm_rates"] = gx_rates(r["device_split"], bounds["valid_steps"], D, H, dtype)
     return out
+
+
+def gx_rates(split, steps, D, H, dtype):
+    """{launch: {device ms, useful TFLOP/s, issued TFLOP/s}} of K3's or K1's
+    input-side GEMM (gates_x: x . W_ih + b at the valid steps) from a
+    call's device split: 2 steps D 4H products, each issued once (bf16
+    ``gx_wgmma_kernel``; f32 ``gates_x_kernel`` counts a split-TF32 product
+    once)."""
+    name = "gx_wgmma_kernel" if dtype == torch.bfloat16 else "gates_x_kernel"
+    ms = split.get(name, (None,))[0]
+    rate = 2 * steps * D * 4 * H / ms / 1e9 if ms else None
+    return {name: {"device_ms": ms, "useful_tflops": rate, "issued_tflops": rate}}
 
 
 def k2_gemm_rates(split, steps, D, H, dtype):
@@ -866,11 +886,15 @@ def lstm_rescore_phase(device, gen, iters=20):
         r = {"shape": {"B": RESCORE_B, "L": RESCORE_L, "D": D, "H": H}, "dtype": str(dtype),
              "lengths": lengths_label(lengths), "valid_steps": bounds["valid_steps"],
              "max_abs_err": err[0], "tol": err[1], **t, "plain_ms": plain_ms, **lib,
-             "bound_ms": b_ms, "bound_by": b_by}
+             "bound_ms": b_ms, "bound_by": b_by,
+             "gemm_rates": gx_rates(t["device_split"], bounds["valid_steps"], D, H, dtype)}
         out[label] = r
+        (gx_name, g), = r["gemm_rates"].items()
         log(f"lstm_scan        {str(dtype):14s} beam rescoring D={D} H={H} B={RESCORE_B} lengths "
             f"{r['lengths']}: max|kernel-plain| {err[0]:.3g} (tol {err[1]:.3g}) | "
-            f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by})")
+            f"{times_label(r)}, bound {b_ms:.4f} ms ({b_by}) | device ms a call by kernel: "
+            + ", ".join(f"{k} {ms:.4f} ({n:g}x)" for k, (ms, n) in t["device_split"].items())
+            + f" | {gx_name} {fmt(g['useful_tflops'])} TFLOP/s useful")
     return out
 
 
@@ -1125,6 +1149,12 @@ def kernel_phases(world, lengths, device):
                                **ragged[r["name"]]}
                 r["shape"] = {"D": D, "H": H}
                 results[(r["name"], prec)]["speaker_shapes"][label] = r
+        D, H = SPEAKER_LSTM_SHAPES["speaker_l1"]
+        ragged = torch.randint(1, SPEAKER_T + 1, (BATCH,), generator=gen, device=device)
+        ragged[0] = SPEAKER_T
+        for r in lstm_phases(dtype, device, gen, ragged, D=D, H=H, L=SPEAKER_T):
+            r["shape"] = {"D": D, "H": H}
+            results[(r["name"], prec)]["speaker_shapes"][SPEAKER_RAGGED] = r
         by_mode = obs_phases(dtype, device, gen, features)
         for i, r in enumerate(by_mode["prng"]):
             r = dict(r)
@@ -1191,6 +1221,8 @@ def kernel_phases(world, lengths, device):
                           f"{name} {prec} {part} agrees with its plain version")
             for label, r in (("EnvDrop", base), *base["agent_shapes"].items(),
                              *base["speaker_shapes"].items()):
+                if "ragged" not in r:  # SPEAKER_RAGGED: its lengths are ragged already
+                    continue
                 rg = r["ragged"]
                 log(f"{name:16s} {prec:4s} {label} at B={rg['B']}, lengths {rg['lengths']}: "
                     "max|kernel-plain| " + ", ".join(
@@ -4613,11 +4645,11 @@ def main() -> int:
             entry["f32"].update(checks=r32["checks"], device_split=r32["device_split"])
             entry["long_lengths"] = {prec: {k: x["long"][k] for k in keys}
                                      for prec, x in ((precision, r), ("f32", r32))}
-            if "gemm_rates" in r:  # K2's input-side GEMM launches
+            if "gemm_rates" in r:  # the input-side GEMM launches
                 entry["gemm_rates"] = {precision: r["gemm_rates"], "f32": r32["gemm_rates"]}
             # the Follower's, the Self-Monitor's and the speaker's encoder layers
             for group, labels in (("agent_shapes", AGENT_LSTM_SHAPES),
-                                  ("speaker_shapes", SPEAKER_LSTM_SHAPES)):
+                                  ("speaker_shapes", (*SPEAKER_LSTM_SHAPES, SPEAKER_RAGGED))):
                 entry[group] = {
                     label: {prec: {k: x[group][label][k]
                                    for k in ("shape", *keys, "max_abs_err", "ragged", "plans",

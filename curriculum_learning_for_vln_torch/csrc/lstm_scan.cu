@@ -12,9 +12,10 @@
 // Forward (K3, and K1 with residuals): one C call, two launches
 // (ops/cuda/lstm_scan.py::lstm_scan_fwd_plan gives their geometry).
 // 1. gates_x: gx = x . W_ih + b at the valid steps only (numbered on the
-//    device, as K2's GEMMs do), on the tensor cores through a 3-stage
-//    cp.async ring: bf16 operands on mma.sync m16n8k16 (exact products,
-//    f32 sums, as JAX's f32-accumulated bf16 dot); f32 on m16n8k8 in TF32
+//    device, as K2's GEMMs do), on the tensor cores: bf16 operands on
+//    wgmma (gx_wgmma_kernel below: W_ih by TMA, x's rows gathered by
+//    valid step; exact products, f32 sums, as JAX's f32-accumulated bf16
+//    dot); f32 through a 3-stage cp.async ring on mma.sync m16n8k8 in TF32
 //    with both operands split.  This half of the work has no recurrence,
 //    so it runs across the whole card.
 // 2. recurrence: clusters of CL = 8 blocks, each cluster owning R = 8
@@ -312,49 +313,39 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 // Forward 1. gates_x: gx[m, n] = sum_k x[m, k] W_ih[k, n] + b[n] at every
 //    valid step m (N = 4H, K = D); the padded steps are not written (the
 //    recurrence reads none, and K1's gate residual is read at valid steps
-//    only).  Block (n tile, y) takes columns [n0, n0 + GX_TN) of valid
-//    steps [y' GX_TM, +GX_TM) for y' = y, y + Y, ... below the valid steps'
+//    only).  The bf16 route runs it on wgmma (gx_wgmma_kernel below); in
+//    f32 block (n tile, y) takes columns [n0, n0 + GX_TN) of valid steps
+//    [y' GX_TM, +GX_TM) for y' = y, y + Y, ... below the valid steps'
 //    count, which it computes from lengths on the device (no host
 //    synchronisation reads them): Y = min(B * L / GX_TM, GX_YMAX) tiles,
 //    the path's valid steps in one to three rounds, without the waves of
 //    blocks that find no valid step that a grid sized for B * L launches.
 //    K streams through a ring of GX_STAGES cp.async stages of 128 bytes a
 //    row (x as [m][k], W_ih as its own [k][n] rows); four warps of 32 x 32
-//    outputs.  bf16: mma.sync m16n8k16 on the bf16 operands, x's
-//    fragments by 32-bit loads, W_ih's by ldmatrix.trans; f32: m16n8k8 in
-//    TF32, both operands split, three MMAs a product issued term by term.
-//    Row strides are padded so that every fragment load is conflict-free.
+//    outputs on m16n8k8 in TF32, both operands split, three MMAs a
+//    product issued term by term.  Row strides are padded so that every
+//    fragment load is conflict-free.
 // ---------------------------------------------------------------------------
 constexpr int GX_TM = 64, GX_TN = 64, GX_STAGES = 3, GX_THREADS = 128, GX_YMAX = 32;
-constexpr int GX_BS = GX_TN + 8;  // row stride (elements) of a W_ih stage
+constexpr int GX_BS = GX_TN + 8;  // row stride (floats) of a W_ih stage
+constexpr int GX_KC = 32;         // floats of a stage's 128-byte rows
+constexpr int GX_AS = GX_KC + 4;  // row stride (floats) of an x stage
 
-template <typename T>
-__host__ __device__ constexpr int gx_kc() {  // elements of a stage's 128-byte rows
-  return 128 / sizeof(T);
-}
-template <typename T>
-__host__ __device__ constexpr int gx_as() {  // row stride (elements) of an x stage
-  return gx_kc<T>() + (sizeof(T) == 4 ? 4 : 8);
-}
-
-template <typename T>
 size_t gx_smem(int B) {
   return (size_t)(starts_ints(B) + GX_TM) * 4 +
-         (size_t)GX_STAGES * (GX_TM * gx_as<T>() + gx_kc<T>() * GX_BS) * sizeof(T);
+         (size_t)GX_STAGES * (GX_TM * GX_AS + GX_KC * GX_BS) * sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(GX_THREADS)
-gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
-               const T* __restrict__ w, const T* __restrict__ bias, float* __restrict__ gx, int B,
-               int L, int D, int N) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int KC = gx_kc<T>(), AS = gx_as<T>(), EPC = 16 / sizeof(T);
+gates_x_kernel(const float* __restrict__ x, const int64_t* __restrict__ lengths,
+               const float* __restrict__ w, const float* __restrict__ bias,
+               float* __restrict__ gx, int B, int L, int D, int N) {
+  constexpr int KC = GX_KC, AS = GX_AS, EPC = 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* starts = reinterpret_cast<int*>(smem_raw);
   int* rows = starts + starts_ints(B);
-  T* a_s = reinterpret_cast<T*>(rows + GX_TM);
-  T* b_s = a_s + GX_STAGES * GX_TM * AS;
+  float* a_s = reinterpret_cast<float*>(rows + GX_TM);
+  float* b_s = a_s + GX_STAGES * GX_TM * AS;
   const int tid = threadIdx.x;
   valid_starts(lengths, B, L, starts);
   const int Mv = starts[B];
@@ -365,13 +356,13 @@ gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
     const int n0 = blockIdx.x * GX_TN;
 
     auto load_stage = [&](int st, int k0) {
-      T* as = a_s + st * GX_TM * AS;
+      float* as = a_s + st * GX_TM * AS;
       for (int i = tid; i < GX_TM * (KC / EPC); i += GX_THREADS) {
         const int r = i / (KC / EPC), kk = k0 + (i % (KC / EPC)) * EPC, m = rows[r];
         const bool ok = m >= 0 && kk < D;
         cp_async16(as + r * AS + kk - k0, x + (ok ? (size_t)m * D + kk : 0), ok);
       }
-      T* bs = b_s + st * KC * GX_BS;
+      float* bs = b_s + st * KC * GX_BS;
       for (int i = tid; i < KC * (GX_TN / EPC); i += GX_THREADS) {
         const int r = i / (GX_TN / EPC), c = (i % (GX_TN / EPC)) * EPC, kk = k0 + r;
         cp_async16(bs + r * GX_BS + c, w + (kk < D ? (size_t)kk * N + n0 + c : 0), kk < D);
@@ -394,65 +385,38 @@ gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
       const int kn = kc + GX_STAGES - 1;
       if (kn < nk) load_stage(kn % GX_STAGES, kn * KC);
       cp_async_commit();
-      const T* as = a_s + (kc % GX_STAGES) * GX_TM * AS + wm * 32 * AS;
-      const T* bs = b_s + (kc % GX_STAGES) * KC * GX_BS + wn * 32;
-      if constexpr (F32) {
+      const float* as = a_s + (kc % GX_STAGES) * GX_TM * AS + wm * 32 * AS;
+      const float* bs = b_s + (kc % GX_STAGES) * KC * GX_BS + wn * 32;
 #pragma unroll
-        for (int kk = 0; kk < KC; kk += 8) {
-          uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const float* ap = as + (mt * 16 + g8) * AS + kk + q4;
-            tf32_split<true>(ap[0], ah[mt][0], al[mt][0]);
-            tf32_split<true>(ap[8 * AS], ah[mt][1], al[mt][1]);
-            tf32_split<true>(ap[4], ah[mt][2], al[mt][2]);
-            tf32_split<true>(ap[8 * AS + 4], ah[mt][3], al[mt][3]);
-          }
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const float* bp = bs + (kk + q4) * GX_BS + nt * 8 + g8;
-            tf32_split<true>(bp[0], bh[nt][0], bl[nt][0]);
-            tf32_split<true>(bp[4 * GX_BS], bh[nt][1], bl[nt][1]);
-          }
-          // term by term: back-to-back MMAs never feed each other
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* ap = as + (mt * 16 + g8) * AS + kk + q4;
+          tf32_split<true>(ap[0], ah[mt][0], al[mt][0]);
+          tf32_split<true>(ap[8 * AS], ah[mt][1], al[mt][1]);
+          tf32_split<true>(ap[4], ah[mt][2], al[mt][2]);
+          tf32_split<true>(ap[8 * AS + 4], ah[mt][3], al[mt][3]);
         }
-      } else {
 #pragma unroll
-        for (int kk = 0; kk < KC; kk += 16) {
-          uint32_t a[2][4], b[4][2];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const T* ap = as + (mt * 16 + g8) * AS + kk + 2 * q4;
-            a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-            a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * AS);
-            a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-            a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * AS + 8);
-          }
-          // matrices (k 0-7, n tile j), (k 8-15, j), (k 0-7, j + 1), (k 8-15, j + 1)
-#pragma unroll
-          for (int j = 0; j < 4; j += 2) {
-            uint32_t r[4];
-            ldmatrix_x4_trans(r, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * GX_BS +
-                                     (j + (lane >> 4)) * 8);
-            b[j][0] = r[0], b[j][1] = r[1], b[j + 1][0] = r[2], b[j + 1][1] = r[3];
-          }
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* bp = bs + (kk + q4) * GX_BS + nt * 8 + g8;
+          tf32_split<true>(bp[0], bh[nt][0], bl[nt][0]);
+          tf32_split<true>(bp[4 * GX_BS], bh[nt][1], bl[nt][1]);
         }
+        // term by term: back-to-back MMAs never feed each other
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
       }
     }
     cp_async_wait<0>();
@@ -467,12 +431,17 @@ gates_x_kernel(const T* __restrict__ x, const int64_t* __restrict__ lengths,
         for (int nt = 0; nt < 4; ++nt) {
           const int n = n0 + wn * 32 + nt * 8 + 2 * q4;
           *reinterpret_cast<float2*>(gx + (size_t)m * N + n) =
-              make_float2(acc[mt][nt][2 * h] + to_f32(bias[n]),
-                          acc[mt][nt][2 * h + 1] + to_f32(bias[n + 1]));
+              make_float2(acc[mt][nt][2 * h] + bias[n], acc[mt][nt][2 * h + 1] + bias[n + 1]);
         }
       }
   }
 }
+
+// Forward 1 on the bf16 route (gx_wgmma_kernel), defined with K2's wgmma
+// GEMMs below.
+cudaError_t launch_gx_wgmma(const __nv_bfloat16* xs, const int64_t* lengths,
+                            const __nv_bfloat16* w_ih, const __nv_bfloat16* bias, float* gx, int B,
+                            int L, int D, int N, cudaStream_t stream);
 
 // ---------------------------------------------------------------------------
 // Forward 2. The recurrence.  Block `rank` of a cluster holds the gate
@@ -1384,17 +1353,26 @@ cudaError_t launch_fwd(const void* xs, const void* lengths, const void* w_ih, co
                        const void* b, void* gx, void* outs, void* hT, void* cT, void* hprev,
                        void* cprev, void* wpack, int B, int L, int D, int H, int reverse,
                        cudaStream_t stream) {
-  // ops/cuda/lstm_scan.py::lstm_scan_fwd_plan
+  // ops/cuda/lstm_scan.py::lstm_scan_fwd_plan: bf16 on wgmma, f32 on split-TF32 mma.sync
   const int N = 4 * H;
-  const size_t gsm = gx_smem<T>(B);
-  cudaError_t e = cudaFuncSetAttribute(gates_x_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsm);
+  cudaError_t e;
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t gsm = gx_smem(B);
+    if ((e = cudaFuncSetAttribute(gates_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)gsm)) != cudaSuccess)
+      return e;
+    dim3 ggrid(N / GX_TN, min((B * L + GX_TM - 1) / GX_TM, GX_YMAX));
+    gates_x_kernel<<<ggrid, GX_THREADS, gsm, stream>>>(
+        static_cast<const float*>(xs), static_cast<const int64_t*>(lengths),
+        static_cast<const float*>(w_ih), static_cast<const float*>(b), static_cast<float*>(gx), B,
+        L, D, N);
+    e = cudaGetLastError();
+  } else {
+    e = launch_gx_wgmma(static_cast<const T*>(xs), static_cast<const int64_t*>(lengths),
+                        static_cast<const T*>(w_ih), static_cast<const T*>(b),
+                        static_cast<float*>(gx), B, L, D, N, stream);
+  }
   if (e != cudaSuccess) return e;
-  dim3 ggrid(N / GX_TN, min((B * L + GX_TM - 1) / GX_TM, GX_YMAX));
-  gates_x_kernel<T><<<ggrid, GX_THREADS, gsm, stream>>>(
-      static_cast<const T*>(xs), static_cast<const int64_t*>(lengths),
-      static_cast<const T*>(w_ih), static_cast<const T*>(b), static_cast<float*>(gx), B, L, D, N);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int clusters = (B + R - 1) / R;
   if (H > 256) {
@@ -2661,12 +2639,16 @@ __device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A . B^T on one m64n128k16 step, both operands K-major, f32 d: warp
-// w of the warpgroup holds rows 16 w + l / 4 (d[4 j], d[4 j + 1]) and + 8
-// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 (l % 4) and + 1, j < 16;
-// d0 holds j < 8 (columns 0-63), d1 the rest.
-__device__ __forceinline__ void wgmma_kk(float (&d0)[32], float (&d1)[32], uint64_t a,
-                                         uint64_t b) {
+// d += A . B on one m64n128k16 step of bf16 operands, f32 d, each operand
+// K-major (T = 0: A as [m][k], B as [n][k]) or MN-major (T = 1: A as
+// [k][m], B as [k][n], through wgmma's transpose bits; a 128-column B is
+// two swizzle atoms of 64 columns, the descriptor's leading byte offset
+// apart).  Warp w of the warpgroup holds rows 16 w + l / 4 (d[4 j],
+// d[4 j + 1]) and + 8 (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 (l % 4)
+// and + 1, j < 16; d0 holds j < 8 (columns 0-63), d1 the rest.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_128(float (&d0)[32], float (&d1)[32], uint64_t a,
+                                          uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -2674,7 +2656,7 @@ __device__ __forceinline__ void wgmma_kk(float (&d0)[32], float (&d1)[32], uint6
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
         "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
         "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
@@ -2691,39 +2673,7 @@ __device__ __forceinline__ void wgmma_kk(float (&d0)[32], float (&d1)[32], uint6
         "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
         "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
         "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d += A . B on one m64n128k16 step, both operands MN-major (transposed),
-// in wgmma_kk's layout: columns 0-63 in d0, 64-127 in d1 (B's two swizzle
-// atoms of 64 columns, the descriptor's leading byte offset apart).
-__device__ __forceinline__ void wgmma_mn(float (&d0)[32], float (&d1)[32], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
-        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
-        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
-        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
-        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
-        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
-        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
-        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
-        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
-        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
-        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
-        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
-        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
-        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
-        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
-        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // K2.0 (bf16): warp w of block x packs sequence row m = x PACK_WARPS + w.
@@ -2801,7 +2751,7 @@ __device__ __forceinline__ void wg_init_bars(uint64_t* bars, int ST) {
 }
 
 // A consumer warpgroup's partial tile (64 rows x 128 columns in acc0 and
-// acc1, wgmma_kk's layout) into the f32 tile red [WG_M][WG_RS].
+// acc1, wgmma_128's layout) into the f32 tile red [WG_M][WG_RS].
 __device__ __forceinline__ void wg_stage_partial(float* red, const float (&acc0)[32],
                                                  const float (&acc1)[32]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -2892,8 +2842,8 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap m_da, const __grid_constant_
         const uint64_t bd = wg_desc(st + 3 * WG_DX_SLOT + kk * 32, 16, 1024);
 #pragma unroll
         for (int a = 2; a >= 0; --a)
-          wgmma_kk(acc0, acc1, wg_desc(st + a * WG_DX_SLOT + wg * WG_DX_BOX + kk * 32, 16, 1024),
-                   bd);
+          wgmma_128<0, 0>(
+              acc0, acc1, wg_desc(st + a * WG_DX_SLOT + wg * WG_DX_BOX + kk * 32, 16, 1024), bd);
       }
       wg_commit();
       wg_wait<1>();  // the stage before this one is read: release it
@@ -2993,7 +2943,7 @@ __device__ __forceinline__ void dw_partial(const CUtensorMap* m_a, const CUtenso
         const uint64_t ad = wg_desc(st + dw_term_a(NA, p) * WG_DW_SLOT + wg * WG_DW_BOX + kk * 2048,
                                     WG_DW_BOX, 1024);
         const uint32_t b = st + (NA + dw_term_b(NA, p)) * WG_DW_SLOT + kk * 2048;
-        wgmma_mn(acc0, acc1, ad, wg_desc(b, WG_DW_BOX, 1024));
+        wgmma_128<1, 1>(acc0, acc1, ad, wg_desc(b, WG_DW_BOX, 1024));
       }
     }
     wg_commit();
@@ -3132,6 +3082,272 @@ cudaError_t launch_bwd_wgmma(const __nv_bfloat16* xs, const int64_t* lengths,
   attr[0].val.clusterDim.z = 1;
   if ((e = cudaLaunchKernelEx(&cfg, dw_wgmma_kernel, m_x, m_h, m_da_dw, lengths, db_part, dw_ih,
                               dw_hh, db, B, L, D, H, clusters)) != cudaSuccess)
+    return e;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Forward 1 on the bf16 route: gates_x on wgmma.
+//
+// gates_x_kernel's bf16 path (mma.sync m16n8k16 on 64 x 64 tiles through
+// a cp.async ring that every thread issued) took 0.0812 of K3's 0.1540 ms
+// at the speaker's first layer (D = 2176, H = 256, 2,240 valid steps) on
+// the H100, ~123 TFLOP/s; f32 keeps that kernel (in split TF32).  In bf16
+// gx_wgmma_kernel computes gx[v] = x[v] . W_ih + b on tiles of WG_M valid
+// steps x WG_N gate columns, K = D in K-tiles of 64, through a ring of
+// GX_ST stages of x's tile and W_ih's; two consumer warpgroups run wgmma
+// m64n128k16 (exact products, f32 sums), one producer warp keeps W_ih's
+// TMA boxes in flight on full / empty mbarriers, as dx_wgmma does:
+// * W_ih [D][4H] MN-major as it is (bf16 wgmma's transpose bit, no
+//   transposed copy); boxes past D read zeros, so the Follower's D = 304
+//   costs no more than a last K-tile three quarters full.
+// * x K-major, fed one of two ways, chosen on the device from the valid
+//   steps' count Mv (no host synchronisation reads the lengths):
+//   - every step valid (Mv = B L: the speaker's encoder): x's rows are the
+//     valid steps in order, and the producer loads them as TMA boxes of
+//     64 rows beside W_ih's;
+//   - otherwise each consumer warpgroup gathers its 64 rows' K-tile
+//     (valid_row's row of x, 16 bytes a cp.async, four a thread) into the
+//     128-byte-swizzled layout wgmma reads, two stages ahead, with zeros
+//     past D and past the valid steps; a thread waits for its copies,
+//     makes them visible to wgmma's async proxy (fence.proxy.async) and
+//     meets its warpgroup at a named barrier before the products read them.
+//   The gather multiplies no padded step and needs no launch that packs x
+//   by valid step first (a pack launch and TMA boxes of the packed rows
+//   took longer at the ragged path shapes on the H100: PERF.md); TMA boxes
+//   over all B L rows, padded ones too, took longer at every ragged path
+//   shape but the Self-Monitor's, and the gather of full-length rows
+//   longer than their TMA boxes (scripts/torch_gx_wgmma_variants.py).
+// The sums plus b go from the registers to the valid step's row of gx [B,
+// L, 4H] in f32.  Without a split of K a block walks step tiles y, y + Y,
+// ... (gx_rows: a round of two blocks an SM, so that a grid sized for B L
+// steps does not launch waves of blocks that find no valid step), its
+// next tile's loads running under its last tile's stores.  Where the
+// tiles are few against K (the beam's rescoring, B L = 480 at D = 2176),
+// K is split S ways (gx_splits) and a tile's S blocks sum their partial
+// tiles in rank order through distributed shared memory (wg_cluster_sum):
+// no atomics, the same sums every run.
+// Bound: the speaker's 2 x 2240 x 2176 x 1024 = 9.98 GFLOP are 10 us at
+// the card's 989 TFLOP/s; EnvDrop's (D = H = 256) 0.5-1.6 GFLOP and the
+// Self-Monitor's 6-25 MB of f32 gx are a few us.
+// ---------------------------------------------------------------------------
+constexpr int GX_ST = 3;                            // stages of gx_wgmma's ring
+constexpr int WG_GX_RING = GX_ST * 2 * WG_DX_SLOT;  // x's tile and W_ih's a stage
+
+// gx_wgmma's splits of K = D: the largest S in {1, 2, 4, 8} whose tiles x
+// S blocks, the tiles counted for B L valid steps, fit one block an SM,
+// with at least 16 K-tiles a split left to halve: a split's partial-tile
+// sum through distributed shared memory costs more than the K-tiles it
+// saves on a fuller card (on the H100 the speaker's 144 tiles took about
+// 1.6x S = 1's time at S = 4, the beam's 32 about half;
+// scripts/torch_gx_wgmma_variants.py; ops/cuda/lstm_scan.py::gx_splits).
+int gx_splits(int tiles, int nk) {
+  int s = 1;
+  while (s < 8 && 16 * s <= nk && 2 * tiles * s <= WG_SMS) s *= 2;
+  return s;
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier id (1-15; 0 is __syncthreads') of n threads, whole warps:
+// the calling warps wait until n threads have arrived.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// gx_wgmma's rows of step tiles: with splits of K, one a step tile (B L
+// of them); without, at most a round of two blocks an SM over the column
+// tiles, block y taking step tiles y, y + Y, ... below the valid steps
+// (ops/cuda/lstm_scan.py::gx_rows).
+int gx_rows(int nt, int mt, int S) { return S > 1 ? mt : min(mt, max(1, 2 * WG_SMS / nt)); }
+
+// gx_wgmma's step tiles y, y + Y, ... of a block (column tile n0, K-tiles
+// [kt0, kt0 + n)), producer and consumers; x's rows as TMA boxes (DENSE:
+// every step valid) or gathered by the consumers.  A stage: x's 128 rows
+// (warpgroup wg's 64 at wg WG_DX_BOX), then W_ih's 128 columns.  Without a
+// split of K (S = 1) each tile's sums plus b go to gx from the registers;
+// with one, the block has one tile, whose partial stays in acc0 / acc1.
+template <bool DENSE>
+__device__ __forceinline__ void gx_tiles(const CUtensorMap* m_w, const CUtensorMap* m_x,
+                                         const __nv_bfloat16* __restrict__ xs, const WgSmem& sm,
+                                         const __nv_bfloat16* __restrict__ bias,
+                                         float* __restrict__ gx, int B, int L, int D, int N,
+                                         int Mv, int n0, int kt0, int n, int S,
+                                         float (&acc0)[32], float (&acc1)[32]) {
+  constexpr int STAGE = 2 * WG_DX_SLOT;
+  const int tiles = (Mv + WG_M - 1) / WG_M;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (warp == 8) {  // the producer: W_ih's boxes, and x's where dense
+    if (lane == 0) {
+      int q = 0;  // stages filled, over this block's step tiles
+      for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+        for (int i = 0; i < n; ++i, ++q) {
+          const int s = q % GX_ST, u = q / GX_ST, k0 = (kt0 + i) * WG_DX_K;
+          if (u > 0) mbar_wait(smem_u32(&sm.bars[4 + s]), (u - 1) & 1);
+          const uint32_t st = sm.ring + s * STAGE, full = smem_u32(&sm.bars[s]);
+          mbar_expect_tx(full, DENSE ? STAGE : WG_DX_SLOT);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            tma_3d(st + WG_DX_SLOT + h * WG_DX_BOX, m_w, n0 + 64 * h, k0, 0, full);
+            if constexpr (DENSE) tma_3d(st + h * WG_DX_BOX, m_x, k0, t * WG_M + 64 * h, 0, full);
+          }
+        }
+      }
+    }
+    __syncwarp();  // whole again before the block's barriers
+    return;
+  }
+  const int wg = warp >> 2, j = tid & 127;  // rows [64 wg, 64 wg + 64) of a tile
+  const int c = j & 7;  // this thread's chunk of x's rows r = j / 8 + 16 i
+  int q = 0;            // stages read, over this block's step tiles
+  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const int m0 = t * WG_M, q0 = q;
+    const __nv_bfloat16* src[4];
+    auto load_x = [&](int i) {  // K-tile kt0 + i into stage q0 + i's x slot, swizzled
+      if (i < n) {
+        unsigned char* dst = sm.ring_ptr + ((q0 + i) % GX_ST) * STAGE + wg * WG_DX_BOX;
+        const int k = (kt0 + i) * WG_DX_K + 8 * c;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = j / 8 + 16 * a;
+          const bool ok = src[a] != nullptr && k < D;
+          cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), ok ? src[a] + k : xs, ok);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+    wg_fence_acc(acc0);
+    wg_fence_acc(acc1);
+    if constexpr (!DENSE) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int v = m0 + 64 * wg + j / 8 + 16 * a;
+        src[a] = v < Mv ? xs + (size_t)valid_row(sm.starts, B, L, v) * D : nullptr;
+      }
+      for (int i = 0; i < GX_ST - 1; ++i) load_x(i);
+    }
+    for (int i = 0; i < n; ++i, ++q) {
+      const int s = q % GX_ST;
+      if constexpr (!DENSE) {
+        cp_async_wait<GX_ST - 2>();   // this thread's chunks of stage q have landed,
+        fence_proxy_async();          // are visible to wgmma's reads,
+        named_bar_sync(1 + wg, 128);  // and so are the warpgroup's
+      }
+      mbar_wait(smem_u32(&sm.bars[s]), (q / GX_ST) & 1);
+      __syncwarp();  // the wgmma instructions need the whole warp
+      const uint32_t st = sm.ring + s * STAGE;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_DX_K / 16; ++kk)  // 16 of K: 32 bytes of x's rows, 16 of W_ih's
+        wgmma_128<0, 1>(acc0, acc1, wg_desc(st + wg * WG_DX_BOX + kk * 32, 16, 1024),
+                        wg_desc(st + WG_DX_SLOT + kk * 2048, WG_DX_BOX, 1024));
+      wg_commit();
+      wg_wait<1>();  // the stage before this one is read: release W_ih's, refill x's
+      if (q > 0 && j == 0) mbar_arrive(smem_u32(&sm.bars[4 + (q - 1) % GX_ST]));
+      if constexpr (!DENSE) load_x(i + GX_ST - 1);
+    }
+    wg_wait<0>();
+    wg_fence_acc(acc0);
+    wg_fence_acc(acc1);
+    if (S > 1) return;  // one step tile a cluster: its partials are summed by the caller
+    // the rows of the valid steps, with b, from the registers
+    const int w4 = warp & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = m0 + wg * 64 + w4 * 16 + (lane >> 2) + 8 * h;
+      if (v >= Mv) continue;
+      float* row = gx + (size_t)valid_row(sm.starts, B, L, v) * N + n0;
+#pragma unroll
+      for (int jj = 0; jj < WG_N / 8; ++jj) {
+        const int col = 8 * jj + 2 * (lane & 3);
+        const float* d = jj < 8 ? acc0 + 4 * jj : acc1 + 4 * (jj - 8);
+        *reinterpret_cast<float2*>(row + col) = make_float2(
+            d[2 * h] + to_f32(bias[n0 + col]), d[2 * h + 1] + to_f32(bias[n0 + col + 1]));
+      }
+    }
+  }
+}
+
+// K1/K3.1 (bf16): block (n tile, y, split); the S = gridDim.z splits of a
+// step tile form a cluster, split z taking K-tiles [nk z / S, nk (z + 1) /
+// S).  m_w: W_ih [D][4H]; m_x: xs [B L][D], read by TMA where every step
+// is valid; boxes of {64, 64}.
+__global__ void __launch_bounds__(WG_THREADS, 2)
+gx_wgmma_kernel(const __grid_constant__ CUtensorMap m_w, const __grid_constant__ CUtensorMap m_x,
+                const __nv_bfloat16* __restrict__ xs, const int64_t* __restrict__ lengths,
+                const __nv_bfloat16* __restrict__ bias, float* __restrict__ gx, int B, int L,
+                int D, int N) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const WgSmem sm = wg_layout(smem_raw, B);
+  valid_starts(lengths, B, L, sm.starts);
+  const int Mv = sm.starts[B], n0 = blockIdx.x * WG_N;
+  if ((int)blockIdx.y * WG_M >= Mv) return;  // the whole cluster: no step tile left
+  wg_init_bars(sm.bars, GX_ST);
+  const int split = blockIdx.z, S = gridDim.z, nk = (D + WG_DX_K - 1) / WG_DX_K;
+  const int kt0 = nk * split / S, n = nk * (split + 1) / S - kt0;
+
+  float acc0[32], acc1[32];
+  // every step valid: x's rows are the valid steps in order, TMA boxes of
+  // 64 rows; otherwise the consumers gather them
+  if (Mv == B * L)
+    gx_tiles<true>(&m_w, &m_x, xs, sm, bias, gx, B, L, D, N, Mv, n0, kt0, n, S, acc0, acc1);
+  else
+    gx_tiles<false>(&m_w, &m_x, xs, sm, bias, gx, B, L, D, N, Mv, n0, kt0, n, S, acc0, acc1);
+  if (S == 1) return;
+  __syncthreads();  // every product has read the ring: it takes the partial tile
+  const int m0 = blockIdx.y * WG_M;
+  float* red = reinterpret_cast<float*>(sm.ring_ptr);
+  if (threadIdx.x < 256) wg_stage_partial(red, acc0, acc1);  // the consumers'
+  cluster.sync();
+  wg_cluster_sum(cluster, red, S, split, [&](int ri, int col, float4 sum) {
+    const int v = m0 + ri;
+    if (v >= Mv) return;
+    const __nv_bfloat16* bc = bias + n0 + col;
+    *reinterpret_cast<float4*>(gx + (size_t)valid_row(sm.starts, B, L, v) * N + n0 + col) =
+        make_float4(sum.x + to_f32(bc[0]), sum.y + to_f32(bc[1]), sum.z + to_f32(bc[2]),
+                    sum.w + to_f32(bc[3]));
+  });
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+cudaError_t launch_gx_wgmma(const __nv_bfloat16* xs, const int64_t* lengths,
+                            const __nv_bfloat16* w_ih, const __nv_bfloat16* bias, float* gx, int B,
+                            int L, int D, int N, cudaStream_t stream) {
+  const int P = B * L;
+  if (P == 0) return cudaSuccess;
+  const EncodeTiled enc = encoder();
+  if (!enc) return cudaErrorNotSupported;
+  CUtensorMap m_w, m_x;
+  if (!encode_terms(enc, &m_w, w_ih, N, D, 1, WG_DX_K) ||
+      !encode_terms(enc, &m_x, xs, D, P, 1, WG_DX_K))
+    return cudaErrorInvalidValue;
+  const size_t smem = wg_smem(B, WG_GX_RING);
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(gx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(gx_wgmma_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return e;
+  const int nt = N / WG_N, mt = (P + WG_M - 1) / WG_M;
+  const int S = gx_splits(nt * mt, (D + WG_DX_K - 1) / WG_DX_K);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nt, gx_rows(nt, mt, S), S);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = S;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, gx_wgmma_kernel, m_w, m_x, xs, lengths, bias, gx, B, L, D,
+                              N)) != cudaSuccess)
     return e;
   return cudaGetLastError();
 }

@@ -5,7 +5,9 @@ K3 replaces ``curriculum_learning_for_vln_tpu/ops/pallas/lstm_scan.py::
 lstm_scan_pallas``, K1 its ``lstm_scan_train_pallas``, K2 its
 ``lstm_scan_bwd_pallas``.  Kernel: ``csrc/lstm_scan.cu`` — the forward is
 one C call of two launches: a tensor-core GEMM for x . W_ih + b over the
-valid steps only, then the recurrence on clusters of 8 blocks, each warp
+valid steps only (f32: mma.sync; bf16: wgmma, W_ih by TMA, x's rows by TMA
+where every step is valid and else gathered by valid step, ``gx_splits``
+ways of K), then the recurrence on clusters of 8 blocks, each warp
 holding its W_hh columns as tensor-core fragments in registers and
 sending its units' new h to every block by st.async (no barrier a step);
 K1 also writes the pre-step carries and keeps the gate pre-activations
@@ -65,7 +67,7 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
 # csrc/lstm_scan.cu's geometry: both recurrences' clusters of CL blocks
-# own R batch rows each.  Forward: gates_x's tiles of GX_TM valid steps x
+# own R batch rows each.  Forward (f32): gates_x's tiles of GX_TM valid steps x
 # GX_TN gate columns, at most GX_YMAX blocks along the steps, GX_STAGES
 # stages of 128-byte rows; the walk's warps each hold FKS_MAX k-steps of
 # W_hh fragments (4 registers each) and a gate tile of rows GT_S floats
@@ -89,6 +91,11 @@ WG_M, WG_N, WG_THREADS, WG_SMS = 128, 128, 288, 132
 WG_DX_K, WG_DW_K = 64, 32
 WG_DX_RING, WG_DW_RING = 12 * 2 * 64 * WG_DX_K * 2, 12 * 2 * 64 * WG_DW_K * 2
 PACK_WARPS = 8
+# K1/K3's gates_x on the bf16 route (gx_wgmma_kernel): dx_wgmma's output
+# tiles, K-tiles of WG_DX_K and threads, through a ring of GX_ST stages of
+# x's tile and W_ih's (WG_GX_RING bytes: two blocks an SM)
+GX_ST = 3
+WG_GX_RING = GX_ST * 2 * 2 * 64 * WG_DX_K * 2
 # dW's term products (A term, da term), terms counted from 0 (t1 the
 # largest), in the order the kernel sums them (the smallest first): dW_ih
 # the three of X and da, dW_hh the six of Hprev's and da's terms with
@@ -162,11 +169,17 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 class FwdPlan(NamedTuple):
-    """K3's and K1's launches.  gates_x's grid (4H tiles, Y step tiles:
-    block y takes step tiles y, y + Y, ... below the valid steps' count,
-    which it computes on the device, so no host synchronisation reads the
-    lengths) of GX_THREADS threads with ``gx_smem`` bytes; the
-    recurrence's ``rec_grid`` blocks (clusters of ``cluster`` blocks along
+    """K3's and K1's launches.  ``gemm`` names gates_x's route.
+    "mma.sync" (f32): gates_x's grid (4H tiles, Y step tiles: block y takes
+    step tiles y, y + Y, ... below the valid steps' count, which it
+    computes on the device, so no host synchronisation reads the lengths)
+    of GX_THREADS threads with ``gx_smem`` bytes.  "wgmma" (bf16):
+    gx_wgmma's grid (4H / WG_N column tiles, ``gx_rows`` rows of blocks
+    over the B L / WG_M step tiles: block y takes tiles y, y + Y, ...
+    below the valid steps, ``gx_splits`` splits of K, clusters of them
+    along z) of WG_THREADS threads with ``gx_smem`` bytes,
+    ``gx_blocks_per_sm`` = 2 blocks an SM.  Then the recurrence's
+    ``rec_grid`` blocks (clusters of ``cluster`` blocks along
     x, each cluster ``rows`` batch rows) of ``rec_threads`` threads with
     ``rec_smem``, of whose warps ``rec_warps`` hold ``w_regs`` registers
     a thread of W_hh fragments for the whole walk (up to H = 256: one warp
@@ -174,7 +187,7 @@ class FwdPlan(NamedTuple):
     walk: every warp), or stream ``w_stream`` bytes of them a step from a
     packed copy of ``w_pack`` elements (the other wide walks).
     ``w_where`` says where W_hh sits during the walk."""
-    gx_grid: Tuple[int, int]
+    gx_grid: Tuple[int, ...]
     gx_smem: int
     rec_grid: int
     rec_smem: int
@@ -186,6 +199,8 @@ class FwdPlan(NamedTuple):
     cluster: int
     rows: int
     w_where: str
+    gemm: str = "mma.sync"
+    gx_blocks_per_sm: int = 1
 
     @property
     def clusters(self) -> int:
@@ -252,11 +267,18 @@ def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
     holds at once, from which ``res_rows`` chooses (on a card, what
     ``plan_query`` reads); the resident walk needs it, the others ignore it."""
     U = H // CL
-    starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
-    kc = 128 // elem_size  # elements of a stage's 128-byte rows
-    x_stride, w_stride = kc + (4 if elem_size == 4 else 8), GX_TN + 8
-    gx_smem = starts + GX_TM * 4 + GX_STAGES * (GX_TM * x_stride + kc * w_stride) * elem_size
-    gx_grid = (4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX))
+    if elem_size == 2:  # gx_wgmma_kernel
+        nt, mt = 4 * H // WG_N, _ceil_div(B * L, WG_M)
+        gx = dict(gemm="wgmma", gx_blocks_per_sm=2)
+        S = gx_splits(nt * mt, _ceil_div(D, WG_DX_K))
+        gx_grid = (nt, gx_rows(nt, mt, S), S)
+        gx_smem = wg_smem(B, WG_GX_RING)
+    else:  # gates_x_kernel: x's and W_ih's stages of 128-byte rows, rows padded
+        gx = {}
+        starts = ((B + 4) & ~3) * 4  # starts [B + 1] ints, rounded up to 16 bytes
+        kc = 32  # floats of a stage's 128-byte rows
+        gx_smem = starts + GX_TM * 4 + GX_STAGES * (GX_TM * (kc + 4) + kc * (GX_TN + 8)) * 4
+        gx_grid = (4 * H // GX_TN, min(_ceil_div(B * L, GX_TM), GX_YMAX))
     if resident(H, elem_size):
         if clusters_at_once is None:
             raise ValueError("the resident walk's rows follow from the clusters the card holds "
@@ -264,14 +286,14 @@ def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
         rows = res_rows(B, clusters_at_once)
         _, _, _, _, mpw, kpw, *_ = res_geometry(H)
         return FwdPlan(gx_grid, gx_smem, _ceil_div(B, rows) * RES_CL, res_smem(H, rows),
-                       RES_T // 32, 4 * mpw * kpw, RES_T, 0, 0, RES_CL, rows, "registers")
+                       RES_T // 32, 4 * mpw * kpw, RES_T, 0, 0, RES_CL, rows, "registers", **gx)
     if H > WIDE_H:
         # the warps' rings; h double-buffered; the gate tiles; the final
         # (h, c); two mbarriers.  A block streams its 4U columns of W_hh
         rec_smem = (WW * WSTAGES * WFQ * 32 * 4 * elem_size
                     + (2 * H * R + WW * R * GT_S + 2 * R * U) * 4 + 16)
         return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 0, WT,
-                       4 * U * H * elem_size, 4 * H * H, CL, R, "streamed from L2")
+                       4 * U * H * elem_size, 4 * H * H, CL, R, "streamed from L2", **gx)
     # W_hh's columns as f32 fragments; h double-buffered; three steps' gx of
     # every warp; the warps' gate tiles; the final (h, c); two mbarriers
     rec_smem = (4 * U * H + 2 * H * R + 3 * WARPS * 4 * R * 4 + WARPS * R * GT_S
@@ -279,7 +301,7 @@ def lstm_scan_fwd_plan(B: int, L: int, D: int, H: int, elem_size: int,
     return FwdPlan(gx_grid, gx_smem, _ceil_div(B, R) * CL, rec_smem, 4 * U // 16, 4 * FKS_MAX,
                    THREADS, 0, 0, CL, R,
                    "registers" if elem_size == 2 else
-                   "registers (TF32 high halves) and shared memory (low halves)")
+                   "registers (TF32 high halves) and shared memory (low halves)", **gx)
 
 
 def plan_query(B: int, H: int, dtype: torch.dtype) -> Tuple[int, ...]:
@@ -372,6 +394,28 @@ def dx_splits(tiles: int, nk: int, sms: int = WG_SMS) -> int:
     return s
 
 
+def gx_splits(tiles: int, nk: int, sms: int = WG_SMS) -> int:
+    """gx_wgmma's splits of K = D: the largest S in {1, 2, 4, 8} whose
+    tiles x S blocks (the tiles counted for B L valid steps) fit one block
+    an SM, with at least 16 K-tiles a split left to halve: a split's
+    partial-tile sum through distributed shared memory costs more than the
+    K-tiles it saves on a fuller card (``scripts/torch_gx_wgmma_variants.py``).
+    The beam's rescoring (32 tiles of 34 K-tiles) splits 4 ways; the
+    speaker's 144 tiles and every D below 16 K-tiles (<= 960), none."""
+    s = 1
+    while s < 8 and 16 * s <= nk and 2 * tiles * s <= sms:
+        s *= 2
+    return s
+
+
+def gx_rows(nt: int, mt: int, S: int, sms: int = WG_SMS) -> int:
+    """gx_wgmma's rows of blocks over the ``mt`` step tiles counted for B L
+    steps: with splits of K one a step tile; without, at most a round of
+    two blocks an SM over the ``nt`` column tiles, block y taking step
+    tiles y, y + Y, ... below the valid steps (counted on the device)."""
+    return mt if S > 1 else min(mt, max(1, 2 * sms // nt))
+
+
 def dw_splits(tiles: int, sms: int = WG_SMS) -> int:
     """The smallest S in {1, 2, 4, 8} whose tiles x S blocks fill 70% of a
     wave of two blocks an SM, doubled once more where that leaves a second
@@ -441,6 +485,36 @@ def wg_tma_boxes(B: int, L: int, D: int, H: int, Mv: int):
                             boxes += [(name, (it * WG_M + 64 * h, v, a)) for a in range(na)]
                             boxes += [("da_dw", (jt * WG_N + 64 * h, v, a)) for a in range(3)]
     return dims, boxes
+
+
+def gx_loads(B: int, L: int, D: int, H: int, Mv: int):
+    """What gx_wgmma reads at Mv valid steps, as its plan cuts the grid:
+    the TMA maps of W_ih and x ("w_ih" [D][4H], "x" [B L][D]: (cols, rows,
+    terms, box rows), every box {64, 64, 1}, its part past the cols or rows
+    reading zeros); the boxes (map, c0, c1) of each block (n tile, y,
+    split), x's only where Mv = B L; and where Mv < B L the (valid step,
+    k) of every 16-byte chunk of x that the consumers gather (v < Mv, k <
+    D; the others are zero-filled), one for each (tile, K-tile, row, chunk
+    of 8)."""
+    P, nk = B * L, _ceil_div(D, WG_DX_K)
+    nt, mt = 4 * H // WG_N, _ceil_div(P, WG_M)
+    _, Y, S = lstm_scan_fwd_plan(B, L, D, H, 2, clusters_at_once=H100_RES_CLUSTERS).gx_grid
+    dims = {"w_ih": (4 * H, D, 1, WG_DX_K), "x": (D, P, 1, WG_DX_K)}
+    boxes, chunks = {}, []
+    for x in range(nt):
+        for y in range(Y):
+            for z in range(S):
+                got = boxes.setdefault((x, y, z), [])
+                for t in range(y, _ceil_div(Mv, WG_M), Y):
+                    for kt in range(nk * z // S, nk * (z + 1) // S):
+                        for h in range(2):
+                            got.append(("w_ih", x * WG_N + 64 * h, kt * WG_DX_K))
+                            if Mv == P:
+                                got.append(("x", kt * WG_DX_K, t * WG_M + 64 * h))
+                        if x == 0 and Mv < P:
+                            chunks += [(v, k) for v in range(t * WG_M, min(Mv, (t + 1) * WG_M))
+                                       for k in range(kt * WG_DX_K, min(D, (kt + 1) * WG_DX_K), 8)]
+    return dims, boxes, chunks
 
 
 def whh_pack_order(H: int, bwd: bool) -> torch.Tensor:
@@ -637,11 +711,28 @@ def _res_bwd_product(da: torch.Tensor, whh: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _gx_wgmma(x, wih, rows: int):
+    """x . W_ih [rows, 4H] (f32 values of bf16 operands) as gx_wgmma sums
+    it: exact products summed in f32 over ``gx_splits``' splits of K = D
+    (whole K-tiles of WG_DX_K), the splits in rank order (its tiles
+    counted for ``rows`` = B L steps)."""
+    D, N = wih.shape
+    nk = _ceil_div(D, WG_DX_K)
+    S = gx_splits(N // WG_N * _ceil_div(rows, WG_M), nk)
+    out = None
+    for s in range(S):
+        ks = slice(nk * s // S * WG_DX_K, nk * (s + 1) // S * WG_DX_K)
+        part = x[:, ks] @ wih[ks]
+        out = part if out is None else out + part
+    return out
+
+
 def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
     """K3's and K1's arithmetic in plain torch on the CPU, as
     ``csrc/lstm_scan.cu`` cuts it: gx = x . W_ih + b in the kernel's
-    precision (bf16: exact products of the bf16 operands summed in f32;
-    f32: TF32 with both operands split); the step product h . W_hh per
+    precision (bf16: exact products of the bf16 operands summed in f32
+    over the splits of K that ``gx_splits`` gives, ``_gx_wgmma``; f32:
+    TF32 with both operands split); the step product h . W_hh per
     block of the cluster (its G4 gate columns) in TF32 with h split into
     two halves and W_hh split in f32 only (bf16 is exact in TF32), or, on
     the resident walk, in bf16 with h as three terms (``_res_product``);
@@ -653,7 +744,8 @@ def lstm_scan_fwd_emulated(xs, lengths, w_ih, w_hh, b, reverse: bool = False):
     f32 = xs.dtype == torch.float32
     res = resident(H, xs.element_size())
     x, wih, whh = xs.float().reshape(B * L, D), w_ih.float(), w_hh.float()
-    gx = (_tf32_mm(x, wih, True, True) if f32 else x @ wih).reshape(B, L, 4 * H) + b.float()
+    gx = (_tf32_mm(x, wih, True, True) if f32 else _gx_wgmma(x, wih, B * L)).reshape(
+        B, L, 4 * H) + b.float()
     h = torch.zeros((B, H))
     c = torch.zeros_like(h)
     outs = torch.zeros((B, L, H))

@@ -34,9 +34,13 @@ checkout's plain version (the tolerances of chip_smoke.py).
   17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch,
   or in bf16 the resident walks, whose backward may write more rows of db's
   partial sums than clusters of 8 rows would: the scratch holds the larger),
-  and at the speaker's first layer, D = 2176, H = 256, L = 35 at full
+  at the speaker's first layer, D = 2176, H = 256, L = 35 at full
   lengths ("speaker D=2176"; K2's bf16 GEMMs there run on wgmma, fed from
-  a packed-operand scratch that a tree before them does not take).
+  a packed-operand scratch that a tree before them does not take), and K3
+  and K1 at the beam's rescoring shapes ("beam rescoring": B = 30, L = 16,
+  1-16 tokens with a 16; D = 2176 in bf16, 512 in f32, H = 256).  The
+  device split names each launch (K1/K3's bf16 gates_x: ``gates_x_kernel``
+  in a tree before its wgmma launch, ``gx_wgmma_kernel`` from it on).
 
 Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
 summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
@@ -130,16 +134,22 @@ def lstm_cases(dtype, dev, gen):
         ("0 tokens", torch.zeros_like(full)), ("80 tokens", full))]
     cases.append(("H=512 17-80 tokens", 256, 512, 80, None))  # the Self-Monitor's encoder
     cases.append(("speaker D=2176", 2176, 256, 35, torch.full((64,), 35, device=dev)))
+    # K3 and K1 only: the beam's rescoring (the speaker's first layer in
+    # bf16, its post-LSTM in f32; B = 30, 1-16 tokens with a 16)
+    beam = torch.randint(1, 17, (30,), generator=gen, device=dev)
+    beam[0] = 16
+    cases.append(("beam rescoring", 2176 if dtype == torch.bfloat16 else 512, 256, 16, beam))
     for label, D, H, L, lengths in cases:
         if lengths is None:
             lengths = cs.long_lengths(64, gen, dev)
-        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, 64, L=L, D=D, H=H)
+        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, lengths.shape[0], L=L, D=D, H=H)
         wpack = torch.empty((4 * H * H,), dtype=dtype, device=dev)  # the wide walks' scratch
         B, L, D = xs.shape
         H = w_hh.shape[0]
         valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
         f32 = dict(dtype=torch.float32, device=dev)
         uniform = label in ("0 tokens", "80 tokens")
+        fwd_only = uniform or label == "beam rescoring"
         bounds = cs.lstm_bounds(xs, lengths, w_ih, w_hh, b)
         libs = (dict.fromkeys(("lstm_scan", "lstm_scan_train")) if uniform else
                 {"lstm_scan": cs.lstm_library_infer(xs, lengths, w_ih, w_hh, b, 20),
@@ -175,7 +185,7 @@ def lstm_cases(dtype, dev, gen):
                 e = cs.compare(got, want, 1e-4)
                 cs.check(e[0] <= e[1], f"{name} {tag} {dtype} {label}: {e[0]:.3g} > {e[1]:.3g}")
             yield name, label, call, check, bounds[name], libs[name]
-        if uniform:
+        if fwd_only:
             continue
 
         # K2 from K1's residuals

@@ -102,15 +102,24 @@ def test_lstm_scan_fwd_plan_fits_the_h100(B, H):
 
 @pytest.mark.parametrize("prec", ["bf16", "f32"])
 def test_lstm_scan_fwd_plan_at_the_path_shape(prec):
-    """B = 64, L = 80, D = H = 256: gates_x in 16 column tiles by 32 blocks
-    along the steps (the 80 tiles of 5,120 steps in three rounds, the 16
-    of the path's ~1,000 valid steps in one); the walk in 8 clusters of 8
+    """B = 64, L = 80, D = H = 256: gates_x in f32 in 16 column tiles by
+    32 blocks along the steps (the 80 tiles of 5,120 steps in three
+    rounds, the 16 of the path's ~1,000 valid steps in one); in bf16 on
+    wgmma in 8 column tiles by 33 blocks along the 40 step tiles of 128
+    (a round of two blocks an SM), K = 256 unsplit, 99,664 bytes a block;
+    the walk in 8 clusters of 8
     blocks, all 8 warps holding an m-tile, 128 fragment registers a
     thread; 167 KB of shared memory a block (W_hh's 128 KB fragments)."""
     plan = t_lstm.lstm_scan_fwd_plan(64, 80, 256, 256, {"bf16": 2, "f32": 4}[prec])
-    assert plan.gx_grid == (16, 32) and plan.rec_grid == 64
-    assert plan.rec_warps == 8 and plan.w_regs == 128
-    assert plan.rec_smem == 166928 and plan.gx_smem == 272 + 256 + 3 * 18432
+    assert plan.rec_grid == 64 and plan.rec_warps == 8 and plan.w_regs == 128
+    assert plan.rec_smem == 166928
+    if prec == "f32":
+        assert plan.gemm == "mma.sync" and plan.gx_grid == (16, 32)
+        assert plan.gx_smem == 272 + 256 + 3 * 18432
+    else:
+        assert plan.gemm == "wgmma" and plan.gx_grid == (8, 33, 1)
+        assert plan.gx_smem == 272 + 64 + 1024 + 3 * 32768 and 2 * plan.gx_smem <= MAX_SMEM
+        assert plan.gx_blocks_per_sm == 2
 
 
 def _valid_sets():
@@ -124,14 +133,14 @@ def _valid_sets():
 
 @pytest.mark.parametrize("name", sorted(_valid_sets()))
 def test_gates_x_grid_covers_the_valid_steps(name):
-    """Block y of gates_x takes valid steps [y' GX_TM, +GX_TM) of the
-    numbering ``valid_steps`` gives, for y' = y, y + Y, ... below their
-    count: every valid step in one tile whatever the lengths; and the
-    valid steps are exactly the (b, t) that the walk of either direction
-    computes."""
+    """Block y of gates_x (f32; bf16's gx_wgmma: test_torch_lstm_fwd_wgmma.py)
+    takes valid steps [y' GX_TM, +GX_TM) of the numbering ``valid_steps``
+    gives, for y' = y, y + Y, ... below their count: every valid step in
+    one tile whatever the lengths; and the valid steps are exactly the
+    (b, t) that the walk of either direction computes."""
     lengths, L_ = _valid_sets()[name], 80
     B = len(lengths)
-    plan = t_lstm.lstm_scan_fwd_plan(B, L_, 256, 256, 2)
+    plan = t_lstm.lstm_scan_fwd_plan(B, L_, 256, 256, 4)
     steps = t_lstm.valid_steps(lengths, L_)
     seen = {}
     Y = plan.gx_grid[1]

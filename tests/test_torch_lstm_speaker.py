@@ -90,7 +90,14 @@ def test_speaker_shape_plans(B, elem):
         # the staging buffers do not grow with D: the K loops do
         assert (f.gx_smem, f.rec_smem, b.dx_smem, b.dw_smem) == (
             base_f.gx_smem, base_f.rec_smem, base_b.dx_smem, base_b.dw_smem)
-        assert f.gx_grid == base_f.gx_grid and f.w_where == base_f.w_where
+        assert f.w_where == base_f.w_where
+        if elem == 4:
+            assert f.gx_grid == base_f.gx_grid
+        else:  # bf16 gates_x: the same tiles, K = D split gx_splits ways
+            assert f.gx_grid[:2] == base_f.gx_grid[:2] == (4 * H // t_lstm.WG_N,
+                                                            -(-B * T // t_lstm.WG_M))
+            assert f.gx_grid[2] == t_lstm.gx_splits(f.gx_grid[0] * f.gx_grid[1],
+                                                    -(-D // t_lstm.WG_DX_K))
         if elem == 4:
             assert b.dx_grid == (-(-D // t_lstm.DX_TN), base_b.dx_grid[1])
             assert b.dw_grid == (4 * H // t_lstm.DW_TJ, -(-D // t_lstm.DW_TI),
