@@ -44,6 +44,7 @@ from ..models.core import cross_entropy_per_sample
 from ..ops import draws
 from ..parallel import mesh as M
 from ..utils.angles import ANGLE_INC
+from ..utils.profiling import span
 from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
 
@@ -227,34 +228,40 @@ def rollout_scan(world: WorldTables, ep: EpisodeBatch, model_carry0: tuple,
     to viewpoints already visited (``cyclic_mask``), from a history of
     the nodes on the device; a frozen step records the node that sticks,
     as a live step on an all-ended batch does."""
-    state = state0 = E.reset(world, ep)
-    visited = visited_history(state0, episode_len) if avoid_cyclic else None
-    mc = model_carry0
-    records = []
-    exit_ = EarlyExit()
-    for t in range(episode_len):
-        if exit_.dead(state.ended):
-            exit_.skip()
-            records.append(frozen_record(world, state, records[-1]))
-            if visited is not None:
-                visited[:, t + 1] = state.node
-            continue
-        with exit_.live():
-            meta = E.observe_meta(world, state, compute_dtype)
-            logits, mc, hidden, progress = model_step(mc, meta, state, t)
-            cand_mask = (meta.cand_mask if visited is None
-                         else cyclic_mask(world, state.node, meta.cand_mask, visited))
-            masked = torch.where(cand_mask, NEG_INF, logits)
-            action, log_prob, entropy = select_action(feedback, masked, meta.teacher, generator)
-        if model_post is not None:
-            mc = model_post(mc, meta, action)
-        new_state, record = step_and_record(world, state, meta, masked, action, log_prob,
-                                            entropy, hidden, progress)
-        if visited is not None:
-            visited[:, t + 1] = new_state.node
-        records.append(record)
-        state = new_state
-    steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
+    with span("rollout.scan"):
+        state = state0 = E.reset(world, ep)
+        visited = visited_history(state0, episode_len) if avoid_cyclic else None
+        mc = model_carry0
+        records = []
+        exit_ = EarlyExit()
+        for t in range(episode_len):
+            if exit_.dead(state.ended):
+                exit_.skip()
+                with span("rollout.env"):
+                    records.append(frozen_record(world, state, records[-1]))
+                    if visited is not None:
+                        visited[:, t + 1] = state.node
+                continue
+            with span("rollout.observe"):
+                meta = E.observe_meta(world, state, compute_dtype)
+            with span("rollout.decode"):
+                with exit_.live():
+                    logits, mc, hidden, progress = model_step(mc, meta, state, t)
+                    cand_mask = (meta.cand_mask if visited is None
+                                 else cyclic_mask(world, state.node, meta.cand_mask, visited))
+                    masked = torch.where(cand_mask, NEG_INF, logits)
+                    action, log_prob, entropy = select_action(feedback, masked, meta.teacher,
+                                                              generator)
+                if model_post is not None:
+                    mc = model_post(mc, meta, action)
+            with span("rollout.env"):
+                new_state, record = step_and_record(world, state, meta, masked, action,
+                                                    log_prob, entropy, hidden, progress)
+                if visited is not None:
+                    visited[:, t + 1] = new_state.node
+            records.append(record)
+            state = new_state
+        steps = StepRecord(*(torch.stack(field) for field in zip(*records)))
     return RolloutResult(final_state=state, start_node=state0.node, start_view=state0.view_idx,
                          steps=steps, model_carry=mc)
 
@@ -328,26 +335,27 @@ def assemble_trajectories(world_host, ep: EpisodeBatch, result: RolloutResult, d
     """Reference-format result dicts from the stacked records
     (ref: evaluator.py:12-18): [(viewpointId, heading_rads, elevation_rads)].
     Only actual moves append entries (ref: common_env.py:108-110)."""
-    nodes = result.steps.node_after.cpu().numpy()       # [T, B]
-    views = result.steps.view_after.cpu().numpy()
-    moved = result.steps.moved.cpu().numpy()
-    start_nodes = result.start_node.cpu().numpy()
-    start_views = result.start_view.cpu().numpy()
-    item_idx = ep.item_idx.cpu().numpy()
-    valid = ep.valid.cpu().numpy()
+    with span("data.assemble"):
+        nodes = result.steps.node_after.cpu().numpy()       # [T, B]
+        views = result.steps.view_after.cpu().numpy()
+        moved = result.steps.moved.cpu().numpy()
+        start_nodes = result.start_node.cpu().numpy()
+        start_views = result.start_view.cpu().numpy()
+        item_idx = ep.item_idx.cpu().numpy()
+        valid = ep.valid.cpu().numpy()
 
-    T, B = nodes.shape
-    results = []
-    for b in range(B):
-        if not valid[b]:
-            continue
-        item = data[int(item_idx[b])]
-        sv = int(start_views[b])
-        path = [(world_host.viewpoint_of(int(start_nodes[b])),
-                 (sv % 12) * ANGLE_INC, (sv // 12 - 1) * ANGLE_INC)]
-        for t in np.flatnonzero(moved[:, b]):
-            v = int(views[t, b])
-            path.append((world_host.viewpoint_of(int(nodes[t, b])),
-                         (v % 12) * ANGLE_INC, (v // 12 - 1) * ANGLE_INC))
-        results.append({"instr_id": item["instr_id"], "trajectory": path})
-    return results
+        T, B = nodes.shape
+        results = []
+        for b in range(B):
+            if not valid[b]:
+                continue
+            item = data[int(item_idx[b])]
+            sv = int(start_views[b])
+            path = [(world_host.viewpoint_of(int(start_nodes[b])),
+                     (sv % 12) * ANGLE_INC, (sv // 12 - 1) * ANGLE_INC)]
+            for t in np.flatnonzero(moved[:, b]):
+                v = int(views[t, b])
+                path.append((world_host.viewpoint_of(int(nodes[t, b])),
+                             (v % 12) * ANGLE_INC, (v // 12 - 1) * ANGLE_INC))
+            results.append({"instr_id": item["instr_id"], "trajectory": path})
+        return results

@@ -53,6 +53,7 @@ from ..ops import bptt, fused_obs, philox
 from ..ops.cuda.drop import NO_DROP, DropSpec, draw_keep_mask
 from ..parallel import mesh as M
 from ..utils.angles import make_angle_feat
+from ..utils.profiling import span
 from ..utils.tokenizer import PAD_IDX
 from ..world.compiler import WorldTables
 from . import common as C
@@ -211,7 +212,7 @@ class EnvDropAgent:
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask_pool = pool.instr_tokens == PAD_IDX
-        with M.replicated_rows():
+        with span("rollout.encode"), M.replicated_rows():
             ctx_pool, h0_pool, c0_pool = encoder_apply(params["encoder"], pool.instr_tokens,
                                                        pool.instr_len, True, drop, generator)
         decode = self._decode(params["decoder"], world, True, generator, feat_mask)
@@ -219,18 +220,19 @@ class EnvDropAgent:
                                      decode, batch_size, episode_len or self.episode_len,
                                      compute_dtype=self.compute_dtype, generator=generator)
         # A2C tail, as rollout's (ref: envdrop.py:222-264)
-        with torch.no_grad():  # one extra decode step bootstraps the return
-            final, ids = result.final_state, result.final_slot_ep
-            # f32 for the unfused decode, as JAX observes it (envdrop.py:167)
-            meta = E.observe_meta(world, final, self.compute_dtype
-                                  if self._fused(world, feat_mask) else torch.float32)
-            _, _, last_h = decode(result.final_carry, ctx_pool[ids], ctx_mask_pool[ids], meta,
-                                  final)
-            last_value = D.critic_apply(params["critic"], last_h, True, drop, generator)
-        values = D.critic_apply(params["critic"], result.steps.hidden.flip(0), True, drop,
-                                generator, batch_dim=1)
-        losses = packed_a2c(result, values, last_value, self.cfg.GAMMA, self.cfg.RL_NORMALIZE,
-                            ctx_pool.shape[0])
+        with span("rollout.loss"):
+            with torch.no_grad():  # one extra decode step bootstraps the return
+                final, ids = result.final_state, result.final_slot_ep
+                # f32 for the unfused decode, as JAX observes it (envdrop.py:167)
+                meta = E.observe_meta(world, final, self.compute_dtype
+                                      if self._fused(world, feat_mask) else torch.float32)
+                _, _, last_h = decode(result.final_carry, ctx_pool[ids], ctx_mask_pool[ids],
+                                      meta, final)
+                last_value = D.critic_apply(params["critic"], last_h, True, drop, generator)
+            values = D.critic_apply(params["critic"], result.steps.hidden.flip(0), True, drop,
+                                    generator, batch_dim=1)
+            losses = packed_a2c(result, values, last_value, self.cfg.GAMMA,
+                                self.cfg.RL_NORMALIZE, ctx_pool.shape[0])
         return losses, result
 
     def rollout(self, params: dict, world: WorldTables, ep: EpisodeBatch, feedback: int,
@@ -256,8 +258,9 @@ class EnvDropAgent:
         params = C.cast_compute_params(params, self.compute_dtype)
         drop = self.cfg.DROP_RATE
         ctx_mask = ep.instr_tokens == PAD_IDX
-        ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
-                                    drop, generator)
+        with span("rollout.encode"):
+            ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
+                                        drop, generator)
         B = ep.instr_tokens.shape[0]
         Bg = M.global_rows(B)  # the denominators' batch: every rank's rows
         decode = self._decode(params["decoder"], world, train, generator, feat_mask)
@@ -277,57 +280,58 @@ class EnvDropAgent:
                                     compute_dtype=self.compute_dtype, generator=generator,
                                     avoid_cyclic=avoid_cyclic)
         steps = result.steps
-        alive = steps.alive_before.float()
+        with span("rollout.loss"):
+            alive = steps.alive_before.float()
 
-        # ---------------- A2C tail (ref: envdrop.py:222-264) ----------------
-        if train_rl:
-            with torch.no_grad():  # one extra decode step bootstraps the return
-                final = result.final_state
-                # the JAX package observes this step in f32 (envdrop.py:226),
-                # which the unfused decode reads; the fused one reads the table
-                meta = E.observe_meta(world, final, self.compute_dtype
-                                      if self._fused(world, feat_mask) else torch.float32)
-                _, _, last_h = decode(result.model_carry, ctx, ctx_mask, meta, final)
-                last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
-            # critic values of all steps, latest first, as one batched call
-            values = D.critic_apply(params["critic"], steps.hidden.flip(0), train, drop,
-                                    generator, batch_dim=1)
-            gamma = self.cfg.GAMMA
-            discount = torch.logical_not(result.final_state.ended).float() * last_value.float()
-            T = steps.reward.shape[0]
-            rl_vec = torch.zeros_like(discount)
-            critic_loss_sum = discount.new_zeros(())
-            for i in range(T):
-                t = T - 1 - i
-                mask = alive[t]
-                discount = discount * gamma + steps.reward[t]
-                r_ = discount.detach()
-                v_ = values[i].float()
-                a_ = (r_ - v_).detach()
-                loss_vec = -steps.log_prob[t] * a_ * mask + 0.5 * (r_ - v_) ** 2 * mask
-                if feedback == C.FEEDBACK_SAMPLE:
-                    loss_vec = loss_vec - 0.01 * steps.entropy[t] * mask
-                critic_loss_sum = critic_loss_sum + (((r_ - v_) ** 2) * mask).sum()
-                rl_vec = rl_vec + loss_vec
-            if self.cfg.RL_NORMALIZE == "total":
-                rl_vec = rl_vec / M.global_sum(alive.sum()).clamp_min(1.0)
-            elif self.cfg.RL_NORMALIZE == "batch":
-                rl_vec = rl_vec / Bg
-            rl_loss = rl_vec.sum()
-        else:
-            zero = alive.new_zeros(())
-            rl_vec, rl_loss, critic_loss_sum = alive.new_zeros(B), zero, zero
+            # ---------------- A2C tail (ref: envdrop.py:222-264) ----------------
+            if train_rl:
+                with torch.no_grad():  # one extra decode step bootstraps the return
+                    final = result.final_state
+                    # the JAX package observes this step in f32 (envdrop.py:226),
+                    # which the unfused decode reads; the fused one reads the table
+                    meta = E.observe_meta(world, final, self.compute_dtype
+                                          if self._fused(world, feat_mask) else torch.float32)
+                    _, _, last_h = decode(result.model_carry, ctx, ctx_mask, meta, final)
+                    last_value = D.critic_apply(params["critic"], last_h, train, drop, generator)
+                # critic values of all steps, latest first, as one batched call
+                values = D.critic_apply(params["critic"], steps.hidden.flip(0), train, drop,
+                                        generator, batch_dim=1)
+                gamma = self.cfg.GAMMA
+                discount = torch.logical_not(result.final_state.ended).float() * last_value.float()
+                T = steps.reward.shape[0]
+                rl_vec = torch.zeros_like(discount)
+                critic_loss_sum = discount.new_zeros(())
+                for i in range(T):
+                    t = T - 1 - i
+                    mask = alive[t]
+                    discount = discount * gamma + steps.reward[t]
+                    r_ = discount.detach()
+                    v_ = values[i].float()
+                    a_ = (r_ - v_).detach()
+                    loss_vec = -steps.log_prob[t] * a_ * mask + 0.5 * (r_ - v_) ** 2 * mask
+                    if feedback == C.FEEDBACK_SAMPLE:
+                        loss_vec = loss_vec - 0.01 * steps.entropy[t] * mask
+                    critic_loss_sum = critic_loss_sum + (((r_ - v_) ** 2) * mask).sum()
+                    rl_vec = rl_vec + loss_vec
+                if self.cfg.RL_NORMALIZE == "total":
+                    rl_vec = rl_vec / M.global_sum(alive.sum()).clamp_min(1.0)
+                elif self.cfg.RL_NORMALIZE == "batch":
+                    rl_vec = rl_vec / Bg
+                rl_loss = rl_vec.sum()
+            else:
+                zero = alive.new_zeros(())
+                rl_vec, rl_loss, critic_loss_sum = alive.new_zeros(B), zero, zero
 
-        ml_weight = self.cfg.ML_WEIGHT
-        if train_ml:
-            ml_loss = C.ml_loss_sum(steps) * ml_weight / Bg
-            ml_vec = C.ml_loss_per_sample(steps) * ml_weight / Bg
-        else:
-            ml_loss, ml_vec = alive.new_zeros(()), alive.new_zeros(B)
-        losses = EnvDropLosses(
-            ml_loss=ml_loss, ml_loss_per_sample=ml_vec, rl_loss=rl_loss,
-            rl_loss_per_sample=rl_vec, entropy_sum=(steps.entropy * alive).sum(),
-            critic_loss_sum=critic_loss_sum, total_actions=alive.sum())
+            ml_weight = self.cfg.ML_WEIGHT
+            if train_ml:
+                ml_loss = C.ml_loss_sum(steps) * ml_weight / Bg
+                ml_vec = C.ml_loss_per_sample(steps) * ml_weight / Bg
+            else:
+                ml_loss, ml_vec = alive.new_zeros(()), alive.new_zeros(B)
+            losses = EnvDropLosses(
+                ml_loss=ml_loss, ml_loss_per_sample=ml_vec, rl_loss=rl_loss,
+                rl_loss_per_sample=rl_vec, entropy_sum=(steps.entropy * alive).sum(),
+                critic_loss_sum=critic_loss_sum, total_actions=alive.sum())
         return losses, result
 
     def loss_fn(self, losses: EnvDropLosses, weights: Optional[torch.Tensor] = None

@@ -29,6 +29,7 @@ from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
 from ..ops import fused_obs
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..utils.tokenizer import PAD_IDX
 from ..world.compiler import WorldTables
 from . import common as C
@@ -78,8 +79,9 @@ class FollowerAgent:
         dec = params["decoder"]
         drop = self.cfg.DROP_RATE
         ctx_mask = ep.instr_tokens == PAD_IDX
-        ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train, drop,
-                                    generator, use_glove=self.glove is not None)
+        with span("rollout.encode"):
+            ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
+                                        drop, generator, use_glove=self.glove is not None)
         B = ep.instr_tokens.shape[0]
         a_prev0 = torch.zeros((B, self.action_emb_size), dtype=self.compute_dtype,
                               device=ctx.device)
@@ -109,8 +111,9 @@ class FollowerAgent:
                                 episode_len or self.episode_len, feedback,
                                 compute_dtype=self.compute_dtype, generator=generator,
                                 model_post=model_post, avoid_cyclic=avoid_cyclic)
-        losses = FollowerLosses(ml_loss=C.ml_loss_mean_over_alive(result.steps),
-                                ml_loss_per_sample=C.ml_loss_per_sample(result.steps))
+        with span("rollout.loss"):
+            losses = FollowerLosses(ml_loss=C.ml_loss_mean_over_alive(result.steps),
+                                    ml_loss_per_sample=C.ml_loss_per_sample(result.steps))
         return losses, result, model_state if model_state is not None else {}
 
     def loss_fn(self, losses: FollowerLosses, weights: Optional[torch.Tensor] = None

@@ -24,6 +24,7 @@ from ..models import decoders as D
 from ..models.encoder import encoder_apply, encoder_init
 from ..ops import fused_obs
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..utils.tokenizer import PAD_IDX
 from ..utils.tree import tree_map
 from ..world.compiler import WorldTables
@@ -80,8 +81,9 @@ class SelfMonitorAgent:
         drop = self.cfg.DROP_RATE
         # the context and its mask span the full MAX_ENC_LEN (ref: monitor.py:68-87)
         ctx_mask = ep.instr_tokens == PAD_IDX
-        ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train, drop,
-                                    generator)
+        with span("rollout.encode"):
+            ctx, h0, c0 = encoder_apply(params["encoder"], ep.instr_tokens, ep.instr_len, train,
+                                        drop, generator)
         B = ep.instr_tokens.shape[0]
         a_prev0 = torch.zeros((B, self.action_emb_size), dtype=self.compute_dtype,
                               device=ctx.device)
@@ -109,28 +111,30 @@ class SelfMonitorAgent:
                                 compute_dtype=self.compute_dtype, generator=generator,
                                 model_post=model_post, avoid_cyclic=avoid_cyclic)
         steps = result.steps
+        with span("rollout.loss"):
+            # progress targets (ref: monitor.py:153-157) from the distance at the
+            # current state: the previous step's dist_after
+            start_dist = world.dist[ep.start_node].gather(1, ep.goal_local[:, None])[:, 0]
+            # [T, B]
+            dist_before = torch.cat([start_dist[None, :], steps.dist_after[:-1]], dim=0)
+            target = (start_dist[None, :] - dist_before) / start_dist[None, :].clamp_min(1e-8)
+            target = torch.where(dist_before <= 3.0, 1.0, target)
+            mse_vec = torch.where(steps.alive_before, (steps.progress - target) ** 2, 0.0)
+            T = mse_vec.shape[0]
+            later = torch.arange(T, device=mse_vec.device) > 0
 
-        # progress targets (ref: monitor.py:153-157) from the distance at the
-        # current state: the previous step's dist_after
-        start_dist = world.dist[ep.start_node].gather(1, ep.goal_local[:, None])[:, 0]
-        dist_before = torch.cat([start_dist[None, :], steps.dist_after[:-1]], dim=0)  # [T, B]
-        target = (start_dist[None, :] - dist_before) / start_dist[None, :].clamp_min(1e-8)
-        target = torch.where(dist_before <= 3.0, 1.0, target)
-        mse_vec = torch.where(steps.alive_before, (steps.progress - target) ** 2, 0.0)
-        T = mse_vec.shape[0]
-        later = torch.arange(T, device=mse_vec.device) > 0
-
-        # scalar (the reference's reductions): per step t > 0, lamb mean_B(mse)
-        # + (1 - lamb) mean_alive(ce); at t = 0 the CE alone
-        # (over every rank's rows in a data-parallel step)
-        ce_step_mean = steps.ce.sum(dim=1) / M.global_sum(steps.ce_count).clamp_min(1)
-        mse_step_mean = mse_vec.sum(dim=1) / M.global_rows(B)
-        ml_scalar = torch.where(later, lamb * mse_step_mean + (1 - lamb) * ce_step_mean,
-                                ce_step_mean).sum()
-        # per sample (SPCL): the joint vector summed over time (ref: monitor.py:151-165)
-        joint = torch.where(later[:, None], lamb * mse_vec + (1 - lamb) * steps.ce, steps.ce)
-        losses = MonitorLosses(ml_loss=ml_scalar, ml_loss_per_sample=joint.sum(dim=0),
-                               progress_loss=mse_step_mean[1:].sum())
+            # scalar (the reference's reductions): per step t > 0, lamb mean_B(mse)
+            # + (1 - lamb) mean_alive(ce); at t = 0 the CE alone
+            # (over every rank's rows in a data-parallel step)
+            ce_step_mean = steps.ce.sum(dim=1) / M.global_sum(steps.ce_count).clamp_min(1)
+            mse_step_mean = mse_vec.sum(dim=1) / M.global_rows(B)
+            ml_scalar = torch.where(later, lamb * mse_step_mean + (1 - lamb) * ce_step_mean,
+                                    ce_step_mean).sum()
+            # per sample (SPCL): the joint vector summed over time (ref: monitor.py:151-165)
+            joint = torch.where(later[:, None], lamb * mse_vec + (1 - lamb) * steps.ce,
+                                steps.ce)
+            losses = MonitorLosses(ml_loss=ml_scalar, ml_loss_per_sample=joint.sum(dim=0),
+                                   progress_loss=mse_step_mean[1:].sum())
         if train:
             model_state = {"decoder_bn": tree_map(torch.Tensor.detach, result.model_carry[3])}
         return losses, result, model_state

@@ -34,6 +34,7 @@ from ..env import env as E
 from ..env.env import EnvState, EpisodeBatch
 from ..models.attention import NEG_INF
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..world.compiler import WorldTables
 from . import common as C
 
@@ -101,52 +102,59 @@ def packed_rollout_scan(world: WorldTables, pool: EpisodeBatch, ctx_pool: torch.
     (slots r * B ...): the refill's cumsum runs over every rank's ended
     flags in global slot order (an all-gather of a [B] flag a step), so
     the pointer and the counts are one process's."""
-    N, B = ctx_pool.shape[0], batch_size
-    mesh = M.step_mesh()
-    first = mesh.data_index * B if mesh is not None else 0
-    ids = torch.arange(first, first + B, device=ctx_pool.device)
-    state = E.reset(world, gather_episodes(pool, ids))
-    mc = (h0_pool[ids], c0_pool[ids], h0_pool[ids])  # h_tilde starts at h (ref: envdrop.py:150)
-    next_ptr = torch.tensor(M.global_rows(B), device=ctx_pool.device)
-    records = []
-    exit_ = C.EarlyExit()
-    for _ in range(episode_len):
-        if exit_.dead(state.ended):
-            exit_.skip()
-            records.append(PackedStep(*(torch.zeros_like(f) for f in records[-1]))._replace(
-                slot_ep=ids))
-            continue
-        with exit_.live():
-            meta = E.observe_meta(world, state, compute_dtype)
-            logits, mc2, h1 = decode(mc, ctx_pool[ids], ctx_mask_pool[ids], meta, state)
-            masked = torch.where(meta.cand_mask, NEG_INF, logits)
-            action, log_prob, entropy = C.select_action(C.FEEDBACK_SAMPLE, masked, meta.teacher,
-                                                        generator)
-        alive_before = torch.logical_not(state.ended)
-        is_stop = E.action_is_stop(world, state, action)
-        new_state = E.step(world, state, action)
-        dist_after = world.dist[new_state.node].gather(1, state.goal_local[:, None])[:, 0]
-        records.append(PackedStep(
-            slot_ep=ids, alive_before=alive_before, ended_now=new_state.ended & alive_before,
-            reward=C.shaped_reward(is_stop, meta.dist, dist_after, alive_before),
-            log_prob=log_prob, entropy=entropy, hidden=h1))
+    with span("rollout.packed"):
+        N, B = ctx_pool.shape[0], batch_size
+        mesh = M.step_mesh()
+        first = mesh.data_index * B if mesh is not None else 0
+        ids = torch.arange(first, first + B, device=ctx_pool.device)
+        state = E.reset(world, gather_episodes(pool, ids))
+        # h_tilde starts at h (ref: envdrop.py:150)
+        mc = (h0_pool[ids], c0_pool[ids], h0_pool[ids])
+        next_ptr = torch.tensor(M.global_rows(B), device=ctx_pool.device)
+        records = []
+        exit_ = C.EarlyExit()
+        for _ in range(episode_len):
+            if exit_.dead(state.ended):
+                exit_.skip()
+                with span("rollout.env"):
+                    records.append(PackedStep(*(torch.zeros_like(f) for f in records[-1]))
+                                   ._replace(slot_ep=ids))
+                continue
+            with span("rollout.observe"):
+                meta = E.observe_meta(world, state, compute_dtype)
+            with span("rollout.decode"), exit_.live():
+                logits, mc2, h1 = decode(mc, ctx_pool[ids], ctx_mask_pool[ids], meta, state)
+                masked = torch.where(meta.cand_mask, NEG_INF, logits)
+                action, log_prob, entropy = C.select_action(C.FEEDBACK_SAMPLE, masked,
+                                                            meta.teacher, generator)
+            with span("rollout.env"):
+                alive_before = torch.logical_not(state.ended)
+                is_stop = E.action_is_stop(world, state, action)
+                new_state = E.step(world, state, action)
+                dist_after = world.dist[new_state.node].gather(1, state.goal_local[:, None])[:, 0]
+                records.append(PackedStep(
+                    slot_ep=ids, alive_before=alive_before,
+                    ended_now=new_state.ended & alive_before,
+                    reward=C.shaped_reward(is_stop, meta.dist, dist_after, alive_before),
+                    log_prob=log_prob, entropy=entropy, hidden=h1))
 
-        # refill the ended slots from the pool, in global slot order
-        want = M.gather_rows(new_state.ended)
-        cand_all = next_ptr + torch.cumsum(want.long(), 0) - 1
-        can_all = want & (cand_all < N)
-        can = can_all[first: first + B]
-        ids = torch.where(can, cand_all[first: first + B], ids)
-        fresh = E.reset(world, gather_episodes(pool, ids))
-        state = EnvState(*(_sel(can, a, b) for a, b in zip(fresh, new_state)))
-        h2, c2, ht2 = mc2
-        mc = (_sel(can, h0_pool[ids], h2), _sel(can, c0_pool[ids], c2),
-              _sel(can, h0_pool[ids], ht2))
-        next_ptr = next_ptr + can_all.sum()
-    steps = PackedStep(*(torch.stack(field) for field in zip(*records)))
-    return PackedResult(steps=steps, final_state=state, final_carry=mc, final_slot_ep=ids,
-                        episodes_started=next_ptr,
-                        episodes_done=M.global_sum(steps.ended_now.sum()))
+            # refill the ended slots from the pool, in global slot order
+            with span("rollout.refill"):
+                want = M.gather_rows(new_state.ended)
+                cand_all = next_ptr + torch.cumsum(want.long(), 0) - 1
+                can_all = want & (cand_all < N)
+                can = can_all[first: first + B]
+                ids = torch.where(can, cand_all[first: first + B], ids)
+                fresh = E.reset(world, gather_episodes(pool, ids))
+                state = EnvState(*(_sel(can, a, b) for a, b in zip(fresh, new_state)))
+                h2, c2, ht2 = mc2
+                mc = (_sel(can, h0_pool[ids], h2), _sel(can, c0_pool[ids], c2),
+                      _sel(can, h0_pool[ids], ht2))
+                next_ptr = next_ptr + can_all.sum()
+        steps = PackedStep(*(torch.stack(field) for field in zip(*records)))
+        return PackedResult(steps=steps, final_state=state, final_carry=mc, final_slot_ep=ids,
+                            episodes_started=next_ptr,
+                            episodes_done=M.global_sum(steps.ended_now.sum()))
 
 
 def packed_a2c(result: PackedResult, values: torch.Tensor, last_value: torch.Tensor,

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ..world.compiler import resolve_device
 from .trainer import ClassicTrainer
 
@@ -136,11 +137,13 @@ class SelfPacedCurriculum(ClassicTrainer):
         return torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
 
     def batch_weights(self, idx: np.ndarray) -> Optional[torch.Tensor]:
-        return self.weight[self._rows(idx)]
+        with span("data.weights"):
+            return self.weight[self._rows(idx)]
 
     def record_losses(self, idx: np.ndarray, loss_per_sample: torch.Tensor) -> None:
         """Scatter the latest per-item losses (ref: curriculum.py:310-314)."""
-        self.loss_for_item[self._rows(idx)] = loss_per_sample.detach().float()
+        with span("data.record"):
+            self.loss_for_item[self._rows(idx)] = loss_per_sample.detach().float()
 
     def curriculum_state(self) -> dict:
         return {"weight": self.weight.cpu().numpy(), "lamb": self.lamb.cpu().numpy(),

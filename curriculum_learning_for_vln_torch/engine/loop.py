@@ -50,6 +50,7 @@ from ..agents.common import (FEEDBACK_ARGMAX, FEEDBACK_IDS, FEEDBACK_SAMPLE, FEE
 from ..env.env import EpisodeBatch
 from ..ops import set_kernels
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves
 from ..world.compiler import WorldTables
 
@@ -181,23 +182,24 @@ def iteration_loss(agent, feedback: str, tables: WorldTables, params: dict, ep,
     if FEEDBACK_IDS[feedback] == FEEDBACK_SAMPLE:
         rl, _ = agent.rollout(params, tables, ep, FEEDBACK_SAMPLE, train=True, train_ml=False,
                               train_rl=True, generator=generator)
-    ml_vec = il.ml_loss_per_sample
-    rl_vec = rl.rl_loss_per_sample if rl is not None else torch.zeros_like(ml_vec)
-    if weights is None:
-        total = il.ml_loss + (rl.rl_loss if rl is not None else 0.0)
-    else:
-        total = torch.dot(weights, ml_vec + rl_vec)  # (ref: curriculum.py:294-296)
-    zero = total.new_zeros(())
-    logs = {
-        "loss": total,
-        "ml_loss": il.ml_loss,
-        "rl_loss": rl.rl_loss if rl is not None else zero,
-        # SPCL per-item record: ml vector * B (ref: curriculum.py:313)
-        "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
-        "entropy": rl.entropy_sum if rl is not None else il.entropy_sum,
-        "critic_loss": rl.critic_loss_sum if rl is not None else zero,
-        "total_actions": rl.total_actions if rl is not None else il.total_actions,
-    }
+    with span("rollout.loss"):
+        ml_vec = il.ml_loss_per_sample
+        rl_vec = rl.rl_loss_per_sample if rl is not None else torch.zeros_like(ml_vec)
+        if weights is None:
+            total = il.ml_loss + (rl.rl_loss if rl is not None else 0.0)
+        else:
+            total = torch.dot(weights, ml_vec + rl_vec)  # (ref: curriculum.py:294-296)
+        zero = total.new_zeros(())
+        logs = {
+            "loss": total,
+            "ml_loss": il.ml_loss,
+            "rl_loss": rl.rl_loss if rl is not None else zero,
+            # SPCL per-item record: ml vector * B (ref: curriculum.py:313)
+            "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
+            "entropy": rl.entropy_sum if rl is not None else il.entropy_sum,
+            "critic_loss": rl.critic_loss_sum if rl is not None else zero,
+            "total_actions": rl.total_actions if rl is not None else il.total_actions,
+        }
     return total, logs
 
 
@@ -218,23 +220,24 @@ def packed_iteration_loss(agent, tables: WorldTables, params: dict, ep: EpisodeB
     il, _ = agent.rollout(params, tables, ep, FEEDBACK_TEACHER, train=True, train_ml=True,
                           train_rl=False, episode_len=il_len, generator=generator)
     rl, _ = agent.rollout_packed(params, tables, pool, batch_size=B, generator=generator)
-    ml_vec = il.ml_loss_per_sample
-    if w_il is None:
-        total = il.ml_loss + rl.rl_loss
-    else:
-        total = torch.dot(w_il, ml_vec) + torch.dot(w_pool, rl.rl_loss_per_episode)
-    logs = {
-        "loss": total,
-        "ml_loss": il.ml_loss,
-        "rl_loss": rl.rl_loss,
-        # SPCL per-item record for the IL batch (ref: curriculum.py:313)
-        "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
-        "entropy": rl.entropy_sum,
-        "critic_loss": rl.critic_loss_sum,
-        "total_actions": rl.total_actions,
-        "episodes_done": rl.episodes_done,
-        "episodes_started": rl.episodes_started,
-    }
+    with span("rollout.loss"):
+        ml_vec = il.ml_loss_per_sample
+        if w_il is None:
+            total = il.ml_loss + rl.rl_loss
+        else:
+            total = torch.dot(w_il, ml_vec) + torch.dot(w_pool, rl.rl_loss_per_episode)
+        logs = {
+            "loss": total,
+            "ml_loss": il.ml_loss,
+            "rl_loss": rl.rl_loss,
+            # SPCL per-item record for the IL batch (ref: curriculum.py:313)
+            "loss_per_sample": ml_vec * M.global_rows(ml_vec.shape[0]),
+            "entropy": rl.entropy_sum,
+            "critic_loss": rl.critic_loss_sum,
+            "total_actions": rl.total_actions,
+            "episodes_done": rl.episodes_done,
+            "episodes_started": rl.episodes_started,
+        }
     return total, logs
 
 
@@ -273,12 +276,15 @@ def _update(optimizer: torch.optim.Optimizer, params: dict, total: torch.Tensor,
     ``clip`` the clip at 40 of the encoder's and the decoder's (EnvDrop's
     alone, loop.py:146), one optimizer step on ``params`` (in place); the
     detached global logs."""
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    M.all_reduce_grads(params, mesh)
+    with span("update.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        M.all_reduce_grads(params, mesh)
     if clip:
-        clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
-    optimizer.step()
+        with span("update.clip"):
+            clip_submodule_grads(params, ("encoder", "decoder"), 40.0)
+    with span("update.optim"):
+        optimizer.step()
     return reduce_logs({k: v.detach() for k, v in logs.items()}, mesh)
 
 
@@ -299,7 +305,8 @@ def agent_iteration_loss(agent, feedback: str, tables: WorldTables, params: dict
     losses, _, model_state = agent.rollout(
         params, tables, ep, fb, train=True, generator=generator, model_state=model_state,
         episode_len=il_len if fb == FEEDBACK_TEACHER else None, **kwargs)
-    total = agent.loss_fn(losses, weights)
+    with span("rollout.loss"):
+        total = agent.loss_fn(losses, weights)
     logs = {"loss": total, "ml_loss": losses.ml_loss,
             "loss_per_sample": losses.ml_loss_per_sample}
     if agent.name == "SELF-MONITOR":
@@ -316,11 +323,12 @@ def agent_one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, table
     one unclipped update of ``params``; with a ``mesh``, ``ep`` is this
     rank's rows and ``weights`` the global batch's.  Returns (the detached
     logs, the new model state)."""
-    with M.sharded_step(mesh):
-        total, logs, model_state = agent_iteration_loss(
-            agent, feedback, tables, params, model_state, ep, generator, M.local_rows(weights),
-            il_len, lamb)
-    return _update(optimizer, params, total, logs, clip=False, mesh=mesh), model_state
+    with span("iter"):
+        with M.sharded_step(mesh):
+            total, logs, model_state = agent_iteration_loss(
+                agent, feedback, tables, params, model_state, ep, generator,
+                M.local_rows(weights), il_len, lamb)
+        return _update(optimizer, params, total, logs, clip=False, mesh=mesh), model_state
 
 
 def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: WorldTables,
@@ -330,10 +338,11 @@ def one_iter(agent, optimizer: torch.optim.Optimizer, feedback: str, tables: Wor
     """One training iteration: ``iteration_loss`` and one update of
     ``params``; with a ``mesh``, ``ep`` is this rank's rows and ``weights``
     the global batch's.  Returns the detached logs."""
-    with M.sharded_step(mesh):
-        total, logs = iteration_loss(agent, feedback, tables, params, ep, generator,
-                                     M.local_rows(weights), il_len)
-    return _update(optimizer, params, total, logs, mesh=mesh)
+    with span("iter"):
+        with M.sharded_step(mesh):
+            total, logs = iteration_loss(agent, feedback, tables, params, ep, generator,
+                                         M.local_rows(weights), il_len)
+        return _update(optimizer, params, total, logs, mesh=mesh)
 
 
 def packed_one_iter(agent, optimizer: torch.optim.Optimizer, tables: WorldTables, params: dict,
@@ -345,10 +354,11 @@ def packed_one_iter(agent, optimizer: torch.optim.Optimizer, tables: WorldTables
     of the global IL batch and its weights, ``pool`` and ``w_pool`` the
     global pool's.  Returns the detached logs, ``episodes_done`` and
     ``episodes_started`` among them."""
-    with M.sharded_step(mesh):
-        total, logs = packed_iteration_loss(agent, tables, params, ep, pool, generator,
-                                            M.local_rows(w_il), w_pool, il_len)
-    return _update(optimizer, params, total, logs, mesh=mesh)
+    with span("iter"):
+        with M.sharded_step(mesh):
+            total, logs = packed_iteration_loss(agent, tables, params, ep, pool, generator,
+                                                M.local_rows(w_il), w_pool, il_len)
+        return _update(optimizer, params, total, logs, mesh=mesh)
 
 
 def concat_batches(batches) -> EpisodeBatch:

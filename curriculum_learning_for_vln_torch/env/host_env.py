@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..utils.tokenizer import Tokenizer
 from ..world.compiler import CompiledWorld, resolve_device
 from .env import EpisodeBatch
@@ -146,8 +147,9 @@ class R2RBatchEnv:
     def next_batch(self) -> EpisodeBatch:
         """The next training minibatch (this rank's rows of it under
         ``set_sharding``; the whole of it is ``cur_full_batch``)."""
-        self.cur_full_batch = self._make_batch(self._next_indices())
-        return self._place(self.cur_full_batch)
+        with span("data.next_batch"):
+            self.cur_full_batch = self._make_batch(self._next_indices())
+            return self._place(self.cur_full_batch)
 
     def inject_batch(self, idx: np.ndarray, instr_tokens: np.ndarray,
                      instr_len: np.ndarray) -> EpisodeBatch:

@@ -29,6 +29,7 @@ from .agents.common import FEEDBACK_ARGMAX, RolloutResult, assemble_trajectories
 from .convert import load_jax_checkpoint
 from .env.env import EpisodeBatch
 from .ops import set_kernels
+from .utils.profiling import span
 from .utils.tokenizer import Tokenizer
 from .utils.tree import tree_map
 from .world.compiler import CompiledWorld, resolve_device
@@ -79,35 +80,36 @@ class Navigator:
         """The padded episode batch for a micro-batch of requests."""
         if len(requests) > self.max_batch:
             raise ValueError(f"{len(requests)} requests exceed the micro-batch limit {self.max_batch}")
-        B, L = self.max_batch, self.tok.encoding_length
-        tokens = np.zeros((B, L), np.int64)
-        lengths = np.ones(B, np.int64)
-        start = np.zeros(B, np.int64)
-        heading = np.zeros(B, np.float32)
-        goal = np.zeros(B, np.int64)
-        goal_local = np.zeros(B, np.int64)
-        valid = np.zeros(B, bool)
-        for i, req in enumerate(requests):
-            enc = self.tok.encode_sentence(req["instruction"])
-            if enc is None:
-                raise ValueError(f"un-encodable instruction: {req['instruction']!r}")
-            tokens[i], lengths[i] = enc
-            g = self.world.global_id(req["scan"], req["start_viewpoint"])
-            start[i] = g
-            heading[i] = float(req.get("heading", 0.0))
-            tgt = (self.world.global_id(req["scan"], req["goal_viewpoint"])
-                   if "goal_viewpoint" in req else g)
-            goal[i] = tgt
-            goal_local[i] = self.world.node_local[tgt]
-            valid[i] = True
+        with span("data.episodes"):
+            B, L = self.max_batch, self.tok.encoding_length
+            tokens = np.zeros((B, L), np.int64)
+            lengths = np.ones(B, np.int64)
+            start = np.zeros(B, np.int64)
+            heading = np.zeros(B, np.float32)
+            goal = np.zeros(B, np.int64)
+            goal_local = np.zeros(B, np.int64)
+            valid = np.zeros(B, bool)
+            for i, req in enumerate(requests):
+                enc = self.tok.encode_sentence(req["instruction"])
+                if enc is None:
+                    raise ValueError(f"un-encodable instruction: {req['instruction']!r}")
+                tokens[i], lengths[i] = enc
+                g = self.world.global_id(req["scan"], req["start_viewpoint"])
+                start[i] = g
+                heading[i] = float(req.get("heading", 0.0))
+                tgt = (self.world.global_id(req["scan"], req["goal_viewpoint"])
+                       if "goal_viewpoint" in req else g)
+                goal[i] = tgt
+                goal_local[i] = self.world.node_local[tgt]
+                valid[i] = True
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
+            def dev(a):
+                return torch.from_numpy(a).to(self.device)
 
-        return EpisodeBatch(
-            instr_tokens=dev(tokens), instr_len=dev(lengths), start_node=dev(start),
-            start_heading=dev(heading), goal=dev(goal), goal_local=dev(goal_local),
-            item_idx=torch.arange(B, device=self.device), valid=dev(valid))
+            return EpisodeBatch(
+                instr_tokens=dev(tokens), instr_len=dev(lengths), start_node=dev(start),
+                start_heading=dev(heading), goal=dev(goal), goal_local=dev(goal_local),
+                item_idx=torch.arange(B, device=self.device), valid=dev(valid))
 
     @torch.inference_mode()
     def rollout(self, ep: EpisodeBatch) -> RolloutResult:
@@ -119,13 +121,14 @@ class Navigator:
         """Each request: {"instruction", "scan", "start_viewpoint",
         "heading" (optional), "goal_viewpoint" (optional, metrics only)}.
         Returns per-request {"trajectory", "instruction"} dicts."""
-        ep = self.episodes(requests)
-        result = self.rollout(ep)
-        data = [{"instr_id": i} for i in range(self.max_batch)]
-        by_idx = {o["instr_id"]: o["trajectory"]
-                  for o in assemble_trajectories(self.world, ep, result, data)}
-        return [{"instruction": req["instruction"], "trajectory": by_idx[i]}
-                for i, req in enumerate(requests)]
+        with span("call"):
+            ep = self.episodes(requests)
+            result = self.rollout(ep)
+            data = [{"instr_id": i} for i in range(self.max_batch)]
+            by_idx = {o["instr_id"]: o["trajectory"]
+                      for o in assemble_trajectories(self.world, ep, result, data)}
+            return [{"instruction": req["instruction"], "trajectory": by_idx[i]}
+                    for i, req in enumerate(requests)]
 
     def navigate(self, instruction: str, scan: str, start_viewpoint: str,
                  heading: float = 0.0) -> dict:

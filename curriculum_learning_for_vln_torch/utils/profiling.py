@@ -8,6 +8,20 @@ chrome://tracing) under ``logdir``; ``StepTimer`` keeps named wall-clock
 timers that synchronize the card on stop, and writes their means to the
 scalar writer.  The trainers trace their second epoch with
 ``TPU.PROFILE_DIR`` (engine/trainer.py).
+
+``span(name)`` marks a region of the program as ``vln.<name>`` in the
+same trace, on the profiler's clock, so that the card's idle time can
+be put down to what the host was doing; it records only while a
+profiler records, and costs one flag read otherwise.  A span's layer is
+its name up to the second dot (``vln.rollout.decode``: the rollout).
+The spans: ``vln.iter`` (engine/loop.py's iterations) and ``vln.call``
+(``Navigator.navigate_batch``); ``vln.data.next_batch``, ``.weights``,
+``.record``, ``.episodes``, ``.assemble`` (the batch build, SPCL's
+weights and loss record, serving's episode batch and trajectories);
+``vln.rollout.encode``, ``.scan``, ``.packed``, ``.observe``,
+``.decode``, ``.env``, ``.refill``, ``.loss`` (the encoder, the step
+loops and each live step's parts, the losses); ``vln.update.backward``,
+``.clip``, ``.optim``.  ``scripts/torch_span_table.py`` reads them.
 """
 from __future__ import annotations
 
@@ -18,6 +32,18 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+from torch.autograd import profiler as _profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function("vln." + name)`` while a ``torch.profiler``
+    records, else one shared null context (no ``record_function`` is
+    made)."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function("vln." + name)
+    return _OFF
 
 
 @contextlib.contextmanager
