@@ -59,7 +59,14 @@ def embedding_init(gen: torch.Generator, num: int, dim: int,
 
 
 def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    return p["w"][ids]
+    """The rows of ``p["w"]`` at ``ids``.  Every position's gradient reaches
+    its row, the padding row's too (no ``padding_idx``), as the JAX
+    package's scatter-add does.  ``F.embedding``'s backward on the card
+    sorts the ids, sums each id's gradient rows in f32 in parallel pieces
+    and rounds a row once; advanced indexing's (``index_put_`` with
+    accumulate) walks an id's duplicates one by one, rounding to the
+    table's dtype at each, which the padding id's thousands make slow."""
+    return torch.nn.functional.embedding(ids, p["w"])
 
 
 # ---------------------------------------------------------------------------
