@@ -3145,9 +3145,10 @@ def vilbert_phase(world, data, tok, device, card):
 
     # (b) + (c) pretraining steps, each timed; the loss falls over them
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    uniform = torch.full((world.features.shape[0], cfg.v_target_size), 1.0 / cfg.v_target_size,
+                         device=device)  # no region labels: the region loss is inert
     batches = pretrain_batches(world, items, tok, VIL_BATCH, VIL_PATH, FEAT_DIM,
-                               n_region_classes=cfg.v_target_size, epochs=2, seed=SEED,
-                               device=device)
+                               node_targets=uniform, epochs=2, seed=SEED, device=device)
     trainer.step(params, opt, next(batches), gen)  # warm-up
     torch.cuda.synchronize()
     times, losses = [], []

@@ -71,8 +71,18 @@ def path_scorer_inputs(
     feat_dim: int = 2048,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(features [L, D], locations [L, 12], mask [L]) of one path, f32."""
+    locs, mask = path_locations(world, path_nodes, path_views, max_path_len)
+    feats = np.zeros((max_path_len, feat_dim), np.float32)
+    for t in range(int(mask.sum())):
+        feats[t] = world.features[int(path_nodes[t]), int(path_views[t])][:feat_dim]
+    return feats, locs, mask
+
+
+def path_locations(world: CompiledWorld, path_nodes: Sequence[int], path_views: Sequence[int],
+                   max_path_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(locations [L, 12], mask [L]) of one path, f32: ``path_scorer_inputs``
+    without the features, which a caller may gather on the card."""
     L = max_path_len
-    feats = np.zeros((L, feat_dim), np.float32)
     locs = np.zeros((L, 12), np.float32)
     mask = np.zeros((L,), np.float32)
     n = min(len(path_nodes), L)
@@ -85,7 +95,6 @@ def path_scorer_inputs(
     for t in range(n):
         g = int(path_nodes[t])
         v = int(path_views[t])
-        feats[t] = world.features[g, v][:feat_dim]
         p = pos[g]
         progress = 1.0 - float(world.dist[g, goal_local]) / total
         locs[t, 0] = (p[0] - start[0]) / extent
@@ -101,7 +110,7 @@ def path_scorer_inputs(
             locs[t, 9:11] = [math.sin(hn), math.cos(hn)]
         locs[t, 11] = min(t, 31)
         mask[t] = 1.0
-    return feats, locs, mask
+    return locs, mask
 
 
 def _view_heading(view_index):

@@ -9,7 +9,13 @@ end to end on a synthetic grounded world.  Runs on CUDA unless
 ``--device`` names another device, and raises without a GPU:
 
     python -m curriculum_learning_for_vln_torch.build_clr2r --out DIR \\
-        [--steps 120] [--device cpu] [--mesh-model M]
+        [--steps 120] [--device cpu] [--mesh-model M] \\
+        [--vilbert-config configs/vilbert/bert_base_6layer_6conect.json] [--batch-size 16]
+
+Without ``--vilbert-config`` the scorer is a small one (hidden 64, 2 + 2
+layers) over 128-d features; with a published ViLBERT JSON it runs at
+that file's widths, over features of its ``v_feature_size`` and region
+targets over its ``v_target_size`` classes (the rooms' one-hot).
 
 Writes DIR/R2R_round_{1..5}_v3.json in the reference's round-file format
 and prints {"rounds": {...}, "final_loss": x} as its last line.
@@ -39,6 +45,10 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda; raises without a GPU)")
+    ap.add_argument("--vilbert-config", default=None,
+                    help="a ViLBERT JSON (e.g. configs/vilbert/bert_base_6layer_6conect.json); "
+                         "default: the small scorer")
+    ap.add_argument("--batch-size", type=int, default=16, help="pretraining pairs a step")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="ranks of a model group, over which the scorer's heads split "
                          "(several processes: the VLN_* variables, as main)")
@@ -73,7 +83,8 @@ def build(args, device, mesh) -> dict:
     from .utils.tokenizer import Tokenizer, build_vocab
     from .world import compiler, synthetic
 
-    feat = 128
+    published = VilBertConfig.from_json_file(args.vilbert_config) if args.vilbert_config else None
+    feat = published.v_feature_size if published else 128
     max_path = 8
     graphs = synthetic.make_world_graphs(args.scans, args.nodes, seed=args.seed)
     world = compiler.compile_world(graphs, max_candidates=16)
@@ -84,23 +95,31 @@ def build(args, device, mesh) -> dict:
     tok = Tokenizer(build_vocab(items, min_count=1), encoding_length=24)
     data = expand_r2r_items(items, tok)
 
-    cfg = VilBertConfig(
+    if published and published.vocab_size < tok.vocab_size():
+        raise ValueError(f"{args.vilbert_config}: vocab_size {published.vocab_size} < the "
+                         f"world's {tok.vocab_size()} words")
+    cfg = published or VilBertConfig(
         vocab_size=tok.vocab_size(), hidden_size=64, num_hidden_layers=2,
         num_attention_heads=4, intermediate_size=128, max_position_embeddings=32,
         v_feature_size=feat, v_target_size=len(synthetic.ROOM_TYPES),
         v_hidden_size=64, v_num_hidden_layers=2, v_num_attention_heads=4,
         v_intermediate_size=128, bi_hidden_size=64, bi_num_attention_heads=4,
         v_biattention_id=(0, 1), t_biattention_id=(0, 1))
-    trainer = VLNBertPretrainer(cfg, mask_idx=1, lr=3e-4)
+    if len(data) < args.batch_size:
+        raise ValueError(f"--batch-size {args.batch_size} > the {len(data)} instructions")
+    # ViLBERT's published pretraining rate at its widths; the small scorer learns faster
+    trainer = VLNBertPretrainer(cfg, mask_idx=1, lr=1e-4 if published else 3e-4)
     params, optimizer = trainer.init(torch.Generator().manual_seed(args.seed), device)
+
+    rooms_onehot = torch.eye(cfg.v_target_size, device=device)[torch.from_numpy(rooms).to(device)]
 
     def batches():
         n = 0
         while n < args.steps:
-            for b in pretrain_batches(world, data, tok, batch_size=16, max_path_len=max_path,
-                                      feat_dim=feat, region_classes=rooms,
-                                      n_region_classes=len(synthetic.ROOM_TYPES), epochs=1,
-                                      seed=args.seed + n, device=device):
+            for b in pretrain_batches(world, data, tok, batch_size=args.batch_size,
+                                      max_path_len=max_path, feat_dim=feat,
+                                      node_targets=rooms_onehot, epochs=1, seed=args.seed + n,
+                                      device=device):
                 yield b
                 n += 1
                 if n >= args.steps:

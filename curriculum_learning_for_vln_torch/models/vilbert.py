@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .core import dense, dropout
 
 
@@ -93,9 +94,35 @@ class VilBertConfig:
     # (ref: vilbert.py:129-272 from_dict/from_json_file/to_dict/to_json_string)
     @classmethod
     def from_dict(cls, json_object: dict) -> "VilBertConfig":
+        """The config of a published ViLBERT JSON (vilbert_beta's
+        ``config/*.json``) or of ``to_dict``.  The published keys the
+        dataclass does not hold are read: ``pooling_method`` is
+        ``fusion_method``; ``hidden_act`` / ``v_hidden_act`` must be "gelu"
+        (the erf GELU every layer computes) and ``bi_attention_type`` 1 (the
+        scaled dot-product co-attention), else it raises;
+        ``bi_intermediate_size`` and ``v_initializer_range`` are read by no
+        layer of the published code either (the connection layer runs each
+        stream's own FFN width, the init reads ``initializer_range``).  Other
+        keys (a Hugging Face file's extras) are left out."""
+        d = dict(json_object)
+        for key in ("hidden_act", "v_hidden_act"):
+            if d.pop(key, "gelu") != "gelu":
+                raise ValueError(f"{key} {json_object[key]!r}: the port computes the erf GELU "
+                                 "alone ('gelu')")
+        if d.pop("bi_attention_type", 1) != 1:
+            raise ValueError(f"bi_attention_type {json_object['bi_attention_type']!r}: the port "
+                             "computes the scaled dot-product co-attention alone (1)")
+        if "pooling_method" in d:
+            pooling = d.pop("pooling_method")
+            if d.setdefault("fusion_method", pooling) != pooling:
+                raise ValueError(f"pooling_method {pooling!r} and fusion_method "
+                                 f"{d['fusion_method']!r} disagree")
+        if d.get("fusion_method", "mul") not in ("sum", "mul"):
+            raise ValueError(f"pooling_method / fusion_method {d['fusion_method']!r}: 'sum' or "
+                             "'mul'")
         known = {f.name for f in dataclasses.fields(cls)}
         kwargs = {}
-        for k, v in json_object.items():
+        for k, v in d.items():
             if k in known:
                 if k in ("v_biattention_id", "t_biattention_id"):
                     v = tuple(v)
@@ -347,28 +374,36 @@ def vilbert_apply(
     if co_attention_mask is not None:
         co_mask = co_attention_mask[:, None].float() * 5.0  # (vilbert.py:1369)
 
-    emb = params["embeddings"]
-    t_x = (emb["word"][input_txt] + emb["position"][torch.arange(Lt, device=dev)][None]
-           + emb["token_type"][token_type_ids])
-    t_x = dropout(layer_norm(emb["ln"], t_x), cfg.hidden_dropout_prob, train, generator)
+    with span("vilbert.embed"):
+        # every lookup through F.embedding: its backward sums an id's rows in
+        # parallel, where indexing's walks them one by one (the padding id's
+        # thousands; the one token type of every position)
+        emb = params["embeddings"]
+        t_x = (F.embedding(input_txt, emb["word"])
+               + emb["position"][:Lt][None]
+               + F.embedding(token_type_ids, emb["token_type"]))
+        t_x = dropout(layer_norm(emb["ln"], t_x), cfg.hidden_dropout_prob, train, generator)
 
-    ve = params["v_embeddings"]
-    v_img = dense(ve["image"], input_imgs)
-    v_loc = (dense(ve["location"], image_loc[..., :5])
-             + dense(ve["orientation"], image_loc[..., 5:9])
-             + dense(ve["next_orientation"], image_loc[..., 9:11])
-             + ve["sequence"][image_loc[..., 11].long()])
-    v_x = dropout(layer_norm(ve["ln"], v_img + v_loc), cfg.hidden_dropout_prob, train, generator)
+        ve = params["v_embeddings"]
+        v_img = dense(ve["image"], input_imgs)
+        v_loc = (dense(ve["location"], image_loc[..., :5])
+                 + dense(ve["orientation"], image_loc[..., 5:9])
+                 + dense(ve["next_orientation"], image_loc[..., 9:11])
+                 + F.embedding(image_loc[..., 11].long(), ve["sequence"]))
+        v_x = dropout(layer_norm(ve["ln"], v_img + v_loc), cfg.hidden_dropout_prob, train,
+                      generator)
 
     def v_layer(idx, v_x):
-        return _bert_layer(params["v_layers"][idx], v_x, v_mask, cfg.v_num_attention_heads,
-                           train, cfg.v_hidden_dropout_prob, cfg.v_attention_probs_dropout_prob,
-                           generator, tp)
+        with span("vilbert.vision"):
+            return _bert_layer(params["v_layers"][idx], v_x, v_mask, cfg.v_num_attention_heads,
+                               train, cfg.v_hidden_dropout_prob,
+                               cfg.v_attention_probs_dropout_prob, generator, tp)
 
     def t_layer(idx, t_x):
-        return _bert_layer(params["t_layers"][idx], t_x, t_mask, cfg.num_attention_heads, train,
-                           cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, generator,
-                           tp)
+        with span("vilbert.text"):
+            return _bert_layer(params["t_layers"][idx], t_x, t_mask, cfg.num_attention_heads,
+                               train, cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob,
+                               generator, tp)
 
     # the interleaved encoder (vilbert.py:758-895)
     v_start = t_start = 0
@@ -382,22 +417,24 @@ def vilbert_apply(
             if idx < cfg.fixed_t_layer:
                 t_x = t_x.detach()
         if cfg.with_coattention:
-            v_x, t_x = _connection_layer(params["c_layers"][count], cfg, v_x, v_mask, t_x,
-                                         t_mask, co_mask, train, generator, tp)
+            with span("vilbert.coattn"):
+                v_x, t_x = _connection_layer(params["c_layers"][count], cfg, v_x, v_mask, t_x,
+                                             t_mask, co_mask, train, generator, tp)
         v_start, t_start = v_end, t_end
     for idx in range(v_start, cfg.v_num_hidden_layers):
         v_x = v_layer(idx, v_x)
     for idx in range(t_start, cfg.num_hidden_layers):
         t_x = t_layer(idx, t_x)
 
-    if cfg.pool_method == "mean":
-        tm, vm = attention_mask.float(), image_attention_mask.float()
-        t_in = (t_x * tm[..., None]).sum(1) / tm.sum(1, keepdim=True).clamp_min(1.0)
-        v_in = (v_x * vm[..., None]).sum(1) / vm.sum(1, keepdim=True).clamp_min(1.0)
-    else:  # "first": reference parity (vilbert.py:970-996)
-        t_in, v_in = t_x[:, 0], v_x[:, 0]
-    pooled_t = torch.relu(dense(params["t_pooler"], t_in))
-    pooled_v = torch.relu(dense(params["v_pooler"], v_in))
+    with span("vilbert.heads"):
+        if cfg.pool_method == "mean":
+            tm, vm = attention_mask.float(), image_attention_mask.float()
+            t_in = (t_x * tm[..., None]).sum(1) / tm.sum(1, keepdim=True).clamp_min(1.0)
+            v_in = (v_x * vm[..., None]).sum(1) / vm.sum(1, keepdim=True).clamp_min(1.0)
+        else:  # "first": reference parity (vilbert.py:970-996)
+            t_in, v_in = t_x[:, 0], v_x[:, 0]
+        pooled_t = torch.relu(dense(params["t_pooler"], t_in))
+        pooled_v = torch.relu(dense(params["v_pooler"], v_in))
     return t_x, v_x, pooled_t, pooled_v
 
 
@@ -450,29 +487,30 @@ def vlnbert_apply(
         params["bert"], cfg, instr_tokens, image_features, image_locations, token_type_ids,
         attention_mask, image_attention_mask, co_attention_mask, train=train,
         generator=generator, tp=tp)
-    cls = params["cls"]
-    linguistic_pred = vision_pred = None
-    if compute_heads:
-        # the LM head, its decoder tied to the word embedding
-        h = layer_norm(cls["transform_ln"], gelu(dense(cls["transform"], seq_t)))
-        word = params["bert"]["embeddings"]["word"]
-        dtype = torch.promote_types(h.dtype, word.dtype)
-        linguistic_pred = h.to(dtype) @ word.to(dtype).t() + cls["decoder_bias"].to(dtype)
-        hv = layer_norm(cls["v_transform_ln"], gelu(dense(cls["v_transform"], seq_v)))
-        vision_pred = dense(cls["v_decoder"], hv)
-    # fusion and the path logit (vln_bert.py:60-69)
-    if cfg.fusion_method == "sum":
-        pooled = pooled_t + pooled_v
-    elif cfg.fusion_method == "mul":
-        pooled = pooled_t * pooled_v
-    else:
-        raise AssertionError(cfg.fusion_method)
-    pooled = dropout(pooled, dropout_prob, train, generator)
-    vil_logit = dense(params["vil_logit"], pooled)
-    # the alignment (is-next-sentence analogue) head of pretraining
-    # (ref: BertForMultiModalPreTraining, vilbert.py:1431-1513)
-    seq_relationship = dense(cls["bi_seq_relationship"], pooled)
-    return vil_logit, vision_pred, linguistic_pred, seq_relationship
+    with span("vilbert.heads"):
+        cls = params["cls"]
+        linguistic_pred = vision_pred = None
+        if compute_heads:
+            # the LM head, its decoder tied to the word embedding
+            h = layer_norm(cls["transform_ln"], gelu(dense(cls["transform"], seq_t)))
+            word = params["bert"]["embeddings"]["word"]
+            dtype = torch.promote_types(h.dtype, word.dtype)
+            linguistic_pred = h.to(dtype) @ word.to(dtype).t() + cls["decoder_bias"].to(dtype)
+            hv = layer_norm(cls["v_transform_ln"], gelu(dense(cls["v_transform"], seq_v)))
+            vision_pred = dense(cls["v_decoder"], hv)
+        # fusion and the path logit (vln_bert.py:60-69)
+        if cfg.fusion_method == "sum":
+            pooled = pooled_t + pooled_v
+        elif cfg.fusion_method == "mul":
+            pooled = pooled_t * pooled_v
+        else:
+            raise AssertionError(cfg.fusion_method)
+        pooled = dropout(pooled, dropout_prob, train, generator)
+        vil_logit = dense(params["vil_logit"], pooled)
+        # the alignment (is-next-sentence analogue) head of pretraining
+        # (ref: BertForMultiModalPreTraining, vilbert.py:1431-1513)
+        seq_relationship = dense(cls["bi_seq_relationship"], pooled)
+        return vil_logit, vision_pred, linguistic_pred, seq_relationship
 
 
 # ---------------------------------------------------------------------------

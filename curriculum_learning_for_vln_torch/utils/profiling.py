@@ -21,7 +21,14 @@ weights and loss record, serving's episode batch and trajectories);
 ``vln.rollout.encode``, ``.scan``, ``.packed``, ``.observe``,
 ``.decode``, ``.env``, ``.refill``, ``.loss`` (the encoder, the step
 loops and each live step's parts, the losses); ``vln.update.backward``,
-``.clip``, ``.optim``.  ``scripts/torch_span_table.py`` reads them.
+``.clip``, ``.optim``.  ViLBERT pretraining (engine/pretrain.py,
+models/vilbert.py): ``vln.iter`` a step; ``vln.pretrain.batch``,
+``.masks``, ``.loss`` (a batch's gather, the masks, the loss terms);
+``vln.vilbert.embed``, ``.text``, ``.vision``, ``.coattn`` (each layer),
+``.heads`` (the poolers; the heads and the fused logits).
+``scripts/torch_span_table.py`` reads them; the benchmark's
+``lib/program_spans.py`` puts device time under them, a backward's with
+its forward.
 """
 from __future__ import annotations
 

@@ -49,6 +49,8 @@ T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from benchmark.lib.program_spans import innermost  # noqa: E402
+
 PROGRAM_PREFIX = "vln."
 LAYERS = ("vln.data", "vln.rollout", "vln.update")
 # the runtime calls in which the host waits for the card
@@ -62,33 +64,6 @@ Span = Tuple[str, float, float]
 def layer(name: str) -> str:
     """A span's layer: its name up to the second dot."""
     return ".".join(name.split(".")[:2])
-
-
-def innermost(spans: Sequence[Span]) -> List[Span]:
-    """Disjoint (name, start, end) pieces, in order, each under way in the
-    innermost of ``spans`` (the latest started; of two started together,
-    the first to end) over the whole piece."""
-    import heapq
-
-    edges = sorted({t for _, a, b in spans for t in (a, b)})
-    by_start = sorted(range(len(spans)), key=lambda i: spans[i][1])
-    active, out, k = [], [], 0
-    for lo, hi in zip(edges, edges[1:]):
-        while k < len(by_start) and spans[by_start[k]][1] <= lo:
-            i = by_start[k]
-            heapq.heappush(active, (-spans[i][1], spans[i][2], i))
-            k += 1
-        # a span that ended under a later-started one leaves the heap when it surfaces
-        while active and active[0][1] <= lo:
-            heapq.heappop(active)
-        if not active:
-            continue
-        name = spans[active[0][2]][0]
-        if out and out[-1][0] == name and out[-1][2] == lo:
-            out[-1] = (name, out[-1][1], hi)
-        else:
-            out.append((name, lo, hi))
-    return out
 
 
 def merged(intervals: Sequence[Interval]) -> List[Interval]:
@@ -223,8 +198,8 @@ def events(prof) -> dict:
             out["bench"].append((e.name, a, b))
         elif e.name in SYNCS:
             out["syncs"].append((e.name, a, b))
-        elif e.name.startswith("cuda") and ("Launch" in e.name or "Memcpy" in e.name
-                                             or "Memset" in e.name):
+        elif e.name.startswith("cu") and ("Launch" in e.name or "Memcpy" in e.name
+                                           or "Memset" in e.name):  # cuda* and cu* calls
             out["launches"][e.id] = (e.name, a, b)
         elif e.name.startswith("aten::"):
             parent = e.cpu_parent

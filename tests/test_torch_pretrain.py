@@ -103,6 +103,11 @@ def test_mask_regions_respects_validity():
     assert bool((masked[sel] == 0.0).all()) and bool((masked[~sel] == 1.0).all())
 
 
+def _one_hot(rooms):
+    """The port's region targets of the grounded world: one-hot room types."""
+    return torch.eye(len(synthetic.ROOM_TYPES))[torch.from_numpy(rooms)]
+
+
 def _batch(world, data, tok, rooms):
     """The first pretraining batch of the JAX package, and the same batch
     made by the port."""
@@ -116,7 +121,9 @@ def test_pretrain_batches_equal_jax(grounded):
     kw = dict(batch_size=8, max_path_len=MAX_PATH, feat_dim=FEAT, region_classes=rooms,
               n_region_classes=len(synthetic.ROOM_TYPES), epochs=2, seed=3)
     j_b = list(jp.pretrain_batches(world, data, tok, **kw))
-    t_b = list(tp.pretrain_batches(t_world, data, tok, device="cpu", **kw))
+    t_kw = {k: v for k, v in kw.items() if k not in ("region_classes", "n_region_classes")}
+    t_b = list(tp.pretrain_batches(t_world, data, tok, device="cpu",
+                                   node_targets=_one_hot(rooms), **t_kw))
     assert len(j_b) == len(t_b) == 2 * (len(data) // 8)
     for a, b in zip(j_b, t_b):
         assert a.keys() == b.keys()
@@ -200,8 +207,7 @@ def test_pretrainer_loss_decreases(grounded):
 
     def batches(epochs):
         return tp.pretrain_batches(t_world, data, tok, batch_size=8, max_path_len=MAX_PATH,
-                                   feat_dim=FEAT, region_classes=rooms,
-                                   n_region_classes=len(synthetic.ROOM_TYPES), epochs=epochs,
+                                   feat_dim=FEAT, node_targets=_one_hot(rooms), epochs=epochs,
                                    seed=0, device="cpu")
 
     gen = torch.Generator().manual_seed(1)
