@@ -77,9 +77,15 @@ def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.T
     """Inverted dropout by a boolean keep-mask, in the dtype of x: x divided
     by the keep probability rounded to that dtype, as core.py:91-94 divides
     (a bf16 x by bf16(1 - rate); torch would divide by a Python float in
-    f32, one bf16 ulp off in a third of the elements at rate 0.1)."""
-    keep = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    f32, one bf16 ulp off in a third of the elements at rate 0.1).
+
+    The divisor is a 0-dim tensor of x's dtype filled on x's device: a
+    ``torch.tensor`` of it is a blocking copy from pageable host memory
+    (the host waits for the stream at every dropout), and on the card a
+    CPU scalar divisor is applied as a multiply by its f32 reciprocal,
+    which rounds differently from the division."""
+    keep = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / keep, 0)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
