@@ -6,8 +6,8 @@ libraries land in ``build/kernels/`` at the root of the checkout (listed
 in ``.gitignore``), named by a digest of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.  Nothing is
 built when this module is imported: ``build`` runs at first use, or up
-front from ``chip_smoke.py``, which starts one ``nvcc`` per source at
-once.
+front from the card tests' ``card`` fixture (``tests/torch_card_world.py``),
+which starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ partials in rank order and writes its h' and c' tiles.
 ``lstm_cell_plan`` gives the launch geometry, which the CPU tests check.
 
 No path runs it: like the JAX package (ops/rnn.py:59-67), the port's
-decoder keeps ``ops/rnn.py::lstm_cell`` plain.  ``chip_smoke.py`` holds
-it against its plain twin at the decoder cell's shape.
+decoder keeps ``ops/rnn.py::lstm_cell`` plain.  The card tests
+(``tests/test_torch_card_kernels.py``) hold it against its plain twin at
+the decoder cell's shape.
 
 ``lstm_cell`` dispatches by device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel; there is no fallback between them.

@@ -17,8 +17,8 @@ default widths fit in the card's L2 cache).
 dense peaks of the H100 SXM5 80GB (NVIDIA's data sheet; the rates assume
 its 700 W power limit): bf16 989.4 TFLOP/s on the tensor cores, f32 66.9
 TFLOP/s outside them, HBM3 3.35 TB/s.  Any other platform gets no peak
-fields.  ``chip_smoke.py`` takes its kernels' bounds from the same
-constants.
+fields.  ``benchmark/lib/costs.py`` holds the same constants for the
+kernels' bounds.
 """
 from __future__ import annotations
 

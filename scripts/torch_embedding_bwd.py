@@ -17,7 +17,7 @@ measures:
 * each route's backward alone (``torch.autograd.grad`` of one retained
   lookup) in turns, old, new, new, old: CUDA-event ms a call and device
   ms a call by kernel name, with the launches a call
-  (``chip_smoke.kernel_times``);
+  (``scripts/torch_kernel_ab.py``'s ``kernel_times``);
 * whether two backward runs give bitwise-equal gradients;
 * whether the backward waits for the card on the host, under
   ``torch.cuda.set_sync_debug_mode("error")``;
@@ -40,10 +40,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
 
-import chip_smoke as cs  # noqa: E402
 from curriculum_learning_for_vln_torch.models import core  # noqa: E402
+from torch_kernel_ab import card_line, kernel_times  # noqa: E402
 
 V, D, L = 992, 256, 80
 SHAPES = {"il 512x80": 512, "pool 1536x80": 1536}
@@ -100,7 +100,7 @@ def measure(rows: int, device) -> dict:
         res["routes"][name] = {"bitwise_repeat": bool(torch.equal(first, second)),
                                "host_sync": host_sync(fn), **errors(first, want), "turns": []}
     for turn, name in enumerate(TURNS):
-        t = cs.kernel_times(calls[name], 20)
+        t = kernel_times(calls[name], 20)
         res["routes"][name]["turns"].append(t)
         print(f"{rows}x{L} {name:9s} turn {turn}: ms {t['ms']:.4f} device_ms {t['device_ms']:.4f} "
               f"events {t['device_events']:.0f} "
@@ -120,7 +120,7 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    out = {"card": cs.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+    out = {"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
            "shapes": {label: measure(rows, device) for label, rows in SHAPES.items()}}
     out["new_device_ms_both_calls"] = sum(s["routes"]["embedding"]["device_ms_median"]
                                           for s in out["shapes"].values())

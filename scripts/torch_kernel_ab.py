@@ -12,15 +12,16 @@ unpacked with ``git archive``.  Both trees' sources of the chosen groups
 both trees share (but for the LSTM scans' packed-W_hh scratch, which a
 tree from before the wide walks does not take and H = 256 does not read),
 on the same inputs; every call of a tree is first held against this
-checkout's plain version (the tolerances of chip_smoke.py).
+checkout's plain version (the tolerances of the card tests,
+``tests/test_torch_card_kernels.py``).
 
 * ``pano``: K4 and K5 (``csrc/pano_fused.cu``) at B = 64, 36 views of
   2048 + 128 features (the synthetic world's distribution, N(0.5, 0.5^2)),
   MC = 16, in the four mask modes, again at B = 61 in prng_shared (a short
   last group) and at B = 64 in prng_shared on a table with every second
   value 0 ("zeros"), rotating over 8 node sets whose rows together exceed
-  the 50 MB L2 (as chip_smoke.py does), beside each kernel's bound
-  (``chip_smoke.pano_bounds``).
+  the 50 MB L2, beside each kernel's bound (``benchmark/lib/costs.py``'s
+  ``pano_bounds``).
 * ``cand``: K6 and K7 (``csrc/cand_score.cu``) at B = 64, 16 candidates of
   2048 + 128 features, in the four mask modes, rotating over 8 candidate
   sets, beside ``torch.einsum`` for K7.
@@ -28,8 +29,9 @@ checkout's plain version (the tolerances of chip_smoke.py).
   = 256 at 11-20 and 17-80 tokens (K2 from K1's residuals), beside cuDNN's
   packed ``nn.LSTM`` (forward without and with autograd recording, and
   ``autograd.grad`` through it) and each kernel's bound
-  (``chip_smoke.lstm_bounds``), and K3 and K1 also at 0 and at 80 tokens in
-  every row (the forward's fixed cost, and its full walk of 80 valid steps);
+  (``benchmark/lib/costs.py``'s ``lstm_bounds``), and K3 and K1 also at 0
+  and at 80 tokens in every row (the forward's fixed cost, and its full
+  walk of 80 valid steps);
   then all three at the Self-Monitor's encoder shape, D = 256, H = 512, at
   17-80 tokens ("H=512": the wide walks, which take the packed-W_hh scratch,
   or in bf16 the resident walks, whose backward may write more rows of db's
@@ -42,10 +44,14 @@ checkout's plain version (the tolerances of chip_smoke.py).
   device split names each launch (K1/K3's bf16 gates_x: ``gates_x_kernel``
   in a tree before its wgmma launch, ``gx_wgmma_kernel`` from it on).
 
-Each turn is timed two ways: device ms a call (``chip_smoke.device_time_ms``,
-summed by kernel name) and CUDA-event ms a call (``chip_smoke.cuda_time_ms``
-around the same back-to-back calls through the C entry point, without the
-wrapper's checks).  Prints one line per (kernel, dtype, case, tree, turn),
+Each turn is timed two ways: device ms a call (``device_time_ms``, summed
+by kernel name, ``benchmark/lib/trace.py``'s ``kernel_label``) and
+CUDA-event ms a call (``cuda_time_ms``) around the same back-to-back
+calls through the C entry point, without the wrapper's checks.  The
+inputs are the card tests' (``tests/torch_card_world.py``).  The two
+timers and ``kernel_times`` are the repo's per-kernel timers:
+``scripts/torch_embedding_bwd.py`` and ``scripts/torch_lstm_bwd_trace.py``
+take them from here.  Prints one line per (kernel, dtype, case, tree, turn),
 then the card's name and power limit, then one JSON object of every time.
 All groups by default.
 """
@@ -63,9 +69,11 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
-import chip_smoke as cs  # noqa: E402
+import torch_card_world as cw  # noqa: E402
+from benchmark.lib import costs  # noqa: E402
+from benchmark.lib.trace import kernel_label  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import build  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import cand_score as kc  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import lstm_scan as kl  # noqa: E402
@@ -78,6 +86,139 @@ CSRC = "curriculum_learning_for_vln_torch/csrc"
 
 
 SOURCES = {"lstm": "lstm_scan", "cand": "cand_score", "pano": "pano_fused"}
+PREC = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean time of ``fn(i)`` over ``iters`` back-to-back calls between two
+    CUDA events: the device's time, or the host's where the calls are
+    issued more slowly than the device runs them."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int, warmup: int = 3, tries: int = 3):
+    """(device ms, device events, per-name split) per call of ``fn(i)``:
+    the summed durations of the device events (kernels, copies, sets) that
+    ``iters`` calls launch, under torch.profiler, per call; the split maps
+    each kernel name to (device ms, events) per call.  No host time enters
+    it, however slowly the calls are issued; annotation spans are left
+    out.  The times are taken name by name: each name's mean event times
+    its whole number of events per call (at least one), summed over the
+    names.  The profiler now and then loses events of a loop; such a loop
+    is profiled again, and if a name still is not whole, its mean event
+    still stands for it, so a lost event of a short kernel does not
+    count as one of a long one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(i)
+    best = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            by_name.setdefault(kernel_label(e.name), []).append(
+                e.time_range.end - e.time_range.start)
+        if sum(map(len, by_name.values())) > sum(map(len, best.values())):
+            best = by_name
+        if by_name and all(len(v) % iters == 0 for v in by_name.values()):
+            break
+    require(bool(best), "the profiler shows device events")
+    split = {}
+    for name, us in best.items():
+        per_call = max(1, round(len(us) / iters))
+        split[name] = (sum(us) / len(us) * per_call / 1e3, len(us) / iters)
+    total = sum(ms for ms, _ in split.values())
+    return total, sum(n for _, n in split.values()), split
+
+
+def kernel_times(fn, iters: int, warmup: int = 3):
+    """{ms, device_ms, device_events, device_split} of ``fn(i)``:
+    CUDA-event ms and device-only ms, in all and by kernel name."""
+    ms = cuda_time_ms(fn, iters, warmup)
+    dev, n, split = device_time_ms(fn, iters, warmup)
+    return {"ms": ms, "device_ms": dev, "device_events": n, "device_split": split}
+
+
+def library_device_ms(fn, iters: int, what: str):
+    """Device ms a call of one PyTorch library call; None where the call has
+    no implementation for these inputs (no cuDNN RNN of this dtype)."""
+    try:
+        return device_time_ms(fn, iters)[0]
+    except RuntimeError as e:
+        log(f"  {what}: {e}".splitlines()[0])
+        return None
+
+
+def torch_lstm(xs, w_ih, w_hh, b):
+    """torch.nn.LSTM (cuDNN) holding the kernels' weights in its layout."""
+    D, H = w_ih.shape[0], w_hh.shape[0]
+    lstm = torch.nn.LSTM(D, H, batch_first=True).to(device=xs.device, dtype=xs.dtype)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih.t())
+        lstm.weight_hh_l0.copy_(w_hh.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+        lstm.flatten_parameters()
+    return lstm
+
+
+def lstm_library(xs, lengths, w_ih, w_hh, b, iters):
+    """cuDNN's torch.nn.LSTM on one packed direction: device ms of the
+    forward without and with autograd recording, and of the backward of
+    that forward's graph (None where cuDNN has no RNN of this dtype)."""
+    lstm = torch_lstm(xs, w_ih, w_hh, b)
+    x = xs.detach().clone().requires_grad_(True)
+    what = f"torch.nn.LSTM in {xs.dtype}"
+
+    def packed(t):
+        return torch.nn.utils.rnn.pack_padded_sequence(t, lengths.cpu(), batch_first=True,
+                                                       enforce_sorted=False)
+
+    with torch.no_grad():
+        infer_in = packed(xs)
+        infer = library_device_ms(lambda i: lstm(infer_in), iters, what)
+    fwd = library_device_ms(lambda i: lstm(packed(x)), iters, what)
+    if fwd is None:
+        return {"lstm_scan": infer, "lstm_scan_train": None, "lstm_scan_bwd": None}
+    out, _ = lstm(packed(x))
+    g = torch.randn_like(out.data)
+    inputs = [x, *lstm.parameters()]
+    bwd = library_device_ms(lambda i: torch.autograd.grad(out.data, inputs, g, retain_graph=True),
+                            iters, what)
+    return {"lstm_scan": infer, "lstm_scan_train": fwd, "lstm_scan_bwd": bwd}
 
 
 def build_tree(tag: str, tree: Path, names):
@@ -128,7 +269,7 @@ def lstm_cases(dtype, dev, gen):
     full = torch.full((64,), 80, device=dev)
     cases = [(label, 256, 256, 80, lengths) for label, lengths in (
         ("11-20 tokens", torch.randint(11, 21, (64,), generator=gen, device=dev)),
-        ("17-80 tokens", cs.long_lengths(64, gen, dev)),
+        ("17-80 tokens", cw.long_lengths(64, gen, dev)),
         # K3 and K1 only: the forward's fixed cost (no step valid) and its
         # full walk (every step valid)
         ("0 tokens", torch.zeros_like(full)), ("80 tokens", full))]
@@ -141,8 +282,8 @@ def lstm_cases(dtype, dev, gen):
     cases.append(("beam rescoring", 2176 if dtype == torch.bfloat16 else 512, 256, 16, beam))
     for label, D, H, L, lengths in cases:
         if lengths is None:
-            lengths = cs.long_lengths(64, gen, dev)
-        xs, w_ih, w_hh, b = cs.lstm_inputs(dtype, dev, gen, lengths.shape[0], L=L, D=D, H=H)
+            lengths = cw.long_lengths(64, gen, dev)
+        xs, w_ih, w_hh, b = cw.lstm_inputs(dtype, dev, gen, lengths.shape[0], L=L, D=D, H=H)
         wpack = torch.empty((4 * H * H,), dtype=dtype, device=dev)  # the wide walks' scratch
         B, L, D = xs.shape
         H = w_hh.shape[0]
@@ -150,11 +291,12 @@ def lstm_cases(dtype, dev, gen):
         f32 = dict(dtype=torch.float32, device=dev)
         uniform = label in ("0 tokens", "80 tokens")
         fwd_only = uniform or label == "beam rescoring"
-        bounds = cs.lstm_bounds(xs, lengths, w_ih, w_hh, b)
+        steps = int(lengths.clamp(max=L).sum())
+        bounds = {name: s * 1e3 for name, s in zip(
+            ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"),
+            costs.lstm_bounds(B, L, D, H, steps, PREC[dtype]).values())}
         libs = (dict.fromkeys(("lstm_scan", "lstm_scan_train")) if uniform else
-                {"lstm_scan": cs.lstm_library_infer(xs, lengths, w_ih, w_hh, b, 20),
-                 **dict(zip(("lstm_scan_train", "lstm_scan_bwd"),
-                            cs.lstm_library(xs, lengths, w_ih, w_hh, b, 20)))})
+                lstm_library(xs, lengths, w_ih, w_hh, b, 20))
 
         # K3 and K1 through their C entry points, against the plain forward
         want_f = kl.lstm_scan_train_plain(xs, lengths, w_ih, w_hh, b)
@@ -182,8 +324,8 @@ def lstm_cases(dtype, dev, gen):
                     if bool(valid.any()):
                         got.append(gx[valid])
                         want.append(want_f[4][valid])
-                e = cs.compare(got, want, 1e-4)
-                cs.check(e[0] <= e[1], f"{name} {tag} {dtype} {label}: {e[0]:.3g} > {e[1]:.3g}")
+                e = cw.compare(got, want, 1e-4)
+                require(e[0] <= e[1], f"{name} {tag} {dtype} {label}: {e[0]:.3g} > {e[1]:.3g}")
             yield name, label, call, check, bounds[name], libs[name]
         if fwd_only:
             continue
@@ -214,10 +356,10 @@ def lstm_cases(dtype, dev, gen):
             return run
 
         def check(tag):
-            e = cs.compare(outs[:1], want[:1], 1e-4 if dtype == torch.float32 else 8e-3)
-            cs.check(e[0] <= e[1], f"K2 {tag} {dtype} {label}: d_xs {e[0]:.3g} > {e[1]:.3g}")
-            e = cs.compare(outs[1:], want[1:], 1e-4)
-            cs.check(e[0] <= e[1], f"K2 {tag} {dtype} {label}: dW {e[0]:.3g} > {e[1]:.3g}")
+            e = cw.compare(outs[:1], want[:1], 1e-4 if dtype == torch.float32 else 8e-3)
+            require(e[0] <= e[1], f"K2 {tag} {dtype} {label}: d_xs {e[0]:.3g} > {e[1]:.3g}")
+            e = cw.compare(outs[1:], want[1:], 1e-4)
+            require(e[0] <= e[1], f"K2 {tag} {dtype} {label}: dW {e[0]:.3g} > {e[1]:.3g}")
         yield "lstm_scan_bwd", label, call, check, bounds["lstm_scan_bwd"], libs["lstm_scan_bwd"]
 
 
@@ -229,8 +371,8 @@ def cand_cases(dtype, dev, gen):
     d_logits = torch.randn(B, MC + 1, generator=gen, device=dev)
     q = torch.randn(B, D + A, generator=gen, device=dev) / 32
     groups = kc.cand_score_plan(B, MC).grid[1]
-    for mode in cs.MODES:
-        drop = cs.drop_spec(mode, B, MC, D, gen, dev)
+    for mode in cw.MODES:
+        drop = cw.drop_spec(mode, B, MC, D, gen, dev)
         dargs = c_args(drop, B, MC, D, sets[0].device, "cand_score", dtype)
         want6 = kc.cand_score_plain(sets[0], ang, valid, q, drop)
         logits = torch.empty((B, MC + 1), device=dev)
@@ -246,8 +388,8 @@ def cand_cases(dtype, dev, gen):
             return run
 
         def check6(tag, want=want6, logits=logits, mode=mode):
-            e = cs.compare((logits,), (want,), 1e-4)
-            cs.check(e[0] <= e[1], f"K6 {tag} {dtype} {mode}: {e[0]:.3g} > {e[1]:.3g}")
+            e = cw.compare((logits,), (want,), 1e-4)
+            require(e[0] <= e[1], f"K6 {tag} {dtype} {mode}: {e[0]:.3g} > {e[1]:.3g}")
         yield "cand_score", mode, call6, check6, None, None
 
         want = kc.cand_score_bwd_plain(sets[0], ang, valid, d_logits, drop)
@@ -264,8 +406,8 @@ def cand_cases(dtype, dev, gen):
             return run
 
         def check(tag, want=want, out=out, mode=mode):
-            e = cs.compare((out,), (want,), 1e-4)
-            cs.check(e[0] <= e[1], f"K7 {tag} {dtype} {mode}: {e[0]:.3g} > {e[1]:.3g}")
+            e = cw.compare((out,), (want,), 1e-4)
+            require(e[0] <= e[1], f"K7 {tag} {dtype} {mode}: {e[0]:.3g} > {e[1]:.3g}")
         yield "cand_score_bwd", mode, call, check, None, None
 
     w = torch.where(valid, d_logits[:, :MC], 0.0).to(dtype)
@@ -285,16 +427,18 @@ def pano_cases(dtype, dev, gen):
     cand_view = torch.randint(0, V, (B0, MC), generator=gen, device=dev)
     tv = torch.randn(B0, D + A, generator=gen, device=dev) / 32
     d_vis = torch.randn(B0, D + A, generator=gen, device=dev)
-    for B, mode, table in ([(B0, m, features) for m in cs.MODES]
+    for B, mode, table in ([(B0, m, features) for m in cw.MODES]
                            + [(B0 - 3, "prng_shared", features), (B0, "prng_shared", zeros)]):
         case = f"{mode} B={B}" + (" zeros" if table is zeros else "")
         sets = [n[:B].contiguous() for n in node_sets]
         vw, cv, q, dv = (t[:B].contiguous() for t in (views, cand_view, tv, d_vis))
-        drop = cs.drop_spec(mode, B, V, D, gen, dev)
+        drop = cw.drop_spec(mode, B, V, D, gen, dev)
         dargs = c_args(drop, B, V, D, table.device, "pano_attend", dtype)
         want = kp.pano_attend_plain(sets[0], vw, cv, table, loc, q, drop)
         want5 = kp.pano_attend_bwd_plain(sets[0], vw, table, loc, want[1], dv, drop)
-        bounds = cs.pano_bounds(sets[0], vw, cv, table, q, want, drop)
+        bounds = [s * 1e3 for s in costs.pano_bounds(
+            B, int(torch.unique(sets[0]).numel()), int(torch.unique(vw).numel()), V, D, A, MC,
+            PREC[dtype], mode.startswith("prng")).values()]
         vis = torch.empty((B, D + A), device=dev)
         alpha = torch.empty((B, V), device=dev)
         cand = torch.empty((B, MC, D), dtype=dtype, device=dev)
@@ -313,9 +457,9 @@ def pano_cases(dtype, dev, gen):
             return run
 
         def check4(tag, want=want, vis=vis, alpha=alpha, cand=cand, case=case):
-            cs.check(torch.equal(cand, want[2]), f"K4 {tag} {dtype} {case}: candidate rows")
-            e = cs.compare((vis, alpha), want[:2], 1e-4)
-            cs.check(e[0] <= e[1], f"K4 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
+            require(torch.equal(cand, want[2]), f"K4 {tag} {dtype} {case}: candidate rows")
+            e = cw.compare((vis, alpha), want[:2], 1e-4)
+            require(e[0] <= e[1], f"K4 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
         yield "pano_attend", case, call4, check4, bounds[0], None
 
         def call5(lib, dargs=dargs, drop=drop, sets=sets, vw=vw, alpha=want[1], dv=dv, d_tv=d_tv,
@@ -330,8 +474,8 @@ def pano_cases(dtype, dev, gen):
             return run
 
         def check5(tag, want=want5, d_tv=d_tv, case=case):
-            e = cs.compare((d_tv,), (want,), 1e-4)
-            cs.check(e[0] <= e[1], f"K5 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
+            e = cw.compare((d_tv,), (want,), 1e-4)
+            require(e[0] <= e[1], f"K5 {tag} {dtype} {case}: {e[0]:.3g} > {e[1]:.3g}")
         yield "pano_attend_bwd", case, call5, check5, bounds[1], None
 
 
@@ -352,27 +496,25 @@ def main() -> int:
     libs = {"other": build_tree("other", Path(args.other).resolve(), names),
             "this": build_tree("this", ROOT, names)}
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    gen = torch.Generator(device=dev).manual_seed(cw.SEED)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for kernel, case, call, check, bound, lib in (item for k in args.kernels
                                                       for item in CASES[k](dtype, dev, gen)):
             if call is None:  # the library call: no tree, no turns
-                ms = cs.device_time_ms(check, 100)[0]
+                ms = device_time_ms(check, 100)[0]
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case,
                              "tree": "library", "device_ms": ms})
-                cs.log(f"{kernel:22s} {str(dtype):14s} {case:13s} library: {ms:.4f} ms")
+                log(f"{kernel:22s} {str(dtype):14s} {case:13s} library: {ms:.4f} ms")
                 continue
             if lib is not None:  # the LSTM kernels' cuDNN yardstick and bound
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case,
-                             "tree": "library", "device_ms": lib["library_device_ms"],
-                             "bound_ms": bound[0], "bound_by": bound[1]})
-                cs.log(f"{kernel:22s} {str(dtype):14s} {case:13s} cuDNN nn.LSTM: "
-                       f"{cs.fmt(lib['library_device_ms'])} ms; bound {bound[0]:.4f} ms "
-                       f"({bound[1]})")
+                             "tree": "library", "device_ms": lib, "bound_ms": bound})
+                log(f"{kernel:22s} {str(dtype):14s} {case:13s} cuDNN nn.LSTM: {lib:.4f} ms; "
+                    f"bound {bound:.4f} ms")
             elif bound is not None:
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case,
-                             "tree": "bound", "bound_ms": bound[0], "bound_by": bound[1]})
+                             "tree": "bound", "bound_ms": bound})
             lstm = kernel.startswith("lstm_scan")
             iters = 20 if lstm else 100
             src = ("lstm_scan" if lstm else "pano_fused" if kernel.startswith("pano")
@@ -382,16 +524,16 @@ def main() -> int:
                 run(0)
                 torch.cuda.synchronize()
                 check(tag)
-                ms, _, split = cs.device_time_ms(run, iters)
-                event_ms = cs.cuda_time_ms(run, iters)
+                ms, _, split = device_time_ms(run, iters)
+                event_ms = cuda_time_ms(run, iters)
                 rows.append({"kernel": kernel, "dtype": str(dtype), "case": case, "tree": tag,
                              "turn": turn, "device_ms": ms, "event_ms": event_ms,
                              "split": {k: v[0] for k, v in split.items()}})
-                cs.log(f"{kernel:22s} {str(dtype):14s} {case:16s} {tag:5s} (turn {turn}): "
+                log(f"{kernel:22s} {str(dtype):14s} {case:16s} {tag:5s} (turn {turn}): "
                        f"device {ms:.4f} ms, event {event_ms:.4f} ms | "
                        + ", ".join(f"{k} {v[0]:.4f}" for k, v in split.items()))
-    cs.log(cs.card_line())
-    cs.log(json.dumps({"ab": rows}))
+    log(card_line())
+    log(json.dumps({"ab": rows}))
     return 0
 
 

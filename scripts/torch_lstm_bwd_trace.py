@@ -21,12 +21,12 @@ follows the source it ships with), into ``build/variants/``:
   end of warp 15's product).
 
 Every variant is first held against the plain version at B = 64 and 40
-(chip_smoke.py's tolerances), then timed in turns (each variant, then
-the same in reverse order) at D = 256, H = 512, B = 64, L = 80 and 17-80
-tokens: device ms of the walk's kernel and of all K2's launches
-(``chip_smoke.kernel_times``).  The traces print each phase's mean
-cycles a group step at B = 64 (two row groups) and B = 40 (one), and the
-period of a group step.  Ends with the card's name, power limit and SM
+(the tolerances of ``tests/test_torch_card_kernels.py``), then timed in
+turns (each variant, then the same in reverse order) at D = 256, H = 512,
+B = 64, L = 80 and 17-80 tokens: device ms of the walk's kernel and of
+all K2's launches (``scripts/torch_kernel_ab.py``'s ``kernel_times``).
+The traces print each phase's mean cycles a group step at B = 64 (two
+row groups) and B = 40 (one), and the period of a group step.  Ends with the card's name, power limit and SM
 clock (the trace is in SM cycles).
 """
 from __future__ import annotations
@@ -40,11 +40,12 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests"), str(ROOT / "scripts")]
 
-import chip_smoke as cs  # noqa: E402
+import torch_card_world as cw  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import build  # noqa: E402
 from curriculum_learning_for_vln_torch.ops.cuda import lstm_scan as k  # noqa: E402
+from torch_kernel_ab import card_line, kernel_times, require  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
 KERNEL = "bwd_recurrence_res_kernel"
@@ -102,7 +103,7 @@ PHASES = ["wait", "sum", "cells", "barrier", "product", "send", "to the next cel
 
 def patched(src: str, pairs) -> str:
     for old, new in pairs:
-        cs.check(src.count(old) == 1, f"a variant's patch applies once: {old[:60]!r}")
+        require(src.count(old) == 1, f"a variant's patch applies once: {old[:60]!r}")
         src = src.replace(old, new)
     return src
 
@@ -123,8 +124,8 @@ def build_variants():
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
-        cs.check(proc.returncode == 0, f"nvcc builds variant {name}:\n{log}")
-        for entry, regs, st, ld in cs.kernel_resources(log, KERNEL):
+        require(proc.returncode == 0, f"nvcc builds variant {name}:\n{log}")
+        for entry, regs, st, ld in cw.kernel_resources(log, KERNEL):
             print(f"{name}: {entry}: {regs} registers, spills {st} / {ld} B", flush=True)
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
     return libs
@@ -163,15 +164,15 @@ def main() -> int:
         print("torch_lstm_bwd_trace: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = cs.card_line()
+    card = card_line()
     print(card, flush=True)
     libs = build_variants()
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    gen = torch.Generator(device=dev).manual_seed(cw.SEED)
     sets = {}
     for B in (64, 40):
-        lengths = cs.long_lengths(B, gen, dev)
-        xs, w_ih, w_hh, b = cs.lstm_inputs(torch.bfloat16, dev, gen, B, L, D, H)
+        lengths = cw.long_lengths(B, gen, dev)
+        xs, w_ih, w_hh, b = cw.lstm_inputs(torch.bfloat16, dev, gen, B, L, D, H)
         d_out = torch.randn(B, L, H, generator=gen, device=dev)
         dhT, dcT = (torch.randn(B, H, generator=gen, device=dev) for _ in range(2))
         tk = k.lstm_scan_train(xs, lengths, w_ih, w_hh, b)
@@ -184,11 +185,11 @@ def main() -> int:
             build._libs["lstm_scan"] = libs[name]
             for B, (res, want) in sets.items():
                 got = k.lstm_scan_bwd(*res)
-                e1, e2 = cs.compare(got[:1], want[:1], 8e-3), cs.compare(got[1:], want[1:], 1e-4)
-                cs.check(e1[0] <= e1[1] and e2[0] <= e2[1],
+                e1, e2 = cw.compare(got[:1], want[:1], 8e-3), cw.compare(got[1:], want[1:], 1e-4)
+                require(e1[0] <= e1[1] and e2[0] <= e2[1],
                          f"{name} at B = {B}: d_xs {e1}, dW and db {e2}")
             res = sets[64][0]
-            t = cs.kernel_times(lambda i: k.lstm_scan_bwd(*res), 20)
+            t = kernel_times(lambda i: k.lstm_scan_bwd(*res), 20)
             walk = t["device_split"][KERNEL][0]
             times[name].append({"walk": walk, "K2": t["device_ms"]})
             print(f"turn {turn} {name:10s}: walk {walk:.4f} device ms ({walk / 80 * 1e3:.2f} us "

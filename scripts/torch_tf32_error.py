@@ -3,13 +3,13 @@
 CPU: ``lstm_scan_bwd_emulated`` (TF32 products with the operands the
 kernel splits split, in the kernel's order of sums) and the same with no
 operand split (plain TF32), each against the plain f32 backward
-``lstm_scan_bwd_plain``, beside the tolerances ``chip_smoke.py`` holds
-the kernel to:
+``lstm_scan_bwd_plain``, beside the tolerances the card tests
+(``tests/test_torch_card_kernels.py``) hold the kernel to:
 
     python3 scripts/torch_tf32_error.py
 
-B = 64, L = 80, D = H = 256, inputs drawn as chip_smoke.py draws them
-(``lstm_inputs``), token lengths 11-20 and 16-80 (one row at 80), bf16 and
+B = 64, L = 80, D = H = 256, inputs drawn as the card tests draw them
+(``tests/torch_card_world.py::lstm_inputs``), token lengths 11-20 and 16-80 (one row at 80), bf16 and
 f32.  In bf16 only the walk's product has TF32 operands to split: its
 input-side GEMMs multiply bf16 terms, whatever the split.  Prints one
 line per (dtype, lengths, arithmetic) with each output's max |error| and

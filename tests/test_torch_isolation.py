@@ -1,7 +1,10 @@
-"""The port stands alone: neither it nor ``chip_smoke.py`` imports JAX or
-the JAX package, and its entry points run on the card unless the caller
+"""The port stands alone: neither it nor its card tests
+(``tests/test_torch_card_*.py``, ``tests/test_torch_keep_mask_card.py``,
+``tests/torch_card_world.py``) import JAX
+or the JAX package, and its entry points run on the card unless the caller
 asks for the CPU."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -12,12 +15,15 @@ import torch
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.join(REPO, "tests")
 PORT = os.path.join(REPO, "curriculum_learning_for_vln_torch")
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "curriculum_learning_for_vln_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(TESTS, "torch_card_world.py"),
+             os.path.join(TESTS, "test_torch_keep_mask_card.py"),
+             *sorted(glob.glob(os.path.join(TESTS, "test_torch_card_*.py")))]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -78,7 +84,8 @@ def test_speaker_modules_are_scanned_and_import_without_jax():
 
 
 def test_package_import_leaves_jax_out():
-    code = ("import sys, curriculum_learning_for_vln_torch.serve, chip_smoke;"
+    code = (f"import sys; sys.path.insert(0, {TESTS!r});"
+            "import curriculum_learning_for_vln_torch.serve, torch_card_world;"
             f"bad = {{m.split('.')[0] for m in sys.modules}} & {set(FORBIDDEN)!r};"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

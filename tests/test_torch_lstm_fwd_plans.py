@@ -6,7 +6,7 @@ the kernel's precision (exact bf16 products, or TF32 with both f32
 operands split) and the step product h . W_hh per block of a cluster in
 TF32 with h split into two halves.  It is held against the Pallas
 forward kernels in interpret mode, from the same numpy-seeded inputs,
-within the tolerance ``chip_smoke.py`` holds the kernels to.
+within the tolerance ``test_torch_card_kernels.py`` holds the kernels to.
 ``lstm_scan_fwd_plan`` gives the launch geometry; the plan tests hold it
 to what the kernels assume: shared memory and the W_hh fragments'
 registers within the H100's, every valid step in one gates_x tile, every

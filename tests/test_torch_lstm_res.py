@@ -13,7 +13,8 @@ out, on the CPU.
   count it refuses to plan the resident walk.
 
 The kernel's indices (fragments, cells, the exchange) are held only on
-the card, by chip_smoke.py's comparison with the plain version.
+the card, by ``test_torch_card_kernels.py``'s comparison with the plain
+version.
 """
 import math
 
@@ -27,7 +28,8 @@ from curriculum_learning_for_vln_torch.ops.cuda import lstm_scan as t_lstm
 
 MAX_SMEM = 232448  # shared memory a block can use on the H100
 # cudaOccupancyMaxActiveClusters of the resident walk on an H100 80GB HBM3
-# (132 SMs, one block an SM; chip_smoke.py prints the card's own count)
+# (132 SMs, one block an SM; test_torch_card_kernels.py's walk plans with -s
+# print the card's own count)
 H100_RES_CLUSTERS = 7
 TINY = [0.0, -0.0, 2.0 ** -149, 2.0 ** -126, -(2.0 ** -126) * (1 + 2.0 ** -23),
         2.0 ** -125 * 1.7, 2.0 ** -110, -(2.0 ** -110) * 1.3, 2.0 ** -109 * 1.9]

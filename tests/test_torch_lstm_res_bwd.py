@@ -20,7 +20,8 @@ CPU.
   H keep clusters of 8.
 
 The kernel's indices (fragments, cells, the exchange) are held only on
-the card, by chip_smoke.py's comparison with the plain version.
+the card, by ``test_torch_card_kernels.py``'s comparison with the plain
+version.
 """
 import jax.numpy as jnp
 import numpy as np

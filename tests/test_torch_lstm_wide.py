@@ -119,7 +119,8 @@ def test_pad_rows_is_exact(prec):
 
 MAX_REGS_512 = 128  # registers a thread at 512 threads (65,536 an SM)
 # cudaOccupancyMaxActiveClusters of the resident walk on an H100 80GB HBM3
-# (132 SMs, one block an SM; chip_smoke.py prints the card's own count)
+# (132 SMs, one block an SM; test_torch_card_kernels.py's walk plans with -s
+# print the card's own count)
 H100_RES_CLUSTERS = 7
 
 

@@ -6,7 +6,7 @@ package, from the same parameters, on the small synthetic world of
   the JAX words, within 1e-4 up to each sample's <EOS>, and the words
   equal; where a near-tie (the JAX logits' two best within 1e-4) flips a
   word, the test says so and compares that sample no further, as
-  ``compare_actions`` in chip_smoke.py does;
+  ``compare_actions`` in ``torch_card_world.py`` does;
 * sampled ``infer`` with the JAX Gumbel draw replayed (the keys ``infer``
   splits, ``jax.random.gumbel`` of the logits' shape, which is how
   ``jax.random.categorical`` draws): the words equal, the log-
